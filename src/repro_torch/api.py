@@ -7,10 +7,12 @@
 from repro_torch.core.api import BACKENDS, families, resolve_family, solve
 from repro_torch.core.types import (FAMILIES, LassoProblem, ProblemFamily,
                                     SolveState, SolverConfig, SolverResult,
+                                    SparseOperand, SVMProblem,
                                     register_family)
 
 __all__ = [
     "solve", "resolve_family", "families", "BACKENDS",
     "FAMILIES", "ProblemFamily", "register_family",
-    "LassoProblem", "SolverConfig", "SolverResult", "SolveState",
+    "LassoProblem", "SVMProblem", "SparseOperand",
+    "SolverConfig", "SolverResult", "SolveState",
 ]

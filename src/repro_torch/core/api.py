@@ -14,6 +14,7 @@ from repro_torch.core.types import (FAMILIES, ProblemFamily, SolveState,
 
 # Importing a family module registers it in FAMILIES.
 import repro_torch.core.lasso  # noqa: F401  (registers "lasso")
+import repro_torch.core.svm  # noqa: F401  (registers "svm")
 
 __all__ = ["solve", "resolve_family", "families", "BACKENDS"]
 
@@ -72,8 +73,10 @@ def solve(problem, cfg: Optional[SolverConfig] = None,
           callbacks: Optional[Sequence[Callable]] = None) -> SolverResult:
     """Solve a registered problem family.
 
-    problem:  a registered problem dataclass (LassoProblem); its type
-              picks the family.
+    problem:  a registered problem dataclass (LassoProblem, SVMProblem);
+              its type picks the family. A, dense or a SparseOperand.
+              An SVMProblem with a kernel other than "linear" raises
+              NotImplementedError (the kernel-SVM family is not ported).
     cfg:      SolverConfig (defaults to ``SolverConfig()``, on the card).
     backend:  "local" ("sharded" is a later slice and raises).
     family:   optional explicit family name, overriding type inference.

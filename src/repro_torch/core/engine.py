@@ -25,7 +25,9 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.core import linalg, rng
+from repro_torch.core.sparse_exec import spmm_aux
 from repro_torch.core.types import SolveState, SolverResult, resume_carry
+from repro_torch.kernels import spmm
 from repro_torch.kernels.gram import gram_t
 
 __all__ = [
@@ -127,9 +129,16 @@ def block_draws(key, sampler, start: int, H: int, width: int,
 
 def deferred_steps(ctx, handle, buf, s_grp: int):
     """The deferred m-dimensional step vectors S_t = A_{B_t} @ buf_t,
-    (s_grp, m_loc), for the dense column-sampling layout: one product of
-    the sampled columns Y (m_loc, s_grp*mu) with the block-diagonal
-    (s_grp*mu, s_grp) matrix holding each step's buf_t."""
+    (s_grp, m_loc), for the column-sampling layout. Sparse (``ctx.sparse``,
+    ``handle`` the gathered ELL columns): O(nnz of the sampled columns)
+    scatter-adds. Dense: one product of the sampled columns Y (m_loc,
+    s_grp*mu) with the block-diagonal (s_grp*mu, s_grp) matrix holding
+    each step's buf_t."""
+    if ctx.sparse:
+        rows_g, vals_g, _ = handle
+        return spmm.scatter_steps(rows_g.reshape(s_grp, ctx.mu, -1),
+                                  vals_g.reshape(s_grp, ctx.mu, -1),
+                                  buf, ctx.m_loc)
     smu = s_grp * ctx.mu
     D = torch.zeros((smu, s_grp), dtype=buf.dtype, device=buf.device)
     D[torch.arange(smu, device=buf.device),
@@ -169,6 +178,9 @@ class FamilyProgram:
     schedule(ctx, cfg, total) -> (total + 1,) tensor, optional.
     inner_impl(ctx, s_grp) -> str, optional: surfaced as
         ``aux["inner_impl"]`` with main+tail labels.
+    spmm_kind: the sparse layout of the fused payload ("col_gram",
+        "row_gram"); the engine surfaces ``aux["spmm_impl"]`` for a
+        sparse ``ctx.A`` from it (nothing for a dense one).
     """
 
     name: str
@@ -182,6 +194,7 @@ class FamilyProgram:
     carry_names: Tuple[str, ...]
     schedule: Optional[Callable] = None
     inner_impl: Optional[Callable] = None
+    spmm_kind: Optional[str] = None
 
 
 def run_program(prog: FamilyProgram, problem, cfg, x0=None,
@@ -220,4 +233,6 @@ def run_program(prog: FamilyProgram, problem, cfg, x0=None,
     if prog.inner_impl is not None:
         aux["inner_impl"] = grouped_impl_label(
             lambda g: prog.inner_impl(ctx, g), H, s)
+    if prog.spmm_kind is not None:
+        aux.update(spmm_aux(ctx.A, prog.spmm_kind))
     return SolverResult(x=x, objective=objs, aux=aux)

@@ -1,12 +1,14 @@
 """Classical (synchronous) coordinate-descent solvers for proximal
 least-squares — paper Algorithm 1 and its non-accelerated /
 single-coordinate variants (accBCD, BCD, accCD, CD). The port of
-``repro/core/lasso.py``, dense operands, one process.
+``repro/core/lasso.py``, one process, dense or sparse operands.
 
 These are the in-port oracle the SA solvers are held to (SA and
 classical draw the same blocks and agree in exact arithmetic). Each
-iteration's (mu, mu + 1) Gram/projection block is a plain product; the
-hand-written ``gram`` kernel serves the SA solvers' (s mu)-wide block.
+iteration's (mu, mu + 1) Gram/projection block is a plain product for a
+dense A (the hand-written ``gram`` kernel serves the SA solvers' (s mu)-
+wide block), and the ``spmm`` kernel for a sparse one
+(``core.sparse_exec.col_block_ops``).
 """
 from __future__ import annotations
 
@@ -17,8 +19,11 @@ import torch
 
 from repro_torch.core import linalg, prox as prox_lib, rng
 from repro_torch.core.engine import block_draws
+from repro_torch.core.sparse_exec import (col_block_ops, prep_operand,
+                                          spmm_aux)
 from repro_torch.core.types import (LassoProblem, SolveState, SolverConfig,
-                                    SolverResult, register_family,
+                                    SolverResult, SparseOperand,
+                                    operand_matvec, register_family,
                                     require_unit_block, resolve_device,
                                     resume_carry)
 
@@ -59,10 +64,7 @@ def _prep(problem: LassoProblem, cfg: SolverConfig):
     solve's device and dtype, the block count q, and the batched block
     sampler keys (B, 2) -> (B, mu)."""
     device = resolve_device(cfg.device)
-    A = torch.as_tensor(problem.A).to(device=device, dtype=cfg.dtype)
-    if A.dim() != 2:
-        raise ValueError(f"A must be a dense (m, n) matrix; got shape "
-                         f"{tuple(A.shape)}")
+    A = prep_operand(problem.A, cfg.dtype, device)
     b = torch.as_tensor(problem.b).to(device=device, dtype=cfg.dtype)
     n = A.shape[1]
     mu = cfg.block_size
@@ -96,12 +98,6 @@ def _draws(cfg, sampler, device, start: int, n: int):
         yield from batch
 
 
-def _block_gram(A, idx, vecs):
-    """(A_B, A_B^T [A_B | vecs]) for the sampled columns idx."""
-    Ah = A[:, idx]
-    return Ah, Ah.T @ torch.cat([Ah, vecs], dim=1)
-
-
 # ---------------------------------------------------------------------------
 # Non-accelerated BCD (mu = 1 -> CD).
 # ---------------------------------------------------------------------------
@@ -113,6 +109,7 @@ def bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
     x0: optional warm start; state: optional :class:`SolveState` carrying
     x and the residual plus the global iteration offset."""
     A, b, n, mu, q, sampler, prox, device = _prep(problem, cfg)
+    block_gram, block_apply = col_block_ops(A)
     carry0 = resume_carry(state, x0, "bcd_lasso")
     start = 0 if state is None else int(state.iteration)
     if carry0 is not None:
@@ -123,24 +120,25 @@ def bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
         r = -b
     else:
         x = as_vector(x0, cfg, device)
-        r = A @ x - b
+        r = operand_matvec(A, x) - b
     objs = []
     for idx in _draws(cfg, sampler, device, start, n):
-        Ah, GR = _block_gram(A, idx, r[:, None])
+        Ah, GR = block_gram(idx, r[:, None])
         G, rh = GR[:, :mu], GR[:, mu]
         v = linalg.power_iteration_max_eig(G, cfg.power_iters)
         eta = 1.0 / linalg.floor_eig(v)
         g = x[idx] - eta * rh
         dx = prox(g, eta) - x[idx]
         x = x.index_add(0, idx, dx)
-        r = r + Ah @ dx
+        r = r + block_apply(Ah, dx)
         objs.append(_objective(r, x, problem) if cfg.track_objective
                     else torch.zeros((), dtype=cfg.dtype, device=device))
     return SolverResult(
         x=x, objective=torch.stack(objs),
         aux={"residual": r,
              "state": SolveState(start + cfg.iterations,
-                                 {"x": x, "residual": r})})
+                                 {"x": x, "residual": r}),
+             **spmm_aux(A, "col_gram")})
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +153,7 @@ def acc_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
     x_h = theta_h^2 y_h + z_h is implicit. x0 seeds z (y restarts at 0);
     state resumes z, y, ztil, ytil and the theta schedule."""
     A, b, n, mu, q, sampler, prox, device = _prep(problem, cfg)
+    block_gram, block_apply = col_block_ops(A)
     H = cfg.iterations
     carry0 = resume_carry(state, x0, "acc_bcd_lasso")
     start = 0 if state is None else int(state.iteration)
@@ -171,7 +170,7 @@ def acc_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
             ztil = -b
         else:
             z = as_vector(x0, cfg, device)
-            ztil = A @ z - b
+            ztil = operand_matvec(A, z) - b
         y = torch.zeros(n, dtype=cfg.dtype, device=device)
         ytil = torch.zeros_like(b)
 
@@ -179,14 +178,14 @@ def acc_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
     for i, idx in enumerate(_draws(cfg, sampler, device, start, n)):
         th_prev, th_cur = thetas[start + i], thetas[start + i + 1]
         w = th_prev * th_prev * ytil + ztil
-        Ah, GR = _block_gram(A, idx, w[:, None])            # lines 8-9
+        Ah, GR = block_gram(idx, w[:, None])                # lines 8-9
         G, rh = GR[:, :mu], GR[:, mu]
         v = linalg.power_iteration_max_eig(G, cfg.power_iters)   # line 10
         eta = 1.0 / linalg.floor_eig(q * th_prev * v)     # line 11
         g = z[idx] - eta * rh                             # line 12
         dz = prox(g, eta) - z[idx]                        # line 13
         z = z.index_add(0, idx, dz)                       # line 14
-        Adz = Ah @ dz
+        Adz = block_apply(Ah, dz)
         ztil = ztil + Adz                                 # line 15
         coef = (1.0 - q * th_prev) / (th_prev * th_prev)
         y = y.index_add(0, idx, -coef * dz)               # line 16
@@ -202,7 +201,8 @@ def acc_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
         x=x, objective=torch.stack(objs),
         aux={"residual": thH * thH * ytil + ztil,
              "state": SolveState(start + H, {"z": z, "y": y,
-                                             "ztil": ztil, "ytil": ytil})})
+                                             "ztil": ztil, "ytil": ytil}),
+             **spmm_aux(A, "col_gram")})
 
 
 def cd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
@@ -220,16 +220,20 @@ def acc_cd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
 
 
 def lasso_objective(problem: LassoProblem, x):
-    """Direct objective evaluation 1/2 ||Ax - b||^2 + g(x)."""
-    A = torch.as_tensor(problem.A)
+    """Direct objective evaluation 1/2 ||Ax - b||^2 + g(x), in A's dtype
+    on A's device."""
+    A = problem.A if isinstance(problem.A, SparseOperand) \
+        else torch.as_tensor(problem.A)
     x = torch.as_tensor(x).to(device=A.device, dtype=A.dtype)
-    residual = A @ x - torch.as_tensor(problem.b).to(A.device, A.dtype)
+    residual = operand_matvec(A, x) \
+        - torch.as_tensor(problem.b).to(A.device, A.dtype)
     return _objective(residual, x, problem)
 
 
 def _cli_problem(args):
     from repro_torch.data.sparse import make_lasso_dataset
     A, b, lam_max = make_lasso_dataset(args.dataset, args.seed,
+                                       as_operand=args.sparse,
                                        device=args.device)
     return LassoProblem(A=A, b=b, lam=args.lam_frac * lam_max)
 
@@ -238,7 +242,7 @@ def _cli_describe(args, res, elapsed: float) -> str:
     obj = res.objective.cpu().numpy()
     nnz = int((res.x.abs() > 1e-8).sum())
     return (f"lasso {args.dataset} s={args.s} mu={args.mu} "
-            f"device={args.device}: obj {obj[0]:.4f} -> {obj[-1]:.4f}, "
+            f"device={args.device}{' sparse' if args.sparse else ''}: obj {obj[0]:.4f} -> {obj[-1]:.4f}, "
             f"nnz(x)={nnz}, {elapsed:.2f}s")
 
 

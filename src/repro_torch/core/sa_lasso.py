@@ -1,15 +1,18 @@
 """Synchronization-Avoiding coordinate-descent solvers for proximal
 least-squares — paper Algorithm 2 (SA-accBCD) and the non-accelerated
 SA-BCD / SA-CD variants, as :mod:`repro_torch.core.engine`
-FamilyPrograms (the port of ``repro/core/sa_lasso.py``, dense operands).
+FamilyPrograms (the port of ``repro/core/sa_lasso.py``, dense or sparse
+operands).
 
 Per outer iteration: sample s blocks, build ONE (s mu) x (s mu + k)
 Gram/projection block Y^T [Y | vecs], run the s dependent inner updates
 on it, then apply the deferred m-dimensional updates as one product.
 The iterate sequence is Algorithm 1's in exact arithmetic.
 
-On a card the two hot spots are hand-written kernels:
+On a card the hot spots are hand-written kernels:
   * ``repro_torch.kernels.gram``     — the fused  Y^T [Y | ytil | ztil]
+    for a dense A; ``repro_torch.kernels.spmm`` for a sparse one
+    (``core.sparse_exec.col_block_ops``)
   * ``repro_torch.kernels.sa_inner`` — the accelerated s-step inner loop
     for the Lasso / elastic-net prox (group lasso's block prox runs as
     a plain PyTorch loop, which ``aux["inner_impl"]`` reports as "torch").
@@ -25,8 +28,10 @@ from repro_torch.core.engine import (Ctx, FamilyProgram, deferred_steps,
                                      gram_local, reduce_gram_proj,
                                      run_program)
 from repro_torch.core.lasso import _objective, _prep, as_vector
+from repro_torch.core.sparse_exec import col_block_ops
 from repro_torch.core.types import (LassoProblem, SolveState, SolverConfig,
-                                    SolverResult, require_unit_block)
+                                    SolverResult, SparseOperand,
+                                    operand_matvec, require_unit_block)
 # A module import: kernels.sa_inner's plain version imports core.linalg,
 # so the names are read at call time.
 from repro_torch.kernels import sa_inner
@@ -35,6 +40,8 @@ from repro_torch.kernels import sa_inner
 def _lasso_ctx(problem, cfg):
     A, b, n, mu, q, sampler, prox, device = _prep(problem, cfg)
     return Ctx(A=A, b=b, n=n, mu=mu, q=q, sampler=sampler, prox=prox,
+               sparse=isinstance(A, SparseOperand),
+               block_gram=col_block_ops(A)[0],
                m_loc=A.shape[0], problem=problem, cfg=cfg, device=device,
                sample_width=n,
                group_lasso=problem.groups is not None)
@@ -46,8 +53,12 @@ def _lasso_sample(ctx, keys):
 
 def _lasso_assemble(ctx, vecs, idxs, s_grp):
     """LOCAL fused payload for the group's sampled columns:
-    (Y, Y^T [Y | vecs]); Y feeds the deferred products."""
-    Y = ctx.A[:, idxs.reshape(s_grp * ctx.mu)]          # (m_loc, s*mu)
+    (handle, Y^T [Y | vecs]); ``handle`` (the dense sampled columns Y, or
+    the gathered ELL columns) feeds the deferred products."""
+    flat = idxs.reshape(s_grp * ctx.mu)
+    if ctx.sparse:
+        return ctx.block_gram(flat, vecs)
+    Y = ctx.A[:, flat]                                  # (m_loc, s*mu)
     return Y, gram_local(Y, vecs)
 
 
@@ -77,7 +88,7 @@ def _bcd_setup(problem, cfg, x0, carry0):
         r = -ctx.b
     else:
         x = as_vector(x0, cfg, ctx.device)
-        r = ctx.A @ x - ctx.b
+        r = operand_matvec(ctx.A, x) - ctx.b
     return ctx, (x, r)
 
 
@@ -138,7 +149,7 @@ _BCD_PROGRAM = FamilyProgram(
     assemble=_bcd_assemble, reduce=_bcd_reduce, inner=_bcd_inner,
     defer=_bcd_defer, finalize=_bcd_finalize,
     carry_names=("x", "residual"),
-    inner_impl=lambda ctx, s_grp: "torch")
+    inner_impl=lambda ctx, s_grp: "torch", spmm_kind="col_gram")
 
 
 def sa_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
@@ -163,7 +174,7 @@ def _acc_setup(problem, cfg, x0, carry0):
             ztil = -ctx.b
         else:
             z = as_vector(x0, cfg, ctx.device)
-            ztil = ctx.A @ z - ctx.b
+            ztil = operand_matvec(ctx.A, z) - ctx.b
         y = torch.zeros(ctx.n, dtype=cfg.dtype, device=ctx.device)
         ytil = torch.zeros_like(ctx.b)
     return ctx, (z, y, ztil, ytil)
@@ -276,7 +287,8 @@ _ACC_PROGRAM = FamilyProgram(
     defer=_acc_defer, finalize=_acc_finalize,
     carry_names=("z", "y", "ztil", "ytil"), schedule=_acc_schedule,
     inner_impl=lambda ctx, s_grp: sa_inner.inner_impl(ctx.device,
-                                                     ctx.group_lasso))
+                                                     ctx.group_lasso),
+    spmm_kind="col_gram")
 
 
 def sa_acc_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,

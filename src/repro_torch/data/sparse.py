@@ -1,9 +1,11 @@
 """Synthetic datasets mirroring the paper's LIBSVM shape regimes (the port
-of ``repro/data/sparse.py``, dense Lasso operands).
+of ``repro/data/sparse.py``).
 
 The draws are numpy ``default_rng`` draws, in the same order as
 ``repro``'s, so the arrays are bit for bit the same; they are then moved
-to the requested device.
+to the requested device. ``as_operand=True`` returns A as a
+:class:`~repro_torch.core.types.SparseOperand` built from the same dense
+draw, whose ELL arrays equal ``repro``'s.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.types import resolve_device
+from repro_torch.core.types import SparseOperand, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,12 +76,8 @@ def make_lasso_dataset(name: str, seed: int = 0, k_sparse: int = 32,
     float32 tensors on ``device``.
 
     b = A x_true + noise with a k-sparse planted x_true; lam_max =
-    ||A^T b||_inf is the smallest lambda for which x* = 0. Sparse operands
-    (``as_operand=True``) come with the sparse slice of the port."""
-    if as_operand:
-        raise NotImplementedError(
-            "sparse operands are not ported yet (ROADMAP.md, Queue 1, "
-            "'Sparse operands')")
+    ||A^T b||_inf is the smallest lambda for which x* = 0.
+    ``as_operand=True`` returns A as a SparseOperand on ``device``."""
     spec = SYNTHETIC_DATASETS[name]
     rng = np.random.default_rng(seed)
     A = _sparse_matrix(rng, spec.m, spec.n, spec.density)
@@ -89,5 +87,33 @@ def make_lasso_dataset(name: str, seed: int = 0, k_sparse: int = 32,
     b = A @ x_true + noise * rng.standard_normal(spec.m).astype(np.float32)
     lam_max = float(np.abs(A.T @ b).max())
     dev = resolve_device(device)
-    return (torch.as_tensor(A, device=dev),
+    return (_on_device(A, as_operand, dev),
             torch.as_tensor(b.astype(np.float32), device=dev), lam_max)
+
+
+def make_svm_dataset(name: str, seed: int = 0, margin: float = 1.0,
+                     as_operand: bool = False, device="cuda"
+                     ) -> Tuple[object, torch.Tensor]:
+    """Returns (A, b) — binary classification with labels in {-1, +1}
+    mirroring the named regime, as float32 tensors on ``device``: b is
+    the sign of planted scores A w (w a unit vector) plus noise scaled by
+    0.1 / margin (larger margin, less label noise).
+    ``as_operand=True`` returns A as a SparseOperand on ``device``."""
+    if margin <= 0:
+        raise ValueError(f"margin must be > 0, got {margin}")
+    spec = SYNTHETIC_DATASETS[name]
+    rng = np.random.default_rng(seed)
+    A = _sparse_matrix(rng, spec.m, spec.n, spec.density)
+    w = rng.standard_normal(spec.n).astype(np.float32)
+    w /= np.linalg.norm(w)
+    scores = A @ w
+    b = np.sign(scores + (0.1 / margin) * rng.standard_normal(spec.m))
+    b[b == 0] = 1.0
+    dev = resolve_device(device)
+    return (_on_device(A, as_operand, dev),
+            torch.as_tensor(b.astype(np.float32), device=dev))
+
+
+def _on_device(A: np.ndarray, as_operand: bool, device):
+    A = torch.as_tensor(A, device=device)
+    return SparseOperand.from_dense(A) if as_operand else A

@@ -11,7 +11,9 @@ Kernels:
     gram     — fused Gram + projection  Y^T [Y | V]   (K1)
     sa_inner — the Lasso s-step SA inner loop, one block (K2, with the
                K0 power iteration as a device function)
+    spmm     — blocked-ELL sparse x dense product  S @ D   (K4)
+    svm_inner — the SVM s-step inner loop, one block (K3, reusing K0)
 """
-KERNEL_PACKAGES = ("gram", "sa_inner")
+KERNEL_PACKAGES = ("gram", "sa_inner", "spmm", "svm_inner")
 
 __all__ = ["KERNEL_PACKAGES"]

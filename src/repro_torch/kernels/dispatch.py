@@ -16,6 +16,11 @@ same kernel.
   memory (through L2). ``sa_inner_smem_bytes`` must match the layout in
   ``csrc/sa_inner.cu`` (which exports the same formula;
   ``chip_smoke.py`` checks that they agree).
+* ``svm_inner``: the same placement rule for its G, with
+  ``svm_inner_smem_bytes`` matching ``csrc/svm_inner.cu``.
+* ``spmm``: one block per output row and 256-wide tile of the dense
+  operand's columns (``spmm_q_tiles`` of them along grid y); the kernel
+  exports its tile width as ``spmm_q_tile`` for the same cross-check.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ GRAM_BLOCK_K = 32
 GRAM_BLOCKS_PER_SM = 4
 
 SA_INNER_WARPS = 16
+SVM_INNER_WARPS = 16
+SPMM_Q_TILE = 256
 
 
 def sa_inner_smem_bytes(s: int, mu: int, itemsize: int = 4,
@@ -46,6 +53,27 @@ def sa_inner_smem_bytes(s: int, mu: int, itemsize: int = 4,
 def sa_inner_g_in_smem(s: int, mu: int, itemsize: int = 4) -> bool:
     """Does ``sa_inner`` keep G in shared memory at (s, mu)?"""
     return sa_inner_smem_bytes(s, mu, itemsize, True) <= SMEM_PER_BLOCK
+
+
+def svm_inner_smem_bytes(s: int, mu: int, itemsize: int = 4,
+                         g_in_smem: bool = True) -> int:
+    """int64 sampled ids (s*mu), then at ``itemsize``: G (if resident),
+    the theta, b*theta and gradient histories (3 s*mu), lambda_max per
+    step (s) and each warp's two power-iteration vectors (2 mu)."""
+    smu = s * mu
+    elems = (smu * smu if g_in_smem else 0) + 3 * smu + s \
+        + SVM_INNER_WARPS * 2 * mu
+    return smu * 8 + elems * itemsize
+
+
+def svm_inner_g_in_smem(s: int, mu: int, itemsize: int = 4) -> bool:
+    """Does ``svm_inner`` keep G in shared memory at (s, mu)?"""
+    return svm_inner_smem_bytes(s, mu, itemsize, True) <= SMEM_PER_BLOCK
+
+
+def spmm_q_tiles(Q: int) -> int:
+    """Grid y of the ``spmm`` launch: 256-wide tiles covering Q columns."""
+    return -(-Q // SPMM_Q_TILE)
 
 
 def gram_splits(m: int, p: int, q: int,

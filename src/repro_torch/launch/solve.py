@@ -1,10 +1,14 @@
-"""Solver launcher for the port: the lasso family on a synthetic dataset.
+"""Solver launcher for the port: a registered family (lasso, svm) on a
+synthetic dataset.
 
     PYTHONPATH=src python -m repro_torch.launch.solve --problem lasso \
         --dataset epsilon-like --mu 8 --s 16 --iterations 512 --accelerated
+    PYTHONPATH=src python -m repro_torch.launch.solve --problem svm \
+        --dataset w1a-like --s 8 --iterations 128 --svm-loss l1 --sparse
 
-Runs on the card unless ``--device cpu`` is given. Prints the objective
-at the first and last inner iteration.
+Runs on the card unless ``--device cpu`` is given; ``--sparse`` passes A
+as a SparseOperand. Prints the objective (svm: the dual) at the first
+and last inner iteration.
 """
 from __future__ import annotations
 
@@ -25,6 +29,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--accelerated", action="store_true")
     ap.add_argument("--lam-frac", type=float, default=0.1,
                     help="lasso: lambda as a fraction of ||A^T b||_inf")
+    ap.add_argument("--svm-loss", choices=("l1", "l2"), default="l1",
+                    help="svm: hinge (l1) or squared hinge (l2)")
+    ap.add_argument("--sparse", action="store_true",
+                    help="pass A as a SparseOperand (blocked ELL, the "
+                         "spmm kernel) instead of a dense matrix")
     ap.add_argument("--symmetric-gram", action="store_true",
                     help="rebuild the Gram block from its lower triangle "
                          "(paper footnote 3)")

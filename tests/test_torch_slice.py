@@ -161,12 +161,13 @@ def test_facade_refuses_unported_paths(lasso_data):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.solve(prob, cfg, tune="auto")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_lasso_dataset("epsilon-like", as_operand=True, device="cpu")
+        api.solve(api.SVMProblem(A=A, b=np.sign(b), kernel="poly"), cfg)
     with pytest.raises(ValueError, match="x0= .* or state="):
         api.solve(prob, cfg, x0=np.zeros(A.shape[1]),
                   state=api.SolveState(0, {}))
-    assert api.families() == ("lasso",)
+    assert api.families() == ("lasso", "svm")
     assert api.resolve_family(prob).name == "lasso"
+    assert api.resolve_family(api.SVMProblem(A=A, b=b)).name == "svm"
 
 
 def test_launcher_runs_on_cpu():
