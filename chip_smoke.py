@@ -33,12 +33,40 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    and ``sa_inner``, none of ``gram``) and phase split;
 6. runs f64 sparse solves on the card (SVM rcv1-like, Lasso news20-like)
    through ``spmm``, ``svm_inner`` and ``sa_inner`` and holds them to the
-   CPU solves within 1e-8.
+   CPU solves within 1e-8;
+7. holds ``flash_attention`` against its plain version at every case of
+   tests/test_kernels.py's ATTN_CASES and more (ragged lengths, windows,
+   decode-like Sq = 1, bidirectional, strided views, stablelm-12b's
+   D = 160), at f32 (atol 2e-3) and bf16 (atol 2e-2), checks its tile
+   sizes and shared-memory formula against ``kernels/dispatch.py``, and
+   one gradient against the plain version's autograd;
+8. drives the LM prefill — ``LM.prefill`` of llama3-8b at full width
+   (32 layers, 8.03 B parameters, bf16, random from a seed) on B = 1,
+   S = 8192 — checks 32 launches of ``flash_attention`` and none of the
+   other kernels and finite logits, times the steady prefill and where
+   its time goes, then holds the kernel on the q/k/v of the first layer
+   against the plain version (bf16 within one rounding step of the
+   output, rtol 2^-7 and atol 4e-3; the same q/k/v in f32 within atol
+   2e-4) and times it with the plain version and
+   ``scaled_dot_product_attention``;
+9. drives serving — ``BatchedServer.generate`` with batch 8, prompt 128,
+   generate 32 on the same model — checks that it launched no kernel
+   (decode attention is plain PyTorch, as in repro), times the decode
+   steps and where their time goes, and holds the teacher-forced decode
+   logits at the last prompt position to ``prefill``'s within atol 0.12,
+   rtol 0.05;
+10. runs tinyllama-1.1b widths cut to 2 layers at f32, B = 2, S = 512, on
+   the card (through ``flash_attention``) and on the CPU (plain), and
+   holds the logits within rel 1e-4 and the generated tokens equal.
 
 Any failed check raises, so the exit code is non-zero. The last lines
-are the kernels' JSON line, the card's name and power limit as
-``nvidia-smi`` reports them, and the device JSON line. Without a card,
-or outside a checkout, it exits non-zero and prints no result.
+are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
+``svm_inner`` and ``flash_attention``: its launches on its main path,
+its error against the plain version, its time, the plain version's, the
+bound and, where one PyTorch call computes the same function, that
+call's time), the card's name and power limit as ``nvidia-smi`` reports
+them, and the device JSON line. Without a card, or outside a checkout,
+it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -53,8 +81,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth.
+# cores, bf16 on the dense tensor cores, and HBM3 bandwidth.
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 M_EPS, N_EPS = 400_000, 2_000           # LIBSVM epsilon
@@ -69,6 +98,33 @@ M_URL, N_URL, F_URL = 2_396_130, 3_231_961, 3.6e-5
 # meet one, and lam = 0.1 lam_max zeroes every other step, so the
 # objective could not visibly fall.
 K_URL = N_URL // 100
+
+# The LM serving path: llama3-8b at full width (32 layers, bf16). The
+# prefill is cut from repro's prefill_32k shape (configs.SHAPES; B 32,
+# S 32,768) to B 1 at Llama 3's published context of 8192, for the run's
+# time limit.
+LLAMA = "llama3-8b"
+PREFILL_B, PREFILL_S = 1, 8192
+SERVE_B, SERVE_P, SERVE_G = 8, 128, 32
+# f32 card vs CPU: tinyllama-1.1b widths cut to 2 layers (~0.9 GB f32).
+TINY, TINY_LAYERS, TINY_B, TINY_S = "tinyllama-1.1b", 2, 2, 512
+# (B, Hq, Hkv, Sq, Sk, D, causal, window): tests/test_kernels.py
+# ATTN_CASES, then ragged keys, a ragged window, 4:1 GQA at D = 128 over a
+# partial last tile, a bidirectional Sq < Sk, and stablelm-12b's heads
+# (32 over 8 of D = 160) over a partial last tile.
+ATTN_CASES = [
+    (2, 4, 2, 128, 128, 64, True, 0),
+    (1, 8, 2, 256, 256, 64, True, 64),
+    (1, 4, 4, 100, 100, 32, True, 0),
+    (1, 2, 1, 1, 384, 64, True, 0),
+    (1, 2, 1, 1, 384, 64, True, 128),
+    (2, 2, 2, 64, 64, 128, False, 0),
+    (2, 4, 2, 100, 228, 32, True, 0),
+    (1, 8, 2, 300, 300, 128, True, 100),
+    (1, 32, 8, 1000, 1000, 128, True, 0),
+    (1, 4, 1, 128, 256, 64, False, 0),
+    (1, 32, 8, 520, 520, 160, True, 0),
+]
 
 
 def log(msg: str) -> None:
@@ -92,9 +148,10 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
-    """(least time in ms, what bounds it) on the published peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound_ms(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
+    """(least time in ms, what bounds it) on the published peaks: bytes at
+    the HBM rate, operations at ``peak_flops`` (their type's rate)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -184,7 +241,7 @@ def phase_kernels():
 
     log("phase 1: kernels against their plain versions")
     t0 = time.perf_counter()
-    names = ["gram", "sa_inner", "spmm", "svm_inner"]
+    names = ["gram", "sa_inner", "spmm", "svm_inner", "flash_attention"]
     _build.build(names)                     # one nvcc per source, together
     log(f"  built {', '.join(names)} in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda")
@@ -422,7 +479,7 @@ def phase_main_path():
     log(f"  wall {wall:.4f} s, {wall / outer * 1e3:.4f} ms per outer "
         f"iteration; peak device memory {peak / 2**30:.3f} GiB")
     if counts != {"gram": outer, "sa_inner": outer, "spmm": 0,
-                  "svm_inner": 0}:
+                  "svm_inner": 0, "flash_attention": 0}:
         raise AssertionError(f"main path launches {counts}, expected "
                              f"{outer} of gram and sa_inner")
     # Accelerated BCD is not a descent method: allow rises of 1e-2 of the
@@ -591,9 +648,11 @@ def url_problem(seed: int):
 
 def counters():
     from repro_torch.kernels import sa_inner, spmm, svm_inner
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gram import gram_t
     return {"gram": gram_t, "sa_inner": sa_inner.sa_inner_loop,
-            "spmm": spmm.ell_spmm, "svm_inner": svm_inner.svm_inner_loop}
+            "spmm": spmm.ell_spmm, "svm_inner": svm_inner.svm_inner_loop,
+            "flash_attention": flash_attention}
 
 
 def zero_counts():
@@ -795,7 +854,7 @@ def phase_svm():
     outer = cfg.outer_iterations
     res, obj, launches = solve_counted(
         problem, cfg, {"gram": 0, "sa_inner": 0, "spmm": outer,
-                       "svm_inner": outer})
+                       "svm_inner": outer, "flash_attention": 0})
     classical = api.solve(problem, dataclasses.replace(cfg, s=1))
     check_trace(obj, classical.objective.cpu(), "dual trace", descent=True)
     steady(problem, cfg)
@@ -849,7 +908,7 @@ def phase_url():
     outer = cfg.outer_iterations
     res, obj, launches = solve_counted(
         problem, cfg, {"gram": 0, "sa_inner": outer, "spmm": outer,
-                       "svm_inner": 0})
+                       "svm_inner": 0, "flash_attention": 0})
     classical = api.solve(problem, dataclasses.replace(cfg, s=1))
     check_trace(obj, classical.objective.cpu(), "objective", descent=False)
     del classical
@@ -908,9 +967,9 @@ def phase_f64_sparse():
         got_lasso = read_counts()
         if device == "cuda":
             want_svm = {"gram": 0, "sa_inner": 0, "spmm": 32,
-                        "svm_inner": 32}
+                        "svm_inner": 32, "flash_attention": 0}
             want_lasso = {"gram": 0, "sa_inner": 8, "spmm": 8,
-                          "svm_inner": 0}
+                          "svm_inner": 0, "flash_attention": 0}
             if (got_svm, got_lasso) != (want_svm, want_lasso):
                 raise AssertionError(f"f64 sparse launches {got_svm}, "
                                      f"{got_lasso}")
@@ -928,6 +987,447 @@ def phase_f64_sparse():
         if not (dev <= 1e-8 and dx <= 1e-8 and extra <= 1e-8):
             raise AssertionError(f"f64 sparse {what} card solve differs "
                                  f"from the CPU solve")
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-10: the LM serving path.
+# ---------------------------------------------------------------------------
+
+def attn_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen):
+    import torch
+    q = 0.3 * torch.randn(B, Hq, Sq, D, generator=gen, device="cuda")
+    k = 0.3 * torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda")
+    v = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def phase_attention_kernel():
+    import torch
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import _declare
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    log("phase 7: flash_attention against its plain version (atol 2e-3 at "
+        "f32, 2e-2 at bf16)")
+    lib = _build.load("flash_attention", _declare)
+    tiles = (lib.flash_attention_block_q(), lib.flash_attention_block_k())
+    if tiles != (dispatch.FLASH_BLOCK_Q, dispatch.FLASH_BLOCK_K):
+        raise AssertionError(f"flash_attention tiles: C {tiles} vs dispatch")
+    for D in dispatch.FLASH_HEAD_DIMS:
+        got = lib.flash_attention_smem_bytes(D)
+        if got != dispatch.flash_attention_smem_bytes(D):
+            raise AssertionError(f"flash_attention smem at D={D}: C {got} "
+                                 f"vs dispatch")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for case in ATTN_CASES:
+        B, Hq, Hkv, Sq, Sk, D, causal, window = case
+        for dtype, atol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
+            q, k, v = attn_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            if out.dtype != dtype or out.shape != q.shape:
+                raise AssertionError(f"flash_attention {case} gave "
+                                     f"{out.dtype} {tuple(out.shape)}")
+            check_close(f"flash_attention {dtype} {case}", out.float(),
+                        attention_ref(q, k, v, causal=causal,
+                                      window=window).float(), 0.0, atol)
+    # q, k, v as attention_train hands them over without rope: transposed
+    # views of (B, S, H, D) projections, not contiguous.
+    x = torch.randn(2, 200, 8 + 2 * 2, 128, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in x.split([8, 2, 2], dim=2))
+    check_close("flash_attention bf16 strided views (2, 8/2, 200, 128)",
+                flash_attention(q, k, v).float(),
+                attention_ref(q, k, v).float(), 0.0, 2e-2)
+    # The backward is the plain version's VJP, as in repro.
+    q, k, v = (t.requires_grad_() for t in
+               attn_inputs(1, 2, 1, 64, 64, 32, torch.float32, gen))
+    flash_attention(q, k, v, window=24).sum().backward()
+    grads = [t.grad for t in (q, k, v)]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    attention_ref(*leaves, window=24).sum().backward()
+    for name, g, leaf in zip("qkv", grads, leaves):
+        check_close(f"flash_attention d{name} (1, 2/1, 64, 32) f32", g,
+                    leaf.grad, 0.0, 2e-3)
+    torch.cuda.synchronize()
+
+
+def live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs inside the causal/window band, per head."""
+    n = 0
+    for i in range(Sq):
+        qpos = i + Sk - Sq
+        hi = min(qpos, Sk - 1) if causal else Sk - 1
+        lo = max(qpos - window + 1, 0) if window > 0 else 0
+        n += max(hi - lo + 1, 0)
+    return n
+
+
+def flash_row(args, kw):
+    """The flash_attention kernel row on the q/k/v that the prefill's first
+    layer gave it: error and time against the plain version (run one KV
+    head group at a time: all 32 heads at once would hold ~35 GB of f32
+    scores) and SDPA, and the bound from this call's live pairs.
+
+    Outputs here are means of v over up to 8192 keys, ~0.02-0.03 in most
+    rows, so repro's bf16 bar of 2e-2 could not tell a dropped key tile
+    from rounding. Kernel and plain version both compute in f32 and round
+    once to bf16, so they may differ by one rounding step of the output:
+    at most 2^-7 of its size (rtol), plus atol 4e-3 (~2x the error
+    measured on an H100). The same q/k/v in f32 are held at atol 2e-4
+    (f32 reordering gives ~1e-6 there)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    q, k, v = args
+    (B, Hq, Sq, D), (Hkv, Sk) = q.shape, k.shape[1:3]
+    g = Hq // Hkv
+
+    def plain():
+        return torch.cat([attention_ref(q[:, i * g:(i + 1) * g],
+                                        k[:, i:i + 1], v[:, i:i + 1], **kw)
+                          for i in range(Hkv)], dim=1)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    out = flash_attention(q, k, v, **kw)
+    want = plain().float()
+    err = check_close(f"flash_attention on layer 0's q/k/v of the prefill "
+                      f"{tuple(q.shape)} / {tuple(k.shape)} {q.dtype}",
+                      out.float(), want, 2.0 ** -7, 4e-3)
+    mean_ref = float(want.abs().mean())
+    log(f"  mean |plain| {mean_ref:.3e}: max err / mean |plain| "
+        f"{err / mean_ref:.3e}")
+    del want
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    want32 = torch.cat([attention_ref(q32[:, i * g:(i + 1) * g],
+                                      k32[:, i:i + 1], v32[:, i:i + 1], **kw)
+                        for i in range(Hkv)], dim=1)
+    err32 = check_close("the same q/k/v in float32",
+                        flash_attention(q32, k32, v32, **kw), want32, 0.0,
+                        2e-4)
+    log(f"  mean |plain| {float(want32.abs().mean()):.3e}: max err / mean "
+        f"|plain| {err32 / float(want32.abs().mean()):.3e}")
+    del q32, k32, v32, want32
+    lib_err = float((sdpa().float() - out.float()).abs().max())
+    pairs = B * live_pairs(Sq, Sk, kw.get("causal", True),
+                           kw.get("window", 0))
+    flops = 4.0 * Hq * D * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b, why = bound_ms(nbytes, flops, BF16_FLOPS)
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
+           "max_abs_err": err,
+           "ms": time_ms(lambda: flash_attention(q, k, v, **kw), 5, 1),
+           "plain_ms": time_ms(plain, 2, 1),
+           "bound_ms": b, "bound_by": why,
+           "library_ms": time_ms(sdpa, 10, 2)}
+    log(f"  flash_attention at this shape: {row['ms']:.4f} ms (plain "
+        f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f} [max abs diff "
+        f"{lib_err:.2e}], bound {b:.4f} ms by {why}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.1f} GFLOP at the bf16 tensor-core peak; "
+        f"{flops / row['ms'] / 1e9:.2f} TFLOP/s achieved)")
+    return row
+
+
+def llama_model():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    arch = get_config(LLAMA)
+    t0 = time.perf_counter()
+    model = lm.init_params(arch, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  {arch.name}: {arch.n_layers} layers, d_model {arch.d_model}, "
+        f"{arch.n_heads}/{arch.n_kv_heads} heads of {arch.head_dim_}, d_ff "
+        f"{arch.d_ff}, vocab {arch.vocab_size}, {arch.dtype}: {n / 1e9:.3f} "
+        f"B parameters ({nbytes / 1e9:.2f} GB), random from seed 0, made on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    return arch, model
+
+
+def device_profile(fn, top: int = 6):
+    """(device busy ms, device operations run, [(name, ms), ...] of the
+    ``top`` kernels) of one call of ``fn`` under torch.profiler: the
+    union of the kernel, memcpy and memset intervals of its trace (so
+    nothing is counted twice), or (None, 0, []) when the trace holds no
+    device events on this machine."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(ROOT, "build", "profile_trace.json")
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        os.remove(path)
+    except Exception as exc:            # untried profiler: report, go on
+        log(f"  torch.profiler gave no device trace ({exc!r})")
+        return None, 0, []
+    dev = [e for e in events if e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not dev:
+        return None, 0, []
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in dev)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    by_name = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    ranked = sorted(by_name.items(), key=lambda r: -r[1])[:top]
+    return busy / 1e3, len(dev), [(n, us / 1e3) for n, us in ranked]
+
+
+def log_profile(what, prof, wall_ms, n):
+    """Device-busy share of ``n`` steps whose untraced wall per step is
+    ``wall_ms``, and the kernels that take most of it."""
+    total, ops, top = prof
+    if total is None:
+        log(f"  {what}: device busy time not measured")
+        return
+    log(f"  {what}: device busy {total / n:.4f} ms per step of "
+        f"{wall_ms:.4f} ms wall (idle share {1 - total / n / wall_ms:.3f}; "
+        f"torch.profiler trace); {ops / n:.1f} device operations per "
+        f"step; top kernels, ms per step:")
+    for name, ms in top:
+        log(f"    {ms / n:9.4f}  {name[:100]}")
+
+
+def phase_prefill(arch, model):
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    B, S = PREFILL_B, PREFILL_S
+    full = SHAPES["prefill_32k"]
+    log(f"phase 8: prefill, {arch.name} at full width, B={B} S={S} (cut "
+        f"from repro's {full.name}: B={full.global_batch} S={full.seq_len})")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    toks = torch.randint(0, arch.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill(toks)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        got = read_counts()
+        want = dict.fromkeys(got, 0)
+        want["flash_attention"] = arch.n_layers
+        log(f"  launches in the prefill: {got} (expected {want})")
+        log(f"  first prefill {cold:.4f} s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if got != want:
+            raise AssertionError(f"prefill launches {got}, expected {want}")
+        if logits.shape != (B, 1, arch.vocab_size) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                                 f"finite of shape (B, 1, V)")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(toks)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        med = sorted(walls)[1]
+        log(f"  steady prefills: {' '.join(f'{w:.4f}' for w in walls)} s "
+            f"(median {med:.4f} s, {B * S / med:.1f} tokens/s)")
+
+        timer = PhaseTimer()
+        patches = [(L, "flash_attention", "kernel"),
+                   (L, "project_qkv", "proj"), (L, "apply_rope", "rope"),
+                   (L, "attention_train", "attn"), (L, "mlp", "mlp"),
+                   (L, "rmsnorm", "norm"), (lm.LM, "_logits", "logits")]
+        saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
+        for o, a, label in patches:
+            setattr(o, a, timer.wrap(label, getattr(o, a)))
+        try:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            model.prefill(toks)
+            e1.record()
+            torch.cuda.synchronize()
+        finally:
+            for o, a, fn in saved:
+                setattr(o, a, fn)
+        tot = timer.totals_ms()
+        total = e0.elapsed_time(e1)
+        e_norm = timer.events["norm"][-1]
+        unembed = tot["logits"] - e_norm[0].elapsed_time(e_norm[1])
+        split = {
+            "flash_attention kernel": tot["kernel"],
+            "q/k/v projections (GEMMs)": tot["proj"],
+            "rope (q, k)": tot["rope"],
+            "attention out (o relayout + wo GEMM)": tot["attn"]
+            - tot["proj"] - tot["rope"] - tot["kernel"],
+            "MLP (gate/up/down GEMMs, SiLU mul)": tot["mlp"],
+            "rmsnorm (2 per layer + final)": tot["norm"],
+            "unembed GEMM (last position)": unembed,
+            "rest (embed gather, residual adds)": total - tot["attn"]
+            - tot["mlp"] - tot["norm"] - unembed,
+        }
+        log(f"  where a prefill's time goes (device time, ms; traced "
+            f"prefill {total:.3f} ms):")
+        for name, ms in split.items():
+            log(f"    {name:40s} {ms:10.3f}  {100 * ms / total:5.1f}%")
+        log_profile("one prefill", device_profile(
+            lambda: model.prefill(toks)), med * 1e3, 1)
+        row = flash_row(*timer.first["kernel"])
+    return row, got["flash_attention"]
+
+
+def phase_serve(arch, model):
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    B, P, G = SERVE_B, SERVE_P, SERVE_G
+    log(f"phase 9: serving, {arch.name} at full width, "
+        f"BatchedServer.generate batch {B}, prompt {P}, generate {G}")
+    prompts = np.random.default_rng(0).integers(
+        0, arch.vocab_size, (B, P)).astype(np.int32)
+    server = BatchedServer(arch, model, max_seq=P + G)
+    server.generate(prompts[:, :4], 2)                  # warm-up
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.generate(prompts, G)
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    steps = P + G
+    log(f"  launches in generate: {got} (expected none: decode attention "
+        f"is plain PyTorch, as in repro)")
+    log(f"  {steps} decode steps in {wall:.4f} s: {wall / steps * 1e3:.4f} "
+        f"ms per step, {B * G / wall:.1f} generated tokens/s "
+        f"({B * steps / wall:.1f} tokens/s through the decode path); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB; sample {out[0][:8].tolist()}")
+    if any(got.values()):
+        raise AssertionError(f"generate launched kernels: {got}")
+    if out.shape != (B, G) or out.dtype != np.int32 \
+            or not ((out >= 0) & (out < arch.vocab_size)).all():
+        raise AssertionError(f"generate gave {out.dtype} {out.shape}")
+
+    # Where a decode step's time goes: CUDA events over 16 steps of
+    # another generate (prompt 8, generate 8).
+    timer = PhaseTimer()
+    patches = [(L, "attention_decode", "attn"), (L, "project_qkv", "proj"),
+               (L, "apply_rope", "rope"), (L, "mlp", "mlp"),
+               (L, "rmsnorm", "norm"), (lm.LM, "_logits", "logits")]
+    saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
+    for o, a, label in patches:
+        setattr(o, a, timer.wrap(label, getattr(o, a)))
+    try:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        server.generate(prompts[:, :8], 8)
+        e1.record()
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    finally:
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+    tot = timer.totals_ms()
+    n = 16
+    total = e0.elapsed_time(e1)
+    split = {
+        "q/k/v projections (GEMVs)": tot["proj"],
+        "rope (q, k)": tot["rope"],
+        "attention (cache write, repeat, softmax, wo)": tot["attn"]
+        - tot["proj"] - tot["rope"],
+        "MLP (gate/up/down GEMVs, SiLU mul)": tot["mlp"],
+        "rmsnorm": tot["norm"],
+        "final norm + unembed": tot["logits"],
+        "rest (embed gather, residual adds, argmax)": total - tot["attn"]
+        - tot["mlp"] - tot["norm"] - tot["logits"],
+    }
+    log(f"  where a decode step's time goes (CUDA events, ms per step; "
+        f"traced wall {traced / n * 1e3:.3f} ms per step; where the device "
+        f"idles between launches these intervals are mostly host time):")
+    for name, ms in split.items():
+        log(f"    {name:44s} {ms / n:8.4f}  {100 * ms / total:5.1f}%")
+    log_profile("16 decode steps", device_profile(
+        lambda: server.generate(prompts[:, :8], 8)), wall / steps * 1e3, n)
+
+    # The kernel path against the decode path at full width: teacher-forced
+    # decode's logits at the last prompt position against prefill's.
+    with torch.no_grad():
+        toks = torch.as_tensor(prompts, device="cuda")
+        cache = lm.init_cache(arch, B, P, "cuda")
+        for t in range(P):
+            logits, cache = model.decode_step(toks[:, t:t + 1], cache, t)
+        last = model.prefill(toks)
+    check_close(f"decode logits at position {P - 1} vs prefill (B={B})",
+                logits.float(), last.float(), 0.05, 0.12)
+
+
+def phase_f32_lm():
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import lm
+
+    arch = dataclasses.replace(get_config(TINY), n_layers=TINY_LAYERS,
+                               dtype="float32")
+    B, S = TINY_B, TINY_S
+    log(f"phase 10: f32 {TINY} widths at {TINY_LAYERS} layers, B={B} S={S},"
+        f" the card (flash_attention) vs the CPU (plain)")
+    gpu = lm.init_params(arch, seed=0, device="cuda")
+    cpu = lm.LM(arch, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    toks = np.random.default_rng(1).integers(
+        0, arch.vocab_size, (B, S)).astype(np.int32)
+    with torch.no_grad():
+        flash_attention.launches = 0
+        lg = gpu.forward(torch.as_tensor(toks, device="cuda")).cpu()
+        if flash_attention.launches != TINY_LAYERS:
+            raise AssertionError(f"f32 forward launched flash_attention "
+                                 f"{flash_attention.launches} times")
+        lc = cpu.forward(torch.as_tensor(toks))
+    rel = float((lg - lc).abs().max() / lc.abs().max())
+    log(f"  logits {tuple(lg.shape)}: max |card - cpu| / max |cpu| "
+        f"{rel:.3e} (bar 1e-4)")
+    if not rel <= 1e-4:
+        raise AssertionError("f32 card logits differ from the CPU's")
+    t_gpu = BatchedServer(arch, gpu, 24).generate(toks[:, :16], 8)
+    t_cpu = BatchedServer(arch, cpu, 24).generate(toks[:, :16], 8)
+    log(f"  generated tokens equal: {bool((t_gpu == t_cpu).all())} "
+        f"({t_gpu[0].tolist()})")
+    if not (t_gpu == t_cpu).all():
+        raise AssertionError("f32 card and CPU generate different tokens")
 
 
 def main() -> int:
@@ -960,8 +1460,17 @@ def main() -> int:
     phase_url()
     torch.cuda.empty_cache()
     phase_f64_sparse()
+    torch.cuda.empty_cache()
+    phase_attention_kernel()
+    arch, model = llama_model()
+    rows["flash_attention"], fa_launches = phase_prefill(arch, model)
+    phase_serve(arch, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_f32_lm()
 
     rows.update(svm_rows)
+    rows["flash_attention"]["launches"] = fa_launches
     for name, n in launches.items():
         rows[name]["launches"] = n
     for name in svm_rows:

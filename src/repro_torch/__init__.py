@@ -10,4 +10,8 @@ tensor their plain PyTorch versions run.
     from repro_torch import api
     res = api.solve(api.LassoProblem(A=A, b=b, lam=lam),
                     api.SolverConfig(block_size=8, s=16, iterations=512))
+
+The dense decoder LM of ``repro.models`` serves here too
+(``repro_torch.models.lm``, ``repro_torch.launch.serve``); its prefill
+runs the hand-written flash attention kernel.
 """

@@ -1,6 +1,6 @@
 """State carried across from the JAX package to the port.
 
-The solvers have no weights: what a solve carries is its problem and its
+Solvers have no weights: what a solve carries is its problem and its
 :class:`~repro_torch.core.types.SolveState` (the global iteration count
 plus the named recurrence leaves: z/y/ztil/ytil or x/residual for Lasso,
 alpha/x/dual for SVM). These helpers take and return numpy arrays, so a
@@ -9,6 +9,15 @@ state saved by ``repro`` (``np.asarray`` of each leaf of its
 recomputed from ``iteration``, so the resumed solve continues the
 uninterrupted trajectory. A sparse operand crosses as its six ELL arrays
 (``operand_from_numpy``).
+
+Language models: ``repro`` keeps an LM's weights as a tree whose
+``layers["slot{i}_{kind}"]`` leaves stack the layers of pattern slot i
+along a leading group axis (layer g * period + i), and its decode cache
+the same way; the port keeps one module per layer and one
+(n_layers, ...) tensor per cache leaf. ``lm_params_from_numpy`` /
+``lm_params_to_numpy`` and ``cache_from_numpy`` / ``cache_to_numpy`` move
+them across as numpy arrays (``np.asarray`` of each ``repro`` leaf; bf16
+leaves travel as float32, which holds them exactly).
 """
 from __future__ import annotations
 
@@ -17,8 +26,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import (LassoProblem, SolveState, SparseOperand,
                                     SVMProblem, resolve_device)
+from repro_torch.models import lm as _lm
 
 _ELL_FIELDS = ("row_cols", "row_vals", "row_blocks",
                "col_rows", "col_vals", "col_blocks")
@@ -86,3 +97,93 @@ def state_to_numpy(state: SolveState) -> Tuple[int, Dict[str, np.ndarray]]:
     return int(state.iteration), {
         name: leaf.detach().cpu().numpy() for name, leaf in
         state.carry.items()}
+
+
+# ---------------------------------------------------------------------------
+# Language models
+# ---------------------------------------------------------------------------
+
+def _slots(arch: ArchConfig):
+    period = len(arch.block_pattern)
+    return [(i, f"slot{i}_{kind}", period)
+            for i, kind in enumerate(arch.block_pattern)]
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _nest(flat):
+    tree = {}
+    for path, v in flat.items():
+        *dirs, leaf = path.split(".")
+        node = tree
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = v
+    return tree
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def lm_params_from_numpy(arch: ArchConfig, tree, device="cuda") -> _lm.LM:
+    """An :class:`~repro_torch.models.lm.LM` holding ``repro``'s weights:
+    ``tree`` is ``repro``'s param tree (``lm.init_params``) with every leaf
+    as a numpy array. Raises on a missing, extra or misshapen leaf."""
+    model = _lm.LM(arch, resolve_device(device))
+    state = {k: _f32(v) for k, v in _flatten(
+        {k: v for k, v in tree.items() if k != "layers"})}
+    for i, slot, period in _slots(arch):
+        for path, stacked in _flatten(tree["layers"][slot]):
+            for g, leaf in enumerate(np.asarray(stacked, dtype=np.float32)):
+                state[f"layers.{g * period + i}.{path}"] = _f32(leaf)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def lm_params_to_numpy(model: _lm.LM):
+    """``repro``'s param tree of ``model``'s weights, float32 numpy
+    leaves (cast them to the config dtype on the JAX side)."""
+    arch = model.arch
+    flat = {k: v.detach().float().cpu().numpy()
+            for k, v in model.state_dict().items()}
+    tree = _nest({k: v for k, v in flat.items()
+                  if not k.startswith("layers.")})
+    tree["layers"] = {}
+    for i, slot, period in _slots(arch):
+        prefix = f"layers.{i}."
+        tree["layers"][slot] = _nest({
+            path[len(prefix):]: np.stack([
+                flat[f"layers.{g}.{path[len(prefix):]}"]
+                for g in range(i, arch.n_layers, period)])
+            for path in flat if path.startswith(prefix)})
+    return tree
+
+
+def cache_from_numpy(arch: ArchConfig, tree, device="cuda"):
+    """The port's decode cache from ``repro``'s (``{"slot{i}_{kind}":
+    {"k": (G, B, Hkv, S, Dh), "v": ...}}``, numpy leaves)."""
+    dev = resolve_device(device)
+    out = {}
+    for name in ("k", "v"):
+        per_layer = [None] * arch.n_layers
+        for i, slot, period in _slots(arch):
+            for g, leaf in enumerate(np.asarray(tree[slot][name],
+                                                dtype=np.float32)):
+                per_layer[g * period + i] = _f32(leaf)
+        out[name] = torch.stack(per_layer).to(device=dev,
+                                              dtype=arch.torch_dtype)
+    return out
+
+
+def cache_to_numpy(arch: ArchConfig, cache):
+    """``repro``'s decode cache tree from the port's, float32 leaves."""
+    return {slot: {name: cache[name][i::period].float().cpu().numpy()
+                   for name in ("k", "v")}
+            for i, slot, period in _slots(arch)}

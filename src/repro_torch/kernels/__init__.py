@@ -13,7 +13,10 @@ Kernels:
                K0 power iteration as a device function)
     spmm     — blocked-ELL sparse x dense product  S @ D   (K4)
     svm_inner — the SVM s-step inner loop, one block (K3, reusing K0)
+    flash_attention — blocked causal / sliding-window GQA attention
+               forward with an online softmax (K5)
 """
-KERNEL_PACKAGES = ("gram", "sa_inner", "spmm", "svm_inner")
+KERNEL_PACKAGES = ("gram", "sa_inner", "spmm", "svm_inner",
+                   "flash_attention")
 
 __all__ = ["KERNEL_PACKAGES"]

@@ -21,6 +21,11 @@ same kernel.
 * ``spmm``: one block per output row and 256-wide tile of the dense
   operand's columns (``spmm_q_tiles`` of them along grid y); the kernel
   exports its tile width as ``spmm_q_tile`` for the same cross-check.
+* ``flash_attention``: one block per 64-row query tile and (batch, query
+  head), looping over 64-row key tiles; the Q, K, V and probability tiles
+  sit in dynamic shared memory as f32 (``flash_attention_smem_bytes``,
+  115 KB at D = 128, 139 KB at D = 160). ``csrc/flash_attention.cu`` exports its tile sizes
+  and the same formula for the cross-check.
 """
 from __future__ import annotations
 
@@ -37,6 +42,12 @@ GRAM_BLOCKS_PER_SM = 4
 SA_INNER_WARPS = 16
 SVM_INNER_WARPS = 16
 SPMM_Q_TILE = 256
+
+FLASH_BLOCK_Q = 64
+FLASH_BLOCK_K = 64
+FLASH_PAD = 4                 # f32 of padding per Q/K/P tile row
+# 128: llama3-8b, qwen1.5-4b; 64: tinyllama-1.1b; 160: stablelm-12b.
+FLASH_HEAD_DIMS = (32, 64, 128, 160)
 
 
 def sa_inner_smem_bytes(s: int, mu: int, itemsize: int = 4,
@@ -69,6 +80,16 @@ def svm_inner_smem_bytes(s: int, mu: int, itemsize: int = 4,
 def svm_inner_g_in_smem(s: int, mu: int, itemsize: int = 4) -> bool:
     """Does ``svm_inner`` keep G in shared memory at (s, mu)?"""
     return svm_inner_smem_bytes(s, mu, itemsize, True) <= SMEM_PER_BLOCK
+
+
+def flash_attention_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one ``flash_attention`` block at head
+    dimension D: the Q and K tiles at row pitch D + FLASH_PAD, the V tile
+    at pitch D and the probability tile at pitch FLASH_BLOCK_K +
+    FLASH_PAD, all f32."""
+    return 4 * ((FLASH_BLOCK_Q + FLASH_BLOCK_K) * (D + FLASH_PAD)
+                + FLASH_BLOCK_K * D
+                + FLASH_BLOCK_Q * (FLASH_BLOCK_K + FLASH_PAD))
 
 
 def spmm_q_tiles(Q: int) -> int:
