@@ -6,7 +6,9 @@
 Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
 
-1. holds each kernel against its plain PyTorch version on the card, at the
+1. builds the kernels (one ``nvcc`` per source, together; ptxas's
+   registers and spills of each ``flash_attention`` body are printed),
+   holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at edge shapes, and times ``gram`` and
    ``sa_inner`` with their plain versions and (``gram``) ``torch.matmul``
    with CUDA events;
@@ -37,18 +39,21 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
 7. holds ``flash_attention`` against its plain version at every case of
    tests/test_kernels.py's ATTN_CASES and more (ragged lengths, windows,
    decode-like Sq = 1, bidirectional, strided views, stablelm-12b's
-   D = 160), at f32 (atol 2e-3) and bf16 (atol 2e-2), checks its tile
-   sizes and shared-memory formula against ``kernels/dispatch.py``, and
-   one gradient against the plain version's autograd;
+   D = 160), at f32 (atol 2e-3) and bf16 (atol 2e-2), checking that each
+   call took the body ``dispatch.flash_attention_route`` names (bf16 at
+   D = 64 and 128: ``wgmma``; the rest: ``simt``), checks both bodies'
+   tile sizes and shared-memory formulas against ``kernels/dispatch.py``,
+   and one gradient against the plain version's autograd;
 8. drives the LM prefill — ``LM.prefill`` of llama3-8b at full width
    (32 layers, 8.03 B parameters, bf16, random from a seed) on B = 1,
-   S = 8192 — checks 32 launches of ``flash_attention`` and none of the
-   other kernels and finite logits, times the steady prefill and where
-   its time goes, then holds the kernel on the q/k/v of the first layer
-   against the plain version (bf16 within one rounding step of the
-   output, rtol 2^-7 and atol 4e-3; the same q/k/v in f32 within atol
-   2e-4) and times it with the plain version and
-   ``scaled_dot_product_attention``;
+   S = 8192 — checks 32 launches of ``flash_attention``, all of its
+   ``wgmma`` body, and none of the other kernels and finite logits,
+   times the steady prefill and where its time goes, then holds the
+   kernel on the q/k/v of the first layer against the plain version
+   (bf16 within one rounding step of the output, rtol 2^-7 and atol
+   4e-3; the same q/k/v in f32 within atol 2e-4) and times it with the
+   plain version, its ``simt`` body at bf16, its ``wgmma`` body without
+   ping-pong and ``scaled_dot_product_attention``;
 9. drives serving — ``BatchedServer.generate`` with batch 8, prompt 128,
    generate 32 on the same model — checks that it launched no kernel
    (decode attention is plain PyTorch, as in repro), times the decode
@@ -177,6 +182,32 @@ def svm_inner_flops(s: int, mu: int, iters: int) -> float:
     return power + chain + s * mu * 12 + s * (2 * mu * mu + 4 * mu)
 
 
+def log_ptxas(name: str) -> None:
+    """ptxas's registers and spills for each kernel of library ``name``,
+    from the build this process ran (-Xptxas -v)."""
+    import re
+    from repro_torch.kernels import _build
+    out = _build.BUILD_LOG.get(name)
+    if out is None:
+        log(f"  {name}: built before this process; no ptxas report")
+        return
+    entry, spill = None, ""
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        elif "spill stores" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            dim = re.search(r"Li(\d+)E", entry)
+            body = ("wgmma bf16" if "wgmma" in entry else
+                    "simt f32" if "kernelIf" in entry else "simt bf16")
+            log(f"  ptxas {name} {body} D={dim.group(1) if dim else '?'}: "
+                f"{m.group(1)} registers; {spill}")
+            entry = None
+
+
 def check_close(name, got, want, rtol, atol):
     import torch
     err = float((got - want).abs().max())
@@ -244,6 +275,7 @@ def phase_kernels():
     names = ["gram", "sa_inner", "spmm", "svm_inner", "flash_attention"]
     _build.build(names)                     # one nvcc per source, together
     log(f"  built {', '.join(names)} in {time.perf_counter() - t0:.1f} s")
+    log_ptxas("flash_attention")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {}
@@ -656,8 +688,10 @@ def counters():
 
 
 def zero_counts():
+    from repro_torch.kernels.flash_attention import flash_attention
     for fn in counters().values():
         fn.launches = 0
+    flash_attention.route_launches.update(wgmma=0, simt=0)
 
 
 def read_counts():
@@ -1014,22 +1048,55 @@ def phase_attention_kernel():
     tiles = (lib.flash_attention_block_q(), lib.flash_attention_block_k())
     if tiles != (dispatch.FLASH_BLOCK_Q, dispatch.FLASH_BLOCK_K):
         raise AssertionError(f"flash_attention tiles: C {tiles} vs dispatch")
+    tiles = (lib.flash_attention_wgmma_block_q(),
+             lib.flash_attention_wgmma_block_k(),
+             lib.flash_attention_wgmma_stages())
+    if tiles != (dispatch.FLASH_WGMMA_BLOCK_Q, dispatch.FLASH_WGMMA_BLOCK_K,
+                 dispatch.FLASH_WGMMA_STAGES):
+        raise AssertionError(f"flash_attention wgmma tiles and stages: C "
+                             f"{tiles} vs dispatch")
     for D in dispatch.FLASH_HEAD_DIMS:
         got = lib.flash_attention_smem_bytes(D)
         if got != dispatch.flash_attention_smem_bytes(D):
             raise AssertionError(f"flash_attention smem at D={D}: C {got} "
                                  f"vs dispatch")
+    for D in dispatch.FLASH_WGMMA_HEAD_DIMS:
+        got = lib.flash_attention_wgmma_smem_bytes(D)
+        if got != dispatch.flash_attention_smem_bytes(D, "wgmma"):
+            raise AssertionError(f"flash_attention wgmma smem at D={D}: C "
+                                 f"{got} vs dispatch")
+    log(f"  tiles and shared memory agree with dispatch: simt "
+        f"{dispatch.FLASH_BLOCK_Q} x {dispatch.FLASH_BLOCK_K}, wgmma "
+        f"{dispatch.FLASH_WGMMA_BLOCK_Q} x {dispatch.FLASH_WGMMA_BLOCK_K} "
+        f"over {dispatch.FLASH_WGMMA_STAGES} stages "
+        f"({dispatch.flash_attention_smem_bytes(128, 'wgmma')} bytes at "
+        f"D = 128)")
+
+    def routed(what, q, k, v, **kw):
+        """flash_attention(q, k, v) -> out; raises unless exactly one
+        launch of the body dispatch routes (dtype, D) to was counted."""
+        want = dispatch.flash_attention_route(q.dtype, q.shape[3])
+        before = dict(flash_attention.route_launches)
+        out = flash_attention(q, k, v, **kw)
+        taken = {r: n - before[r] for r, n in
+                 flash_attention.route_launches.items() if n != before[r]}
+        if taken != {want: 1}:
+            raise AssertionError(f"flash_attention {what}: launched {taken}, "
+                                 f"expected one of the {want} body")
+        return out, want
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     for case in ATTN_CASES:
         B, Hq, Hkv, Sq, Sk, D, causal, window = case
         for dtype, atol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
             q, k, v = attn_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen)
-            out = flash_attention(q, k, v, causal=causal, window=window)
+            out, route = routed(case, q, k, v, causal=causal, window=window)
             if out.dtype != dtype or out.shape != q.shape:
                 raise AssertionError(f"flash_attention {case} gave "
                                      f"{out.dtype} {tuple(out.shape)}")
-            check_close(f"flash_attention {dtype} {case}", out.float(),
+            check_close(f"flash_attention {dtype} {case} [{route}]",
+                        out.float(),
                         attention_ref(q, k, v, causal=causal,
                                       window=window).float(), 0.0, atol)
     # q, k, v as attention_train hands them over without rope: transposed
@@ -1037,9 +1104,10 @@ def phase_attention_kernel():
     x = torch.randn(2, 200, 8 + 2 * 2, 128, generator=gen,
                     device="cuda").to(torch.bfloat16)
     q, k, v = (t.transpose(1, 2) for t in x.split([8, 2, 2], dim=2))
-    check_close("flash_attention bf16 strided views (2, 8/2, 200, 128)",
-                flash_attention(q, k, v).float(),
-                attention_ref(q, k, v).float(), 0.0, 2e-2)
+    out, route = routed("strided views", q, k, v)
+    check_close(f"flash_attention bf16 strided views (2, 8/2, 200, 128) "
+                f"[{route}]", out.float(), attention_ref(q, k, v).float(),
+                0.0, 2e-2)
     # The backward is the plain version's VJP, as in repro.
     q, k, v = (t.requires_grad_() for t in
                attn_inputs(1, 2, 1, 64, 64, 32, torch.float32, gen))
@@ -1068,18 +1136,23 @@ def flash_row(args, kw):
     """The flash_attention kernel row on the q/k/v that the prefill's first
     layer gave it: error and time against the plain version (run one KV
     head group at a time: all 32 heads at once would hold ~35 GB of f32
-    scores) and SDPA, and the bound from this call's live pairs.
+    scores), its simt body at bf16 (forced through ``_launch``'s route),
+    its wgmma body without ping-pong and SDPA, and the bound from this
+    call's live pairs.
 
     Outputs here are means of v over up to 8192 keys, ~0.02-0.03 in most
     rows, so repro's bf16 bar of 2e-2 could not tell a dropped key tile
-    from rounding. Kernel and plain version both compute in f32 and round
-    once to bf16, so they may differ by one rounding step of the output:
-    at most 2^-7 of its size (rtol), plus atol 4e-3 (~2x the error
-    measured on an H100). The same q/k/v in f32 are held at atol 2e-4
-    (f32 reordering gives ~1e-6 there)."""
+    from rounding. Kernel and plain version both round once to bf16 at
+    the end, so they may differ by one rounding step of the output: at
+    most 2^-7 of its size (rtol), plus atol 4e-3 for the rest (the wgmma
+    body's bf16 P, as in FA3 and SDPA, and f32 reordering). The same
+    q/k/v in f32 (the simt body) are held at atol 2e-4 (f32 reordering
+    gives ~1e-6 there)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import _launch
     from repro_torch.kernels.flash_attention.ref import attention_ref
     q, k, v = args
     (B, Hq, Sq, D), (Hkv, Sk) = q.shape, k.shape[1:3]
@@ -1094,14 +1167,21 @@ def flash_row(args, kw):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                               enable_gqa=True)
 
+    def simt():
+        return _launch(q, k, v, kw.get("causal", True), kw.get("window", 0),
+                       D ** -0.5, route="simt")
+
     out = flash_attention(q, k, v, **kw)
     want = plain().float()
     err = check_close(f"flash_attention on layer 0's q/k/v of the prefill "
-                      f"{tuple(q.shape)} / {tuple(k.shape)} {q.dtype}",
+                      f"{tuple(q.shape)} / {tuple(k.shape)} {q.dtype} "
+                      f"[{dispatch.flash_attention_route(q.dtype, D)}]",
                       out.float(), want, 2.0 ** -7, 4e-3)
     mean_ref = float(want.abs().mean())
     log(f"  mean |plain| {mean_ref:.3e}: max err / mean |plain| "
         f"{err / mean_ref:.3e}")
+    check_close("the simt body on the same q/k/v (bf16)", simt().float(),
+                want, 2.0 ** -7, 4e-3)
     del want
     q32, k32, v32 = (t.float() for t in (q, k, v))
     want32 = torch.cat([attention_ref(q32[:, i * g:(i + 1) * g],
@@ -1119,19 +1199,39 @@ def flash_row(args, kw):
     flops = 4.0 * Hq * D * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     b, why = bound_ms(nbytes, flops, BF16_FLOPS)
+    # The wgmma body, SDPA and the wgmma body without ping-pong in turns,
+    # three rounds of ten calls each (the card's clocks drift over a run,
+    # so back-to-back blocks would favour whichever went first); medians.
+    timed = {"ms": lambda: flash_attention(q, k, v, **kw),
+             "library_ms": sdpa,
+             "no_pingpong_ms": lambda: _launch(
+                 q, k, v, kw.get("causal", True), kw.get("window", 0),
+                 D ** -0.5, pingpong=False)}
+    rounds = {name: [] for name in timed}
+    for _ in range(3):
+        for name, fn in timed.items():
+            rounds[name].append(time_ms(fn, 10, 1))
     row = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
            "max_abs_err": err,
-           "ms": time_ms(lambda: flash_attention(q, k, v, **kw), 5, 1),
            "plain_ms": time_ms(plain, 2, 1),
            "bound_ms": b, "bound_by": why,
-           "library_ms": time_ms(sdpa, 10, 2)}
-    log(f"  flash_attention at this shape: {row['ms']:.4f} ms (plain "
-        f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f} [max abs diff "
-        f"{lib_err:.2e}], bound {b:.4f} ms by {why}: {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.1f} GFLOP at the bf16 tensor-core peak; "
-        f"{flops / row['ms'] / 1e9:.2f} TFLOP/s achieved)")
+           "simt_ms": time_ms(simt, 3, 1),
+           **{name: sorted(ts)[1] for name, ts in rounds.items()}}
+    log(f"  flash_attention at this shape: {row['ms']:.4f} ms, "
+        f"{flops / row['ms'] / 1e9:.2f} TFLOP/s, {b / row['ms']:.3f} of "
+        f"the bound; without ping-pong {row['no_pingpong_ms']:.4f} ms; "
+        f"SDPA {row['library_ms']:.4f} ms, "
+        f"{flops / row['library_ms'] / 1e9:.2f} TFLOP/s [max abs diff "
+        f"{lib_err:.2e}] (rounds, ms: "
+        + "; ".join(f"{n} {' '.join(f'{t:.4f}' for t in ts)}"
+                    for n, ts in rounds.items()) + ")")
+    log(f"  simt body at bf16 {row['simt_ms']:.4f} ms, "
+        f"{flops / row['simt_ms'] / 1e9:.2f} TFLOP/s; plain "
+        f"{row['plain_ms']:.4f} ms; bound {b:.4f} ms by {why}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP at the bf16 "
+        f"tensor-core peak")
     return row
 
 
@@ -1213,6 +1313,7 @@ def log_profile(what, prof, wall_ms, n):
 def phase_prefill(arch, model):
     import torch
     from repro_torch.configs import SHAPES
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import layers as L
     from repro_torch.models import lm
 
@@ -1233,13 +1334,17 @@ def phase_prefill(arch, model):
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         got = read_counts()
+        routes = dict(flash_attention.route_launches)
         want = dict.fromkeys(got, 0)
         want["flash_attention"] = arch.n_layers
-        log(f"  launches in the prefill: {got} (expected {want})")
+        want_routes = {"wgmma": arch.n_layers, "simt": 0}
+        log(f"  launches in the prefill: {got} (expected {want}); "
+            f"flash_attention by body {routes} (expected {want_routes})")
         log(f"  first prefill {cold:.4f} s; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-        if got != want:
-            raise AssertionError(f"prefill launches {got}, expected {want}")
+        if got != want or routes != want_routes:
+            raise AssertionError(f"prefill launches {got} {routes}, "
+                                 f"expected {want} {want_routes}")
         if logits.shape != (B, 1, arch.vocab_size) \
                 or not torch.isfinite(logits).all():
             raise AssertionError(f"prefill logits {tuple(logits.shape)} not "

@@ -24,9 +24,15 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "sm90.cuh")
+# Passed to every build but not part of a library's name: they change
+# what nvcc reports, not what it builds.
+REPORT_FLAGS = ("-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# What nvcc (and ptxas: registers, spills) reported for each library
+# built by this process.
+BUILD_LOG: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -70,8 +76,8 @@ def build(names: Iterable[str]) -> List[Path]:
     procs = []
     for n, t in todo:
         tmp = t.with_name(f"{t.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *REPORT_FLAGS, "-I", str(CSRC), "-o",
+               str(tmp), str(CSRC / f"{n}.cu")]
         procs.append((n, t, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -82,6 +88,7 @@ def build(names: Iterable[str]) -> List[Path]:
             failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
             tmp.unlink(missing_ok=True)
         else:
+            BUILD_LOG[n] = out
             os.replace(tmp, t)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

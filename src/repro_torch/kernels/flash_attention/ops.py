@@ -5,11 +5,15 @@ dispatch, the chunked path and autograd (the port of
 Forward: on a CUDA tensor the hand-written kernel launches, or the call
 raises; on a CPU tensor the plain version runs (``ref.attention_ref``, or
 ``attention_chunked`` from ``CHUNKED_THRESHOLD`` query rows on, as
-``repro`` dispatches its non-Pallas backends). The kernel takes ragged
-lengths as they are (no padding), so the causal/window band sits at the
-unpadded offset Sk - Sq. Backward: the plain version's VJP, as
-``repro``'s ``_flash_bwd``; no backward kernel exists there.
-``flash_attention.launches`` counts kernel launches.
+``repro`` dispatches its non-Pallas backends). The kernel has two bodies,
+chosen by ``dispatch.flash_attention_route``: ``wgmma`` (bf16 at D = 64
+and 128, fed by TMA) and ``simt`` (f32, and bf16 at D = 32 and 160). A
+failed build or launch raises; neither body stands in for the other. The
+kernel takes ragged lengths as they are (no padding), so the
+causal/window band sits at the unpadded offset Sk - Sq. Backward: the
+plain version's VJP, as ``repro``'s ``_flash_bwd``; no backward kernel
+exists there. ``flash_attention.launches`` counts kernel launches and
+``flash_attention.route_launches`` the launches of each body.
 """
 from __future__ import annotations
 
@@ -24,22 +28,31 @@ from repro_torch.kernels.flash_attention import ref as _ref
 # S x S score tensor would dominate memory otherwise).
 CHUNKED_THRESHOLD = 2048
 
-_C_FN = {torch.float32: "flash_attention_f32",
-         torch.bfloat16: "flash_attention_bf16"}
+_C_FN = {("simt", torch.float32): "flash_attention_f32",
+         ("simt", torch.bfloat16): "flash_attention_bf16",
+         ("wgmma", torch.bfloat16): "flash_attention_bf16_wgmma"}
 
 
 def _declare(lib):
-    for fn in _C_FN.values():
+    for (route, _), fn in _C_FN.items():
         f = getattr(lib, fn)
+        # The wgmma body takes one more int: whether its consumers take
+        # turns (ping-pong).
         f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
             + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float] + [ctypes.c_int] * (1 + (route == "wgmma")) \
+            + [ctypes.c_void_p]
         f.restype = ctypes.c_int
-    for fn in ("flash_attention_block_q", "flash_attention_block_k"):
+    for fn in ("flash_attention_block_q", "flash_attention_block_k",
+               "flash_attention_wgmma_block_q",
+               "flash_attention_wgmma_block_k",
+               "flash_attention_wgmma_stages"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
-    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
-    lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+    for fn in ("flash_attention_smem_bytes",
+               "flash_attention_wgmma_smem_bytes"):
+        getattr(lib, fn).argtypes = [ctypes.c_int]
+        getattr(lib, fn).restype = ctypes.c_longlong
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
 
@@ -61,12 +74,17 @@ def _check(q, k, v):
                          f"{tuple(k.shape)}")
 
 
-def _launch(q, k, v, causal: bool, window: int, scale: float):
-    """The kernel on CUDA tensors -> (B, Hq, Sq, D) in q's dtype."""
+def _launch(q, k, v, causal: bool, window: int, scale: float,
+            route: str | None = None, pingpong: bool = True):
+    """The kernel on CUDA tensors -> (B, Hq, Sq, D) in q's dtype, through
+    the body ``dispatch.flash_attention_route`` picks. ``route`` forces a
+    body and ``pingpong=False`` stops the wgmma body's consumers from
+    taking turns: ``chip_smoke.py`` times both beside the default that
+    way."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not "
                          f"{q.device}")
-    if q.dtype not in _C_FN:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention's kernel takes float32 or "
                         f"bfloat16, not {q.dtype}")
     B, Hq, Sq, D = q.shape
@@ -74,8 +92,22 @@ def _launch(q, k, v, causal: bool, window: int, scale: float):
     if D not in dispatch.FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention's kernel takes head dimensions "
                          f"{dispatch.FLASH_HEAD_DIMS}, not {D}")
+    if route is None:
+        route = dispatch.flash_attention_route(q.dtype, D)
+    if (route, q.dtype) not in _C_FN or (
+            route == "wgmma" and D not in dispatch.FLASH_WGMMA_HEAD_DIMS):
+        raise ValueError(f"flash_attention has no {route!r} body for "
+                         f"{q.dtype} at D = {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
+        if route == "wgmma":
+            if not dispatch.tma_strides_ok(t.stride(), t.data_ptr(),
+                                           t.element_size()):
+                raise ValueError(
+                    f"flash_attention: TMA needs {name} with a contiguous "
+                    f"head dimension, strides that are multiples of 16 "
+                    f"bytes and a 16-byte aligned start; got strides "
+                    f"{t.stride()}")
+        elif t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             raise ValueError(
                 f"flash_attention: {name} needs a contiguous head dimension,"
@@ -83,13 +115,16 @@ def _launch(q, k, v, causal: bool, window: int, scale: float):
                 f"start; got strides {t.stride()}")
     lib = _build.load("flash_attention", _declare)
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
-    rc = getattr(lib, _C_FN[q.dtype])(
+    schedule = (int(pingpong),) if route == "wgmma" else ()
+    rc = getattr(lib, _C_FN[route, q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], int(causal), int(window), Sk - Sq, float(scale),
-        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, rc, "flash_attention")
+        *schedule, q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, f"flash_attention ({route})")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
@@ -183,3 +218,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"wgmma": 0, "simt": 0}

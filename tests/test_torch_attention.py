@@ -155,14 +155,22 @@ def test_wrapper_refuses_what_it_cannot_launch():
 
 
 def test_flash_attention_smem_budget():
-    """The kernel's tiles fit a block's shared memory at every head
-    dimension it is built for; the model's D = 128 takes 115 KB and
-    stablelm-12b's D = 160 139 KB."""
+    """Each body's tiles fit a block's shared memory at every head
+    dimension it serves. simt (f32 tiles): 115 KB at the model's D = 128,
+    139 KB at stablelm-12b's D = 160. wgmma (bf16 Q and two stages of K
+    and V, 1 KB of alignment slack, the barriers): 161 KB at D = 128,
+    81 KB at D = 64."""
     assert dispatch.flash_attention_smem_bytes(128) == 117_760
     assert dispatch.flash_attention_smem_bytes(160) == 142_336
+    assert dispatch.flash_attention_smem_bytes(128, "wgmma") == 164_936
+    assert dispatch.flash_attention_smem_bytes(64, "wgmma") == 83_016
     for D in dispatch.FLASH_HEAD_DIMS:
-        assert dispatch.flash_attention_smem_bytes(D) \
-            <= dispatch.SMEM_PER_BLOCK
+        for dtype in (torch.float32, torch.bfloat16):
+            route = dispatch.flash_attention_route(dtype, D)
+            assert dispatch.flash_attention_smem_bytes(D, route) \
+                <= dispatch.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="route"):
+        dispatch.flash_attention_smem_bytes(128, "tf32")
 
 
 def test_every_kernel_package_has_a_source_and_a_counter():
@@ -172,3 +180,4 @@ def test_every_kernel_package_has_a_source_and_a_counter():
     for name in KERNEL_PACKAGES:
         assert (csrc / f"{name}.cu").is_file(), name
     assert flash_attention.launches == 0
+    assert flash_attention.route_launches == {"wgmma": 0, "simt": 0}
