@@ -7,20 +7,31 @@ Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
 
 1. builds the kernels (one ``nvcc`` per source, together; ptxas's
-   registers and spills of each ``flash_attention`` body are printed),
-   holds each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at edge shapes, and times ``gram`` and
-   ``sa_inner`` with their plain versions and (``gram``) ``torch.matmul``
-   with CUDA events;
+   registers and spills of each ``gram`` and ``flash_attention`` body are
+   printed, and a spill in a ``wgmma`` body fails), holds each kernel
+   against its plain PyTorch version on the card, at the main paths'
+   shapes and at edge shapes, and times ``gram`` and ``sa_inner`` with
+   their plain versions and (``gram``) ``torch.matmul`` with CUDA events.
+   ``gram`` routes by ``dispatch.gram_route``: each case checks the body
+   it took (``wgmma`` for f32 where TMA can describe the operands, else
+   ``simt``; f64 ``simt``), that two calls give the same bits, and the C
+   side's tile plan and shared-memory formula against
+   ``kernels/dispatch.py``; the path's call Y^T [Y | ytil | ztil] is timed
+   with both bodies and ``torch.matmul`` (TF32 off), and a 1xTF32
+   emulation of it must miss K1's bar there. A latency probe
+   (``sync_step_probe`` in ``csrc/sa_inner.cu``) times one shuffle
+   reduction and block barrier, the latency bound of ``sa_inner`` and
+   ``svm_inner`` per dependent step;
 2. drives the dense Lasso path — ``repro_torch.api.solve`` on a dense
    Lasso at the shape of LIBSVM ``epsilon`` (400,000 x 2,000, f32),
-   SA-accBCD with mu = 8, s = 16, H = 512 — checks that ``gram`` and
-   ``sa_inner`` each launched ceil(H/s) = 32 times, that the objective is
-   finite and falls, and that the classical accBCD (s = 1) gives the same
-   trace within rel 1e-3; then times where each outer iteration's time
-   goes;
+   SA-accBCD with mu = 8, s = 16, H = 512 — checks that ``gram`` (all
+   through its ``wgmma`` body) and ``sa_inner`` each launched ceil(H/s) =
+   32 times, that the objective is finite and falls, and that the
+   classical accBCD (s = 1) gives the same trace within rel 1e-3; then
+   times where each outer iteration's time goes;
 3. runs an f64 solve on the card (epsilon-like, 8192 x 512) through the
-   same kernels and holds it to the CPU solve within 1e-8;
+   same kernels (``gram``'s ``simt`` body) and holds it to the CPU solve
+   within 1e-8;
 4. drives the sparse SVM path — ``api.solve`` on a linear SVM-L1 at the
    shape of LIBSVM ``news20.binary`` (19,996 x 1,355,191, ~9.1 M nonzeros,
    a SparseOperand made on the card), SA-BDCD mu = 1, s = 64, H = 4096 —
@@ -86,12 +97,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, bf16 on the dense tensor cores, and HBM3 bandwidth.
+# cores, TF32 and bf16 on the dense tensor cores, and HBM3 bandwidth.
 F32_FLOPS = 67e12
+TF32_FLOPS = 494.7e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 M_EPS, N_EPS = 400_000, 2_000           # LIBSVM epsilon
+# Phase 2's label of K1's call, Y^T [Y | ytil | ztil] read in place.
+GRAM_PHASE = "gram kernel (Y^T [Y | V], no cat)"
 MU, S, H = 8, 16, 512
 # LIBSVM news20.binary (SVM path) and url (sparse Lasso path; density f
 # as src/repro/core/cost_model.py:246 gives it).
@@ -201,10 +215,19 @@ def log_ptxas(name: str) -> None:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             dim = re.search(r"Li(\d+)E", entry)
-            body = ("wgmma bf16" if "wgmma" in entry else
-                    "simt f32" if "kernelIf" in entry else "simt bf16")
-            log(f"  ptxas {name} {body} D={dim.group(1) if dim else '?'}: "
-                f"{m.group(1)} registers; {spill}")
+            dim = dim.group(1) if dim else "?"
+            if name == "gram":
+                kind = re.search(r"(gram_[a-z]+_kernel)I(\w)", entry)
+                prec = "f64" if kind.group(2) == "d" else "f32"
+                body = (f"{kind.group(1)} N={dim}" if "wgmma" in entry
+                        else f"{kind.group(1)} {prec}")
+            else:
+                body = ("wgmma bf16" if "wgmma" in entry else
+                        "simt f32" if "kernelIf" in entry else
+                        "simt bf16") + f" D={dim}"
+            log(f"  ptxas {name} {body}: {m.group(1)} registers; {spill}")
+            if "wgmma" in entry and ", 0 bytes spill stores" not in spill:
+                raise AssertionError(f"ptxas: {name} {body} spills: {spill}")
             entry = None
 
 
@@ -255,11 +278,184 @@ def random_ell(R, C, per_row, gen, dtype, empty_rows=0):
     return op.row_vals, op.row_cols, op.row_blocks
 
 
+def gram_case(name, fn, want, route, rtol, atol):
+    """One call of K1 against its plain version: the body it took must be
+    ``route``, and a second call must give the same bits."""
+    import torch
+    from repro_torch.kernels.gram import gram_t
+    before = dict(gram_t.route_launches)
+    got = fn()
+    torch.cuda.synchronize()
+    took = [r for r, n in gram_t.route_launches.items() if n != before[r]]
+    if took != [route]:
+        raise AssertionError(f"gram {name}: took {took}, route {route}")
+    err = check_close(f"gram {name} ({route})", got, want, rtol, atol)
+    if not torch.equal(got, fn()):
+        raise AssertionError(f"gram {name}: two calls differ")
+    return err
+
+
+def phase_gram(gen):
+    """K1: both bodies against the plain version at the main path's call
+    and at edge shapes, the C side's plan against dispatch's, and the
+    times of the path's call."""
+    import torch
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.gram import gram_fused, gram_t
+    from repro_torch.kernels.gram.ops import _declare, _launch
+    from repro_torch.kernels.gram.ref import (gram_fused_ref, gram_t_ref,
+                                              gram_t_tf32)
+    lib = _build.load("gram", _declare)
+    log_ptxas("gram")
+    got = (lib.gram_wgmma_tile_p(), lib.gram_wgmma_block_k(),
+           lib.gram_wgmma_max_vecs())
+    want = (dispatch.GRAM_WGMMA_TILE_P, dispatch.GRAM_WGMMA_BLOCK_K,
+            dispatch.GRAM_WGMMA_MAX_VECS)
+    if got != want:
+        raise AssertionError(f"gram wgmma constants: C {got} vs {want}")
+    for q in (1, 24, 25, 65, 72, 73, 130, 136, 137, 514):
+        if lib.gram_wgmma_tile_n(q) != dispatch.gram_tile_n(q):
+            raise AssertionError(f"gram tile of q = {q} differs")
+    for same, p, q in ((1, 128, 130), (1, 64, 65), (1, 512, 514),
+                       (0, 128, 130), (1, 4, 6), (1, 128, 8)):
+        if bool(lib.gram_wgmma_shared(same, p, q)) != \
+                dispatch.gram_wgmma_shared(bool(same), p, q):
+            raise AssertionError(f"gram sharing differs at {(same, p, q)}")
+    for tn in dispatch.GRAM_WGMMA_TILE_NS:
+        for sh in (False, True):
+            c_bytes = lib.gram_wgmma_smem_bytes(tn, int(sh))
+            rings = (lib.gram_wgmma_raw_stages(int(sh)),
+                     lib.gram_wgmma_op_stages(int(sh)))
+            if c_bytes != dispatch.gram_wgmma_smem_bytes(tn, sh) or \
+                    rings != (dispatch.gram_wgmma_raw_stages(sh),
+                              dispatch.gram_wgmma_op_stages(sh)):
+                raise AssertionError(f"gram smem layout differs at {tn}, "
+                                     f"{sh}: C {c_bytes}")
+    f32, f64 = torch.float32, torch.float64
+
+    def bar(m):
+        return 2e-4, 2e-4 * math.sqrt(m)
+
+    # The path's call: Y (m, s mu) against [Y | ytil | ztil], the vectors
+    # as the (2, m) stack the solver passes.
+    m, p, k = M_EPS, S * MU, 2
+    Y = torch.randn(m, p, generator=gen, device="cuda")
+    V = torch.randn(k, m, generator=gen, device="cuda")
+    want = gram_fused_ref(Y, V)
+    err = gram_case(f"Y^T [Y | V] ({m}, {p}, k={k})",
+                    lambda: gram_fused(Y, V), want, "wgmma", *bar(m))
+    W = torch.cat([Y, V.T], dim=1)
+    emu = float((gram_fused(Y, V) - gram_t_tf32(Y, W)).abs().max())
+
+    def bar_ratio(got):
+        # max over entries of |got - want| / (atol + rtol |want|): above 1
+        # where check_close's torch.allclose fails
+        rtol, atol = bar(m)
+        return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+    ratio, one_ratio = bar_ratio(gram_fused(Y, V)), \
+        bar_ratio(gram_t_tf32(Y, W, passes=1))
+    log(f"  gram path call vs the 3xTF32 emulation: max_abs_err {emu:.3e};"
+        f" max err / limit: the kernel {ratio:.4f}, the 1xTF32 emulation "
+        f"{one_ratio:.4f}")
+    # The bar must tell the kernel from one that drops the lo terms.
+    if one_ratio <= 1.0:
+        raise AssertionError(f"gram: 1xTF32 meets K1's bar at m = {m}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("torch.matmul would time TF32, not f32")
+    ms = time_ms(lambda: gram_fused(Y, V), 20)
+    row = {
+        "name": "gram", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gram.cu",
+        "replaces": "src/repro/kernels/gram/kernel.py:48",
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": time_ms(lambda: gram_fused_ref(Y, V), 20),
+        "library_ms": time_ms(lambda: torch.matmul(Y.T, W), 20)}
+    # Least time for the same f32-accurate work: Y and V read once, the
+    # output written once; three TF32 products on the tensor cores for
+    # the entries the function needs: G's upper half (it is symmetric)
+    # and P.
+    q = p + k
+    entries = p * (p + 1) // 2 + p * k
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        (m * p + k * m + p * q) * 4, 3 * 2.0 * m * entries, TF32_FLOPS)
+    ops_ms = 3 * 2.0 * m * entries / TF32_FLOPS * 1e3
+    fma = 2.0 * m * p * q / F32_FLOPS * 1e3
+    simt_ms = time_ms(lambda: _launch(Y, Y, V, route="simt"), 20)
+    cat_ms = time_ms(lambda: torch.matmul(Y.T, torch.cat([Y, V.T], 1)), 20)
+    log(f"  gram path call: wgmma {ms:.4f} ms, simt body {simt_ms:.4f}, "
+        f"torch.matmul {row['library_ms']:.4f} (with the cat "
+        f"{cat_ms:.4f}); bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']} (3xTF32 on {entries} entries at "
+        f"{TF32_FLOPS / 1e12:g} TFLOP/s {ops_ms:.4f}; f32 FMA on all "
+        f"{p * q} {fma:.4f})")
+    # x^T y at the path's shape: q = 130 is not whole 16-byte rows, so
+    # the simt body serves it.
+    x, y = Y, W.contiguous()
+    gram_case(f"x^T y ({m}, {p}, {q})", lambda: gram_t(x, y),
+              gram_t_ref(x, y), dispatch.gram_route(f32, m, p, q), *bar(m))
+    b_xy, _ = bound_ms((m * p + m * q + p * q) * 4, 2.0 * m * p * q)
+    xy_ms = time_ms(lambda: gram_t(x, y), 20)
+    mm_ms = time_ms(lambda: torch.matmul(x.T, y), 20)
+    log(f"  gram x^T y ({m}, {p}, {q}): {xy_ms:.4f} ms, torch.matmul "
+        f"{mm_ms:.4f}, f32-FMA bound {b_xy:.4f}")
+    del Y, V, W, x, y, want
+    # Edge shapes (f32): the fused call at s 64, mu 8 (A not shared: four
+    # tiles of p and of q); the dense SVM's Y^T [Y | x] over epsilon's
+    # 2,000 features; m below one 32-row stage; p = 1; x^T y at p = 257
+    # (simt) and p = 256 (wgmma, the 24-wide tile); Y^T Y (A shared, no
+    # vectors); more vectors than the wgmma body takes.
+    for m, p, k in ((M_EPS, 512, 2), (N_EPS, 64, 1), (20, 128, 2),
+                    (1000, 1, 1), (5000, 128, 0), (3000, 64, 9)):
+        Y = torch.randn(m, p, generator=gen, device="cuda")
+        V = torch.randn(k, m, generator=gen, device="cuda")
+        route = dispatch.gram_route(f32, m, p, p + k, y_cols=p)
+        if k:
+            gram_case(f"Y^T [Y | V] ({m}, {p}, k={k})",
+                      lambda: gram_fused(Y, V), gram_fused_ref(Y, V),
+                      route, *bar(m))
+        else:
+            gram_case(f"Y^T Y ({m}, {p})", lambda: gram_t(Y, Y),
+                      gram_t_ref(Y, Y), route, *bar(m))
+    for (m, p, q), dtype in (((513, 257, 3), f32), ((513, 256, 4), f32),
+                             ((513, 257, 3), f64)):
+        x = torch.randn(m, p, generator=gen, device="cuda", dtype=dtype)
+        y = torch.randn(m, q, generator=gen, device="cuda", dtype=dtype)
+        tol = bar(m) if dtype == f32 else (1e-12, 1e-12)
+        gram_case(f"{dtype} x^T y ({m}, {p}, {q})", lambda: gram_t(x, y),
+                  gram_t_ref(x, y), dispatch.gram_route(dtype, m, p, q),
+                  *tol)
+    Y = torch.randn(8192, S * MU, generator=gen, device="cuda", dtype=f64)
+    V = torch.randn(2, 8192, generator=gen, device="cuda", dtype=f64)
+    gram_case("f64 Y^T [Y | V] (8192, 128, k=2)", lambda: gram_fused(Y, V),
+              gram_fused_ref(Y, V), "simt", 1e-12, 1e-12)
+    return row
+
+
+def sync_step_ms(lib):
+    """(ms per step, ms per empty launch) of ``sync_step_probe`` in
+    ``csrc/sa_inner.cu``: 2^14 rounds of a shuffle reduction and a block
+    barrier against none, back to back by CUDA events."""
+    import ctypes
+    import torch
+    fn = lib.sync_step_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(1, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(steps):
+        rc = fn(steps, out.data_ptr(), 0, stream)
+        if rc:
+            raise RuntimeError(f"sync_step_probe: CUDA error {rc}")
+    n = 1 << 14
+    empty = time_ms(lambda: run(0), 200, 5)
+    return (time_ms(lambda: run(n), 20, 2) - empty) / n, empty
+
+
 def phase_kernels():
     import torch
     from repro_torch.kernels import _build, dispatch
-    from repro_torch.kernels.gram import gram_t
-    from repro_torch.kernels.gram.ref import gram_t_ref
     from repro_torch.kernels.sa_inner import sa_inner_loop
     from repro_torch.kernels.sa_inner.ops import _declare as inner_declare
     from repro_torch.kernels.sa_inner.ref import sa_inner_ref
@@ -280,29 +476,7 @@ def phase_kernels():
     gen.manual_seed(0)
     rows = {}
 
-    # gram at the main path's shape: Y (m, s mu) against [Y | ytil | ztil].
-    m, p, q = M_EPS, S * MU, S * MU + 2
-    x = torch.randn(m, p, generator=gen, device="cuda")
-    y = torch.randn(m, q, generator=gen, device="cuda")
-    err = check_close(f"gram f32 ({m}, {p}) x ({m}, {q})", gram_t(x, y),
-                      gram_t_ref(x, y), 2e-4, 2e-4 * math.sqrt(m))
-    b, why = bound_ms((m * p + m * q + p * q) * 4, 2.0 * m * p * q)
-    rows["gram"] = {
-        "name": "gram", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gram.cu",
-        "replaces": "src/repro/kernels/gram/kernel.py:48",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: gram_t(x, y), 20),
-        "plain_ms": time_ms(lambda: gram_t_ref(x, y), 20),
-        "bound_ms": b, "bound_by": why,
-        "library_ms": time_ms(lambda: torch.matmul(x.T, y), 20)}
-    del x, y
-    for dtype, rtol, atol in ((torch.float32, 2e-4, 2e-4 * math.sqrt(513)),
-                              (torch.float64, 1e-12, 1e-12)):
-        x = torch.randn(513, 257, generator=gen, device="cuda", dtype=dtype)
-        y = torch.randn(513, 3, generator=gen, device="cuda", dtype=dtype)
-        check_close(f"gram {dtype} (513, 257) x (513, 3)", gram_t(x, y),
-                    gram_t_ref(x, y), rtol, atol)
+    rows["gram"] = phase_gram(gen)
 
     # sa_inner: G in shared memory (16, 8), in global memory (64, 8), and
     # forced collisions (ids from 0..3) at mu = 1, f32 and f64.
@@ -345,6 +519,15 @@ def phase_kernels():
                 "ms": time_ms(lambda: sa_inner_loop(*ins, **kw), 200, 5),
                 "plain_ms": time_ms(lambda: sa_inner_ref(*ins, **kw), 5, 1),
                 "bound_ms": b, "bound_by": why, "library_ms": None}
+
+    # The latency bound of sa_inner (s = 16) and svm_inner (s = 64): the
+    # inner steps form one dependent chain, each step at least one warp
+    # shuffle reduction and one block barrier in a block of 16 warps.
+    step, empty = sync_step_ms(lib)
+    log(f"  latency probe: {step * 1e3:.4f} us per step (shuffle reduction "
+        f"+ block barrier, 16 warps), empty launch {empty:.4f} ms; latency "
+        f"bounds sa_inner (s={S}) {S * step:.6f} ms, svm_inner "
+        f"(s={S_SVM}) {S_SVM * step:.6f} ms")
 
     # spmm: the SVM path's (64 rows of ~455 slots, D 1,355,191 x 65) and
     # the Lasso path's (128 of ~86, D 2,396,130 x 130) shapes, the
@@ -487,6 +670,7 @@ def phase_main_path():
     from repro_torch import api
     from repro_torch.core import engine, sa_lasso
     from repro_torch.kernels import sa_inner
+    from repro_torch.kernels.gram import gram_t
 
     log(f"phase 2: main path, dense Lasso {M_EPS} x {N_EPS} f32, "
         f"SA-accBCD mu={MU} s={S} H={H}")
@@ -502,10 +686,12 @@ def phase_main_path():
     obj = res.objective.cpu()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    bodies = dict(gram_t.route_launches)
     launches = {"gram": counts["gram"], "sa_inner": counts["sa_inner"]}
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches in the solve: {counts} (expected {outer} each of "
-        f"gram and sa_inner)")
+        f"gram and sa_inner); gram by body {bodies} (expected {outer} "
+        f"wgmma)")
     log(f"  objective {float(obj[0]):.6g} -> {float(obj[-1]):.6g}; "
         f"inner_impl {res.aux['inner_impl']}")
     log(f"  wall {wall:.4f} s, {wall / outer * 1e3:.4f} ms per outer "
@@ -514,6 +700,9 @@ def phase_main_path():
                   "svm_inner": 0, "flash_attention": 0}:
         raise AssertionError(f"main path launches {counts}, expected "
                              f"{outer} of gram and sa_inner")
+    if bodies != {"wgmma": outer, "simt": 0}:
+        raise AssertionError(f"gram bodies {bodies}, expected {outer} "
+                             f"wgmma")
     # Accelerated BCD is not a descent method: allow rises of 1e-2 of the
     # start within a trace that falls overall.
     rise = float((obj[1:] - obj[:-1]).max() / obj[0])
@@ -553,7 +742,7 @@ def phase_main_path():
     saved = (engine.sample_all, sa_lasso.gram_local,
              sa_inner.sa_inner_loop, sa_lasso.deferred_steps)
     engine.sample_all = timer.wrap("sample", saved[0])
-    sa_lasso.gram_local = timer.wrap("gram (cat + kernel)", saved[1])
+    sa_lasso.gram_local = timer.wrap(GRAM_PHASE, saved[1])
     sa_inner.sa_inner_loop = timer.wrap("sa_inner kernel", saved[2])
     sa_lasso.deferred_steps = timer.wrap("deferred GEMVs", saved[3])
     try:
@@ -568,9 +757,8 @@ def phase_main_path():
     tot = timer.totals_ms()
     split = {
         "sample (threefry + sort)": tot["sample"],
-        "gather Y = A[:, blocks]": tot["assemble"]
-        - tot["gram (cat + kernel)"],
-        "gram (cat + kernel)": tot["gram (cat + kernel)"],
+        "gather Y = A[:, blocks]": tot["assemble"] - tot[GRAM_PHASE],
+        GRAM_PHASE: tot[GRAM_PHASE],
         "reduce (G, P views)": tot["reduce"],
         "sa_inner kernel": tot["sa_inner kernel"],
         "inner rest (gather z, index_add)": tot["inner"]
@@ -604,13 +792,15 @@ def phase_f64():
                                            device=device)
         cfg = api.SolverConfig(block_size=MU, s=S, iterations=128,
                                dtype=torch.float64, device=device)
-        gram_t.launches = sa_inner.sa_inner_loop.launches = 0
+        zero_counts()
         out[device] = api.solve(api.LassoProblem(A=A, b=b,
                                                  lam=0.1 * lam_max), cfg)
         if device == "cuda":
-            n = (gram_t.launches, sa_inner.sa_inner_loop.launches)
-            if n != (8, 8):
-                raise AssertionError(f"f64 solve launches {n}, expected 8")
+            n = (gram_t.launches, sa_inner.sa_inner_loop.launches,
+                 gram_t.route_launches["simt"])
+            if n != (8, 8, 8):
+                raise AssertionError(f"f64 solve launches {n}, expected 8 "
+                                     f"(gram all simt)")
     o_gpu = out["cuda"].objective.cpu()
     o_cpu = out["cpu"].objective
     dev = float(((o_gpu - o_cpu).abs() / o_cpu.abs()).max())
@@ -689,9 +879,11 @@ def counters():
 
 def zero_counts():
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gram import gram_t
     for fn in counters().values():
         fn.launches = 0
     flash_attention.route_launches.update(wgmma=0, simt=0)
+    gram_t.route_launches.update(wgmma=0, simt=0)
 
 
 def read_counts():

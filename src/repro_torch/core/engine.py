@@ -28,7 +28,7 @@ from repro_torch.core import linalg, rng
 from repro_torch.core.sparse_exec import spmm_aux
 from repro_torch.core.types import SolveState, SolverResult, resume_carry
 from repro_torch.kernels import spmm
-from repro_torch.kernels.gram import gram_t
+from repro_torch.kernels.gram import gram_fused
 
 __all__ = [
     "FamilyProgram", "run_program", "run_grouped", "grouped_impl_label",
@@ -93,13 +93,15 @@ def reduce_gram_proj(local, smu: int, vec_cols: int, axis_name=None,
 def gram_local(Y, vecs):
     """LOCAL fused Gram/projection block  Y^T @ [Y | vecs]  (the pre-reduce
     half of paper Alg. 2 lines 11-12), through the ``gram`` kernel on a
-    card. Y: (m_loc, s*mu) sampled columns; vecs: (m_loc, k)."""
-    return gram_t(Y, torch.cat([Y, vecs], dim=1))
+    card, which reads Y and the vectors where they lie. Y: (m_loc, s*mu)
+    sampled columns; vecs: (k, m_loc), the k vectors as rows."""
+    return gram_fused(Y, vecs)
 
 
 def gram_and_proj(Y, vecs, axis_name=None, symmetric: bool = False):
-    """:func:`gram_local` followed by :func:`reduce_gram_proj`: (G, P)."""
-    return reduce_gram_proj(gram_local(Y, vecs), Y.shape[1], vecs.shape[1],
+    """:func:`gram_local` followed by :func:`reduce_gram_proj`: (G, P);
+    vecs (k, m_loc) as there."""
+    return reduce_gram_proj(gram_local(Y, vecs), Y.shape[1], vecs.shape[0],
                             axis_name, symmetric)
 
 

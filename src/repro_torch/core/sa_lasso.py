@@ -53,11 +53,12 @@ def _lasso_sample(ctx, keys):
 
 def _lasso_assemble(ctx, vecs, idxs, s_grp):
     """LOCAL fused payload for the group's sampled columns:
-    (handle, Y^T [Y | vecs]); ``handle`` (the dense sampled columns Y, or
-    the gathered ELL columns) feeds the deferred products."""
+    (handle, Y^T [Y | vecs^T]) for the k vectors ``vecs`` (k, m_loc);
+    ``handle`` (the dense sampled columns Y, or the gathered ELL columns)
+    feeds the deferred products."""
     flat = idxs.reshape(s_grp * ctx.mu)
     if ctx.sparse:
-        return ctx.block_gram(flat, vecs)
+        return ctx.block_gram(flat, vecs.T)
     Y = ctx.A[:, flat]                                  # (m_loc, s*mu)
     return Y, gram_local(Y, vecs)
 
@@ -93,7 +94,7 @@ def _bcd_setup(problem, cfg, x0, carry0):
 
 
 def _bcd_assemble(ctx, carry, idxs, s_grp):
-    return _lasso_assemble(ctx, carry[1][:, None], idxs, s_grp)
+    return _lasso_assemble(ctx, carry[1][None], idxs, s_grp)
 
 
 def _bcd_reduce(ctx, local, idxs, s_grp):
@@ -187,8 +188,7 @@ def _acc_schedule(ctx, cfg, total):
 
 def _acc_assemble(ctx, carry, idxs, s_grp):
     z, y, ztil, ytil = carry
-    return _lasso_assemble(ctx, torch.stack([ytil, ztil], dim=1), idxs,
-                           s_grp)
+    return _lasso_assemble(ctx, torch.stack([ytil, ztil]), idxs, s_grp)
 
 
 def _acc_reduce(ctx, local, idxs, s_grp):

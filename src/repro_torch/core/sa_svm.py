@@ -50,7 +50,7 @@ def _svm_assemble(ctx, carry, idxs, s_grp):
     Y = ctx.take(idxs.reshape(s_grp * ctx.mu))       # (s*mu, n) rows
     # LOCAL fused  Y [Y^T | x]  (Alg. 4 lines 9-10)
     local = ctx.gram(Y, x[:, None]) if ctx.sparse \
-        else gram_local(Y.T.contiguous(), x[:, None])
+        else gram_local(Y.T.contiguous(), x[None])
     return Y, local
 
 

@@ -153,7 +153,37 @@ int sa_inner(const T* G, const T* yp, const T* zp, const T* zv,
                          lam2, iters, stream);
 }
 
+// Not a solver kernel: a latency probe for the bound of sa_inner and
+// svm_inner, whose inner steps form one dependent chain. Each of `steps`
+// rounds is what every inner step of both kernels waits on at least once:
+// a warp shuffle reduction, then one block barrier, in one block of the
+// same 16 warps (the shared partials alternate between two buffers so
+// one barrier a round suffices). chip_smoke.py times it at two step
+// counts; their difference over the steps is one step's latency.
+__global__ void __launch_bounds__(kThreads)
+sync_step_probe_kernel(int steps, float* out) {
+  __shared__ float part[2][kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float v = threadIdx.x * 1e-3f;
+  for (int i = 0; i < steps; ++i) {
+    v = warp_allreduce_sum(v);
+    if (lane == 0) part[i & 1][warp] = v;
+    __syncthreads();
+    v = part[i & 1][(warp + 1) % kWarps] * 0.5f + lane * 1e-3f;
+  }
+  if (threadIdx.x == 0) out[0] = v;
+}
+
 }  // namespace
+
+extern "C" int sync_step_probe(int steps, float* out, int device,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  sync_step_probe_kernel<<<1, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(steps, out);
+  return cudaGetLastError();
+}
 
 extern "C" long long sa_inner_smem_bytes(int s, int mu, int itemsize,
                                          int g_in_smem) {

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tensor loads, warpgroup MMA (wgmma) on bf16 operands in 128-byte
-// swizzled shared memory, register rebalancing between warpgroups
-// (setmaxnreg), and the host-side encoding of TMA tensor maps.
+// TMA tensor loads, warpgroup MMA (wgmma) on bf16 and tf32 operands in
+// 128-byte swizzled shared memory, register rebalancing between
+// warpgroups (setmaxnreg), and the host-side encoding of TMA tensor maps.
 //
 // Layout contract between TMA and wgmma: a TMA box whose inner extent is
 // 64 bf16 (128 bytes), loaded with CU_TENSOR_MAP_SWIZZLE_128B into a
@@ -17,6 +17,9 @@
 //     LBO = the panel stride (the next 64 columns), SBO = 1024 (the next
 //     8 rows of the reduction axis); the k-th 16-row slice starts
 //     2048 k bytes in.
+// A tf32 operand uses the same atoms, K-major only, written by threads
+// (st.shared with the same XOR) rather than by TMA: a 128-byte row holds
+// 32 values of K and the k-th 8-wide slice starts 32 k bytes in.
 //
 // The tensor-map encoder is reached through cudaGetDriverEntryPoint, so
 // no library links against libcuda.
@@ -274,6 +277,148 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(
 }
 
 // ---------------------------------------------------------------------------
+// tf32 operands (the gram kernel's 3xTF32 products)
+// ---------------------------------------------------------------------------
+
+// a rounded to tf32 (nearest, ties away from zero): the f32 bit pattern
+// with its low 13 mantissa bits cleared.
+__device__ __forceinline__ float cvt_rna_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
+  return __uint_as_float(r);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands written by st.shared).
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The box of `map` at coordinates (c0, c1), innermost first, into `dst`;
+// completion counts its bytes on `bar`. Out-of-bounds elements are
+// written as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Copies 4 bytes from global `src` to shared `dst` without waiting, or
+// writes zero there when `valid` is false (source size 0; `src` must
+// still be a valid address).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// One arrival on `bar`, counted among its expected arrivals, once every
+// cp.async this thread has issued so far is complete.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// D (64 x N, f32) += A (64 x 8) B (8 x N), both tf32 in shared memory,
+// K-major with the 128-byte swizzle (tf32 operands have no transpose
+// mode): a 128-byte row holds 32 values of K, so the k-th 8-wide slice
+// starts 32 k bytes into the row. scale_d = 0 overwrites D. N is one of
+// the gram kernel's tile widths.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<24>(float (&d)[12],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<72>(float (&d)[36],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, %36, %37, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<136>(float (&d)[68],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67"
+      "}, %68, %69, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
 // Host: TMA tensor maps
 // ---------------------------------------------------------------------------
 
@@ -317,6 +462,27 @@ inline cudaError_t encode_bf16_sw128(CUtensorMap* map, const void* base,
                         const_cast<void*>(base), dims, byte_strides, box,
                         ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tiled f32 tensor map of `rank` dimensions (innermost first, the
+// innermost contiguous), byte strides of the outer rank - 1, a box of
+// `box` elements, no swizzle and zero fill out of bounds: the box lands
+// in shared memory row-major, as it lies in global memory.
+inline cudaError_t encode_f32(CUtensorMap* map, const void* base, int rank,
+                              const cuuint64_t* dims,
+                              const cuuint64_t* byte_strides,
+                              const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        static_cast<cuuint32_t>(rank),
+                        const_cast<void*>(base), dims, byte_strides, box,
+                        ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

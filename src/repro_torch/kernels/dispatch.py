@@ -7,10 +7,20 @@ resource is a block's shared memory, 227 KB (232,448 bytes) of the SM's
 256 KB, and nothing falls back: a configuration picks a variant of the
 same kernel.
 
-* ``gram``: fixed (64, 64) output tiles fed by (32, 64) slices of x and
-  y in static shared memory (16 KB at f32, 32 KB at f64); the tall m
-  axis is split across blocks (split-K), the split count chosen to put a
-  few blocks on every SM.
+* ``gram``: two bodies, chosen by ``gram_route``; both split the tall m
+  axis across blocks (split-K) and sum the partials in a fixed order.
+  ``gram_plan`` is the Python mirror of either body's grid. The ``wgmma``
+  body (f32 where TMA can describe the operands) runs one block of 640
+  threads per (128-row tile of p, tile of q, range of m), a tile of q
+  being the narrowest of the wgmma widths ``GRAM_WGMMA_TILE_NS`` that
+  holds q; raw 32-row slices and their transposed tf32 hi/lo halves sit
+  in two rings in dynamic shared memory (175 KB when A shares B's
+  buffer, 201 KB when it does not, at q > 72), with one block on every
+  SM. The ``simt`` body (f64, other f32 shapes) uses fixed (64, 64)
+  output tiles fed by (32, 64) slices of x and y in static shared memory
+  (16 KB at f32, 32 KB at f64), the split count chosen to put a few
+  blocks on every SM. ``csrc/gram.cu`` exports the wgmma body's tile
+  sizes and shared-memory formula for the cross-check.
 * ``sa_inner``: G stays in shared memory while the kernel's whole
   footprint fits; above that the same kernel reads G's rows from global
   memory (through L2). ``sa_inner_smem_bytes`` must match the layout in
@@ -35,7 +45,7 @@ same kernel.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 SMEM_PER_BLOCK = 232_448      # H100: opt-in dynamic shared memory per block
 NUM_SMS_H100 = 132
@@ -44,6 +54,10 @@ GRAM_TILE_P = 64
 GRAM_TILE_Q = 64
 GRAM_BLOCK_K = 32
 GRAM_BLOCKS_PER_SM = 4
+GRAM_WGMMA_TILE_P = 128       # two consumer warpgroups of 64 output rows
+GRAM_WGMMA_BLOCK_K = 32       # rows of m per stage (one 128-byte row)
+GRAM_WGMMA_MAX_VECS = 8       # k of a fused call: vectors read in place
+GRAM_WGMMA_TILE_NS = (24, 72, 136)   # wgmma widths N of the tiles of q
 
 SA_INNER_WARPS = 16
 SVM_INNER_WARPS = 16
@@ -184,3 +198,105 @@ def gram_splits(m: int, p: int, q: int,
                         65535))
     rows = -(-k_steps // splits) * GRAM_BLOCK_K
     return -(-m // rows), rows
+
+
+def gram_route(dtype, m: int, p: int, q: int,
+               y_cols: Optional[int] = None) -> str:
+    """The body of ``csrc/gram.cu`` that serves x (m, p) against a q-wide
+    y (``y_cols`` of it read from a row-major tensor, the other q -
+    y_cols vectors read in place; default all q): ``"wgmma"`` for f32
+    when TMA can describe x and y, i.e. p and ``y_cols`` are multiples of
+    4 (row strides of whole 16-byte units), and there are at most
+    ``GRAM_WGMMA_MAX_VECS`` vectors; else ``"simt"`` (f64 always: TF32
+    products would not keep its accuracy). ``dtype`` is a torch dtype or
+    its name."""
+    name = str(dtype).rsplit(".", 1)[-1]
+    y_cols = q if y_cols is None else y_cols
+    if name == "float32" and min(m, p, y_cols) >= 1 and p % 4 == 0 \
+            and y_cols % 4 == 0 and q - y_cols <= GRAM_WGMMA_MAX_VECS:
+        return "wgmma"
+    return "simt"
+
+
+def gram_tile_n(q: int) -> int:
+    """Width of the wgmma body's tiles of q: the narrowest of
+    ``GRAM_WGMMA_TILE_NS`` that holds q, else the widest."""
+    return next((n for n in GRAM_WGMMA_TILE_NS if q <= n),
+                GRAM_WGMMA_TILE_NS[-1])
+
+
+def gram_wgmma_shared(same: bool, p: int, q: int) -> bool:
+    """Does the wgmma body read A from B's buffer? When x and y are one
+    tensor and one tile holds the whole output: then x is read from
+    device memory once."""
+    tn = gram_tile_n(q)
+    return same and p <= GRAM_WGMMA_TILE_P and q <= tn \
+        and tn >= 64 * -(-p // 64)
+
+
+def gram_wgmma_raw_stages(shared: bool) -> int:
+    """Depth of the wgmma body's ring of raw TMA slices: 4 where A shares
+    B's buffer (half the bytes a stage), else 2."""
+    return 4 if shared else 2
+
+
+def gram_wgmma_op_stages(shared: bool) -> int:
+    """Depth of the wgmma body's ring of transposed tf32 hi/lo stages: 3
+    where A shares B's buffer, else 2."""
+    return 3 if shared else 2
+
+
+def gram_wgmma_smem_bytes(tile_n: int, shared: bool) -> int:
+    """Dynamic shared memory of one wgmma ``gram`` block: 1024 bytes to
+    align the buffers; for every transposed row (B's ``tile_n``, plus A's
+    ``GRAM_WGMMA_TILE_P`` unless A shares B's buffer) 128 bytes each of
+    tf32 hi and lo per op stage and 128 bytes of raw slice per raw stage,
+    plus ``GRAM_WGMMA_MAX_VECS`` vectors' 32 values per raw stage; then a
+    full and an empty 8-byte barrier per stage of each ring."""
+    rows = tile_n + (0 if shared else GRAM_WGMMA_TILE_P)
+    raw, op = gram_wgmma_raw_stages(shared), gram_wgmma_op_stages(shared)
+    return 1024 + op * 2 * rows * 128 \
+        + raw * (rows + GRAM_WGMMA_MAX_VECS) * 128 + 8 * 2 * (op + raw)
+
+
+class GramPlan(NamedTuple):
+    """The grid of one ``gram`` launch: (q_tiles, p_tiles, splits) blocks
+    of (tile_p, tile_n) outputs over ``rows`` rows of m each (the last
+    split ragged), ``shared`` when A is read from B's buffer, and the
+    block's shared memory."""
+    route: str
+    tile_p: int
+    tile_n: int
+    p_tiles: int
+    q_tiles: int
+    splits: int
+    rows: int
+    shared: bool
+    smem_bytes: int
+
+
+def gram_plan(m: int, p: int, q: int, route: str, same: bool = False,
+              num_sms: int = NUM_SMS_H100, itemsize: int = 4) -> GramPlan:
+    """The grid ``route``'s body runs for x (m, p) against a q-wide y
+    (``same``: x is y's first p columns' tensor, as in the solvers' fused
+    call). wgmma: enough splits of m, each a whole number of 32-row
+    stages, that the tiles times the splits give every SM a block. simt:
+    ``gram_splits``."""
+    if route == "simt":
+        splits, rows = gram_splits(m, p, q, num_sms)
+        return GramPlan("simt", GRAM_TILE_P, GRAM_TILE_Q,
+                        -(-p // GRAM_TILE_P), -(-q // GRAM_TILE_Q), splits,
+                        rows, False,
+                        GRAM_BLOCK_K * (GRAM_TILE_P + GRAM_TILE_Q) * itemsize)
+    if route != "wgmma":
+        raise ValueError(f"unknown gram route {route!r}")
+    tn = gram_tile_n(q)
+    p_tiles, q_tiles = -(-p // GRAM_WGMMA_TILE_P), -(-q // tn)
+    k_steps = -(-m // GRAM_WGMMA_BLOCK_K)
+    splits = max(1, min(k_steps, -(-num_sms // (p_tiles * q_tiles)),
+                        65535))
+    rows = -(-k_steps // splits) * GRAM_WGMMA_BLOCK_K
+    shared = gram_wgmma_shared(same, p, q)
+    return GramPlan("wgmma", GRAM_WGMMA_TILE_P, tn, p_tiles, q_tiles,
+                    -(-m // rows), rows, shared,
+                    gram_wgmma_smem_bytes(tn, shared))
