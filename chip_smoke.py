@@ -7,19 +7,24 @@ Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
 
 1. builds the kernels (one ``nvcc`` per source, together; ptxas's
-   registers and spills of each ``gram`` and ``flash_attention`` body are
-   printed, and a spill in a ``wgmma`` body fails), holds each kernel
-   against its plain PyTorch version on the card, at the main paths'
-   shapes and at edge shapes, and times ``gram`` and ``sa_inner`` with
-   their plain versions and (``gram``) ``torch.matmul`` with CUDA events.
-   ``gram`` routes by ``dispatch.gram_route``: each case checks the body
-   it took (``wgmma`` for f32 where TMA can describe the operands, else
-   ``simt``; f64 ``simt``), that two calls give the same bits, and the C
-   side's tile plan and shared-memory formula against
-   ``kernels/dispatch.py``; the path's call Y^T [Y | ytil | ztil] is timed
-   with both bodies and ``torch.matmul`` (TF32 off), and a 1xTF32
-   emulation of it must miss K1's bar there. A latency probe
-   (``sync_step_probe`` in ``csrc/sa_inner.cu``) times one shuffle
+   registers and spills of each ``gram``, ``flash_attention``, ``spmm``
+   and ``svm_inner`` instance are printed, and a spill in a ``wgmma``
+   body fails), holds each kernel against its plain PyTorch version on
+   the card, at the main paths' shapes and at edge shapes, and times
+   ``gram`` and ``sa_inner`` with their plain versions and (``gram``)
+   ``torch.matmul`` with CUDA events. ``gram`` routes by
+   ``dispatch.gram_route``: each case checks the body it took (``wgmma``
+   for f32 where TMA can describe the operands, else ``simt``: f64, and
+   f32 views at an unaligned start; a non-contiguous view is copied
+   first), that two calls give the same bits, and the C side's tile plan
+   and shared-memory formula against ``kernels/dispatch.py``; the path's
+   call Y^T [Y | ytil | ztil] is timed with both bodies and
+   ``torch.matmul`` (TF32 off), and a 1xTF32 emulation of it must miss
+   K1's bar there. ``flash_attention`` runs on bf16 views one element
+   into their storage, which it copies first. ``spmm`` (every case twice,
+   bit for bit) and ``svm_inner`` (both bodies where the ``warp`` body
+   serves, on both sides of its caps) run over their sweeps. A latency
+   probe (``sync_step_probe`` in ``csrc/sa_inner.cu``) times one shuffle
    reduction and block barrier, the latency bound of ``sa_inner`` and
    ``svm_inner`` per dependent step;
 2. drives the dense Lasso path — ``repro_torch.api.solve`` on a dense
@@ -35,11 +40,12 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
 4. drives the sparse SVM path — ``api.solve`` on a linear SVM-L1 at the
    shape of LIBSVM ``news20.binary`` (19,996 x 1,355,191, ~9.1 M nonzeros,
    a SparseOperand made on the card), SA-BDCD mu = 1, s = 64, H = 4096 —
-   checks 64 launches each of ``spmm`` and ``svm_inner`` and none of
-   ``gram``, a finite falling dual trace and the classical BDCD (s = 1)
-   within rel 1e-3, times the phases, and times ``spmm`` and
-   ``svm_inner`` on the inputs the solve gave them against their plain
-   versions and (``spmm``) ``torch.sparse.mm``;
+   checks 64 launches each of ``spmm`` and ``svm_inner`` (all of its
+   ``warp`` body) and none of ``gram``, a finite falling dual trace and
+   the classical BDCD (s = 1) within rel 1e-3, times the phases, and
+   times ``spmm`` and ``svm_inner`` on the inputs the solve gave them
+   against their plain versions, ``spmm`` in turns with
+   ``torch.sparse.mm`` and ``svm_inner`` beside its ``block`` body;
 5. drives the sparse Lasso path — SA-accBCD mu = 8, s = 16, H = 512 on a
    sparse Lasso at the shape of LIBSVM ``url`` (2,396,130 x 3,231,961,
    ~279 M nonzeros) — with the same checks (32 launches each of ``spmm``
@@ -78,11 +84,15 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
 ``svm_inner`` and ``flash_attention``: its launches on its main path,
-its error against the plain version, its time, the plain version's, the
-bound and, where one PyTorch call computes the same function, that
-call's time), the card's name and power limit as ``nvidia-smi`` reports
-them, and the device JSON line. Without a card, or outside a checkout,
-it exits non-zero and prints no result.
+its error against the plain version, its time through the wrapper
+(``ms``, CUDA events over back-to-back calls, host work included), its
+device time alone (``device_ms``: the summed kernel durations of a
+torch.profiler trace of back-to-back calls; ``sa_inner``'s on the epsilon
+path's inputs, ``spmm``'s and ``svm_inner``'s on news20.binary's), the
+plain version's time, the bound and, where one PyTorch call computes the
+same function, that call's time), the card's name and power limit as
+``nvidia-smi`` reports them, and the device JSON line. Without a card,
+or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -95,6 +105,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+
+# The latency probe's time per dependent step, from phase 1.
+PROBE = {}
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, TF32 and bf16 on the dense tensor cores, and HBM3 bandwidth.
@@ -167,6 +180,46 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def device_ms(fn, n: int = 50):
+    """Device time per call of ``fn``: from a torch.profiler trace (the
+    same machinery as ``device_profile``) of ``n`` back-to-back calls,
+    the mean duration of each kernel ``fn`` launches, summed over its
+    kernels, so the host's launch work between them is left out. Means,
+    not totals over ``n``: a trace can miss a call's record (the first,
+    in some runs), and that is logged. None when it holds no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", "device_ms_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            by_name.setdefault(e["name"], []).append(float(e["dur"]))
+    if not by_name:
+        return None
+    counts = sorted(len(d) for d in by_name.values())
+    if counts != [n] * len(counts):
+        log(f"  (device time: the trace holds {counts} records of "
+            f"{len(counts)} kernel(s) over {n} calls)")
+    return sum(sum(d) / len(d) for d in by_name.values()) / 1e3
+
+
+def fmt_ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f}"
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
     """(least time in ms, what bounds it) on the published peaks: bytes at
     the HBM rate, operations at ``peak_flops`` (their type's rate)."""
@@ -216,7 +269,14 @@ def log_ptxas(name: str) -> None:
         if m and entry:
             dim = re.search(r"Li(\d+)E", entry)
             dim = dim.group(1) if dim else "?"
-            if name == "gram":
+            prec = "f64" if re.search(r"kernelId", entry) else "f32"
+            if name == "spmm":
+                body = f"{prec} col_groups={dim}"
+            elif name == "svm_inner":
+                body = (f"warp {prec} rows/lane={dim}" if "warp" in entry
+                        else f"block {prec} G " + (
+                            "smem" if "Lb1E" in entry else "global"))
+            elif name == "gram":
                 kind = re.search(r"(gram_[a-z]+_kernel)I(\w)", entry)
                 prec = "f64" if kind.group(2) == "d" else "f32"
                 body = (f"{kind.group(1)} N={dim}" if "wgmma" in entry
@@ -380,9 +440,11 @@ def phase_gram(gen):
         (m * p + k * m + p * q) * 4, 3 * 2.0 * m * entries, TF32_FLOPS)
     ops_ms = 3 * 2.0 * m * entries / TF32_FLOPS * 1e3
     fma = 2.0 * m * p * q / F32_FLOPS * 1e3
+    row["device_ms"] = device_ms(lambda: gram_fused(Y, V), 20)
     simt_ms = time_ms(lambda: _launch(Y, Y, V, route="simt"), 20)
     cat_ms = time_ms(lambda: torch.matmul(Y.T, torch.cat([Y, V.T], 1)), 20)
-    log(f"  gram path call: wgmma {ms:.4f} ms, simt body {simt_ms:.4f}, "
+    log(f"  gram path call: wgmma {ms:.4f} ms (device "
+        f"{fmt_ms(row['device_ms'])}), simt body {simt_ms:.4f}, "
         f"torch.matmul {row['library_ms']:.4f} (with the cat "
         f"{cat_ms:.4f}); bound {row['bound_ms']:.4f} ms by "
         f"{row['bound_by']} (3xTF32 on {entries} entries at "
@@ -428,6 +490,21 @@ def phase_gram(gen):
     V = torch.randn(2, 8192, generator=gen, device="cuda", dtype=f64)
     gram_case("f64 Y^T [Y | V] (8192, 128, k=2)", lambda: gram_fused(Y, V),
               gram_fused_ref(Y, V), "simt", 1e-12, 1e-12)
+    # f32 views TMA cannot describe: one element into fresh storage (a
+    # start 4 bytes past 16-byte alignment) goes to the simt body, which
+    # reads scalars; a column slice (not contiguous) is copied first and
+    # keeps the wgmma body.
+    m, p = 20_000, S * MU
+    buf = torch.randn(m * p + 1, generator=gen, device="cuda")
+    x = buf[1:].view(m, p)
+    y = torch.randn(m, p, generator=gen, device="cuda")
+    gram_case(f"x^T y ({m}, {p}, {p}), x at element offset 1",
+              lambda: gram_t(x, y), gram_t_ref(x, y), "simt", *bar(m))
+    gram_case(f"x^T x ({m}, {p}) at element offset 1", lambda: gram_t(x, x),
+              gram_t_ref(x, x), "simt", *bar(m))
+    w = torch.randn(m, p + 1, generator=gen, device="cuda")[:, :p]
+    gram_case(f"x^T x ({m}, {p}), a column slice of rows of {p + 1}",
+              lambda: gram_t(w, w), gram_t_ref(w, w), "wgmma", *bar(m))
     return row
 
 
@@ -459,24 +536,20 @@ def phase_kernels():
     from repro_torch.kernels.sa_inner import sa_inner_loop
     from repro_torch.kernels.sa_inner.ops import _declare as inner_declare
     from repro_torch.kernels.sa_inner.ref import sa_inner_ref
-    from repro_torch.kernels.spmm import ell_spmm
-    from repro_torch.kernels.spmm.ops import _declare as spmm_declare
-    from repro_torch.kernels.spmm.ref import ell_spmm_ref
-    from repro_torch.kernels.svm_inner import svm_inner_loop
-    from repro_torch.kernels.svm_inner.ops import _declare as svm_declare
-    from repro_torch.kernels.svm_inner.ref import svm_inner_ref
 
     log("phase 1: kernels against their plain versions")
     t0 = time.perf_counter()
     names = ["gram", "sa_inner", "spmm", "svm_inner", "flash_attention"]
     _build.build(names)                     # one nvcc per source, together
     log(f"  built {', '.join(names)} in {time.perf_counter() - t0:.1f} s")
-    log_ptxas("flash_attention")
+    for name in ("flash_attention", "spmm", "svm_inner"):
+        log_ptxas(name)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {}
 
     rows["gram"] = phase_gram(gen)
+    flash_offset_case(gen)
 
     # sa_inner: G in shared memory (16, 8), in global memory (64, 8), and
     # forced collisions (ids from 0..3) at mu = 1, f32 and f64.
@@ -518,51 +591,128 @@ def phase_kernels():
                 "max_abs_err": e,
                 "ms": time_ms(lambda: sa_inner_loop(*ins, **kw), 200, 5),
                 "plain_ms": time_ms(lambda: sa_inner_ref(*ins, **kw), 5, 1),
+                "device_ms": device_ms(lambda: sa_inner_loop(*ins, **kw)),
                 "bound_ms": b, "bound_by": why, "library_ms": None}
 
     # The latency bound of sa_inner (s = 16) and svm_inner (s = 64): the
     # inner steps form one dependent chain, each step at least one warp
     # shuffle reduction and one block barrier in a block of 16 warps.
     step, empty = sync_step_ms(lib)
+    PROBE["step_ms"] = step
     log(f"  latency probe: {step * 1e3:.4f} us per step (shuffle reduction "
         f"+ block barrier, 16 warps), empty launch {empty:.4f} ms; latency "
         f"bounds sa_inner (s={S}) {S * step:.6f} ms, svm_inner "
         f"(s={S_SVM}) {S_SVM * step:.6f} ms")
 
-    # spmm: the SVM path's (64 rows of ~455 slots, D 1,355,191 x 65) and
-    # the Lasso path's (128 of ~86, D 2,396,130 x 130) shapes, the
-    # test_spmm_kernel_sweep shapes, R = 1 with Q = 2 (classical SVM at
-    # mu = 1), two q tiles (Q = 300), rows with no slots, and f64.
-    lib = _build.load("spmm", spmm_declare)
-    if lib.spmm_q_tile() != dispatch.SPMM_Q_TILE:
-        raise AssertionError(f"spmm q tile: C {lib.spmm_q_tile()} vs "
-                             f"dispatch {dispatch.SPMM_Q_TILE}")
+    phase_spmm_sweep(gen)
+    phase_svm_inner_sweep(gen)
+    for r in rows.values():
+        log(f"  {r['name']}: {r['ms']:.4f} ms (device "
+            f"{fmt_ms(r['device_ms'])}; plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']}, library "
+            f"{r['library_ms']})")
+    torch.cuda.synchronize()
+    return rows
+
+
+def empty_ell(R, K, dtype):
+    """(vals, idx, blocks) of R ELL rows of width K with no active block
+    (padded slots: index 0, value 0), made on the card."""
+    import torch
+    return (torch.zeros(R, K, device="cuda", dtype=dtype),
+            torch.zeros(R, K, device="cuda", dtype=torch.int32),
+            torch.zeros(R, device="cuda", dtype=torch.int32))
+
+
+def spmm_case(name, vals, idx, blocks, D, tol):
+    """One ``ell_spmm`` call against its plain version; a second call must
+    give the same bits (the cluster sums in a fixed order)."""
+    import torch
+    from repro_torch.kernels.spmm import ell_spmm
+    from repro_torch.kernels.spmm.ref import ell_spmm_ref
+    got = ell_spmm(vals, idx, blocks, D)
+    err = check_close(name, got, ell_spmm_ref(vals, idx, D), *tol)
+    if not torch.equal(got, ell_spmm(vals, idx, blocks, D)):
+        raise AssertionError(f"spmm {name}: two calls differ")
+    return err
+
+
+def phase_spmm_sweep(gen):
+    """K4 against its plain version: the SVM path's shape (64 rows of ~455
+    slots, D 1,355,191 x 65) and its classical call (R = 1, Q = 2), the
+    url Lasso path's (128 of ~86, D 2,396,130 x 130), the
+    test_spmm_kernel_sweep shapes, R = 1 with Q = 2, two q tiles (Q =
+    300), every column-group instance at f32 and f64, rows with no slots
+    and all rows empty; the C side's constants against dispatch's."""
+    import torch
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.spmm.ops import _declare
+    lib = _build.load("spmm", _declare)
+    got = (lib.spmm_q_tile(), lib.spmm_warps(), lib.spmm_max_splits())
+    want = (dispatch.SPMM_Q_TILE, dispatch.SPMM_WARPS,
+            dispatch.SPMM_MAX_SPLITS)
+    if got != want:
+        raise AssertionError(f"spmm constants: C {got} vs dispatch {want}")
+    log(f"  spmm: {dispatch.SPMM_WARPS} warps a block, clusters of up to "
+        f"{dispatch.SPMM_MAX_SPLITS}, D-row reads in flight per warp by "
+        f"column groups: " + ", ".join(
+            f"{g}: {lib.spmm_in_flight(g)}" for g in range(1, 9)))
+    f32, f64 = torch.float32, torch.float64
     for R, C, Q, per_row, dtype, empty in (
-            (64, N_NEWS, S_SVM + 1, F_NEWS * N_NEWS, torch.float32, 0),
-            (S * MU, M_URL, S * MU + 2, F_URL * M_URL, torch.float32, 0),
-            (12, 40, 5, 12, torch.float32, 0),
-            (33, 128, 17, 6.4, torch.float32, 0),
-            (64, 200, 1, 100, torch.float32, 0),
-            (7, 16, 130, 6.4, torch.float32, 0),
-            (1, 50, 2, 10, torch.float32, 0),
-            (40, 3000, 300, 12, torch.float32, 5),
-            (7, 16, 130, 6.4, torch.float64, 2),
-            (S * MU, M_URL, S * MU + 2, F_URL * M_URL, torch.float64, 0)):
+            (64, N_NEWS, S_SVM + 1, F_NEWS * N_NEWS, f32, 0),
+            (1, N_NEWS, 2, F_NEWS * N_NEWS, f32, 0),
+            (S * MU, M_URL, S * MU + 2, F_URL * M_URL, f32, 0),
+            (12, 40, 5, 12, f32, 0),
+            (33, 128, 17, 6.4, f32, 0),
+            (64, 200, 1, 100, f32, 0),
+            (7, 16, 130, 6.4, f32, 0),
+            (1, 50, 2, 10, f32, 0),
+            (40, 3000, 300, 12, f32, 5),
+            (7, 16, 130, 6.4, f64, 2),
+            (S * MU, M_URL, S * MU + 2, F_URL * M_URL, f64, 0)):
         vals, idx, blocks = random_ell(R, C, per_row, gen, dtype, empty)
         D = torch.randn(C, Q, generator=gen, device="cuda", dtype=dtype)
-        tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-12, 1e-12)
-        check_close(f"spmm {dtype} R={R} K={idx.shape[1]} C={C} Q={Q}"
-                    f"{f' ({empty} empty rows)' if empty else ''}",
-                    ell_spmm(vals, idx, blocks, D), ell_spmm_ref(vals, idx, D),
-                    *tol)
+        plan = dispatch.spmm_plan(R, idx.shape[1], Q)
+        tol = (1e-4, 1e-4) if dtype == f32 else (1e-12, 1e-12)
+        spmm_case(f"spmm {dtype} R={R} K={idx.shape[1]} C={C} Q={Q}"
+                  f"{f' ({empty} empty rows)' if empty else ''} [col_groups "
+                  f"{plan.col_groups}, q_tiles {plan.q_tiles}, splits "
+                  f"{plan.splits}]", vals, idx, blocks, D, tol)
         del D
+    # Every column-group instance (1-8 groups of 32), f32 and f64.
+    for dtype in (f32, f64):
+        tol = (1e-4, 1e-4) if dtype == f32 else (1e-12, 1e-12)
+        for Q in (29, 61, 93, 125, 157, 189, 221, 256):
+            vals, idx, blocks = random_ell(5, 3000, 200, gen, dtype)
+            D = torch.randn(3000, Q, generator=gen, device="cuda",
+                            dtype=dtype)
+            plan = dispatch.spmm_plan(5, idx.shape[1], Q)
+            spmm_case(f"spmm {dtype} R=5 K={idx.shape[1]} Q={Q} [col_groups "
+                      f"{plan.col_groups}, splits {plan.splits}]", vals, idx,
+                      blocks, D, tol)
+    for R, K, Q, dtype in ((3, 16, 65, f32), (1, 8, 2, f64)):
+        vals, idx, blocks = empty_ell(R, K, dtype)
+        D = torch.randn(40, Q, generator=gen, device="cuda", dtype=dtype)
+        spmm_case(f"spmm {dtype} R={R} K={K} Q={Q}, every row empty", vals,
+                  idx, blocks, D, (0.0, 0.0))
 
-    # svm_inner: G in shared memory ((64, 1), (16, 8), (3, 5)) and in
-    # global memory ((64, 8)), ids from 0..11 so blocks collide, hinge
-    # (nu = 1) and squared hinge (nu = inf), f32 and f64.
-    lib = _build.load("svm_inner", svm_declare)
+
+def phase_svm_inner_sweep(gen):
+    """K3's two bodies against the plain version: where the warp body
+    serves, the block body too (forced); shapes on both sides of the
+    warp body's caps (mu = 32 | 33; s mu at its shared-memory limit, f32
+    and f64); G in global memory; ids from 0..11 so blocks collide; hinge
+    (nu = 1) and squared hinge (nu = inf); the C side's two layouts
+    against dispatch's."""
+    import torch
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.svm_inner import svm_inner_loop
+    from repro_torch.kernels.svm_inner.ops import _declare, _launch
+    from repro_torch.kernels.svm_inner.ref import svm_inner_ref
+    lib = _build.load("svm_inner", _declare)
     for s, mu, isz in ((64, 1, 4), (16, 8, 4), (64, 8, 4), (16, 8, 8),
-                       (238, 1, 4), (167, 1, 8)):
+                       (238, 1, 4), (167, 1, 8), (2, 32, 4), (237, 1, 4),
+                       (166, 1, 8)):
         for g in (True, False):
             want = dispatch.svm_inner_smem_bytes(s, mu, isz, g)
             got = lib.svm_inner_smem_bytes(s, mu, isz, int(g))
@@ -570,34 +720,71 @@ def phase_kernels():
                 raise AssertionError(f"svm_inner smem layout differs: C "
                                      f"{got} vs dispatch {want} at "
                                      f"{(s, mu, isz)}")
-    for s, mu, dtype, smem in ((64, 1, torch.float32, True),
-                               (16, 8, torch.float32, True),
-                               (3, 5, torch.float32, True),
-                               (64, 8, torch.float32, False),
-                               (64, 1, torch.float64, True),
-                               (16, 8, torch.float64, True),
-                               (64, 8, torch.float64, False)):
+        got = lib.svm_inner_warp_smem_bytes(s, mu, isz)
+        if got != dispatch.svm_inner_warp_smem_bytes(s, mu, isz):
+            raise AssertionError(f"svm_inner warp layout differs: C {got} at "
+                                 f"{(s, mu, isz)}")
+    f32, f64 = torch.float32, torch.float64
+    # (s, mu, dtype, route, G in shared memory for the block body)
+    for s, mu, dtype, route, smem in ((64, 1, f32, "warp", True),
+                                      (16, 8, f32, "warp", True),
+                                      (3, 5, f32, "warp", True),
+                                      (2, 32, f32, "warp", True),
+                                      (2, 33, f32, "block", True),
+                                      (237, 1, f32, "warp", True),
+                                      (238, 1, f32, "block", True),
+                                      (64, 8, f32, "block", False),
+                                      (64, 1, f64, "warp", True),
+                                      (16, 8, f64, "warp", True),
+                                      (166, 1, f64, "warp", True),
+                                      (167, 1, f64, "block", True),
+                                      (64, 8, f64, "block", False)):
+        isz = 4 if dtype == f32 else 8
+        if dispatch.svm_inner_route(s, mu, isz) != route or \
+                dispatch.svm_inner_g_in_smem(s, mu, isz) != smem:
+            raise AssertionError(f"svm_inner ({s}, {mu}) route / G placement")
+        tol_th = (1e-4, 1e-5) if dtype == f32 else (1e-12, 1e-12)
+        tol_dl = (1e-4, 1e-4) if dtype == f32 else (1e-12, 1e-12)
+        bodies = ("warp", "block") if route == "warp" else ("block",)
         for nu in (1.0, float("inf")):
             ins = svm_inputs(s, mu, 12, dtype, gen)
-            if dispatch.svm_inner_g_in_smem(s, mu, ins[0].element_size()) \
-                    != smem:
-                raise AssertionError(f"svm_inner ({s}, {mu}) G placement")
-            th, dl = svm_inner_loop(*ins, gamma=0.3, nu=nu)
             th_r, dl_r = svm_inner_ref(*ins, 0.3, nu)
-            f32 = dtype == torch.float32
-            where = "smem" if smem else "global"
-            check_close(f"svm_inner {dtype} (s={s}, mu={mu}, nu={nu}, G "
-                        f"{where}) theta", th, th_r,
-                        *((1e-4, 1e-5) if f32 else (1e-12, 1e-12)))
-            check_close(f"svm_inner {dtype} (s={s}, mu={mu}, nu={nu}) "
-                        f"dual increments", dl, dl_r,
-                        *((1e-4, 1e-4) if f32 else (1e-12, 1e-12)))
-    for r in rows.values():
-        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms,"
-            f" bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
-            f"{r['library_ms']})")
-    torch.cuda.synchronize()
-    return rows
+            for body in bodies:
+                before = dict(svm_inner_loop.route_launches)
+                th, dl = (svm_inner_loop(*ins, gamma=0.3, nu=nu)
+                          if body == route else
+                          _launch(*ins, 0.3, nu, 32, route=body))
+                took = [r for r, n in svm_inner_loop.route_launches.items()
+                        if n != before[r]]
+                if took != [body]:
+                    raise AssertionError(f"svm_inner ({s}, {mu}) took {took}")
+                where = "smem" if body == "warp" or smem else "global"
+                check_close(f"svm_inner {dtype} (s={s}, mu={mu}, nu={nu}) "
+                            f"[{body}, G {where}] theta", th, th_r, *tol_th)
+                check_close(f"svm_inner {dtype} (s={s}, mu={mu}, nu={nu}) "
+                            f"[{body}] dual increments", dl, dl_r, *tol_dl)
+
+
+def flash_offset_case(gen):
+    """K5 on bf16 q, k, v one element into fresh storage (2 bytes past
+    16-byte alignment): each is copied into aligned storage, and the
+    wgmma body runs on the copies."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    shape = (1, 4, 256, 128)
+    n = math.prod(shape)
+    q, k, v = (torch.randn(n + 1, generator=gen, device="cuda").mul(
+        0.3).to(torch.bfloat16)[1:].view(shape) for _ in range(3))
+    before = dict(flash_attention.route_launches)
+    out = flash_attention(q, k, v)
+    taken = {r: c - before[r] for r, c in
+             flash_attention.route_launches.items() if c != before[r]}
+    if taken != {"wgmma": 1}:
+        raise AssertionError(f"flash_attention offset views: {taken}")
+    check_close(f"flash_attention bf16 {shape} at element offset 1 (copied) "
+                f"[wgmma]", out.float(),
+                attention_ref(q, k, v).float(), 0.0, 2e-2)
 
 
 def svm_inputs(s, mu, n_ids, dtype, gen):
@@ -771,7 +958,10 @@ def phase_main_path():
         f"solve wall {wall2 / outer * 1e3:.4f} ms/outer):")
     for k, v in split.items():
         log(f"    {k:36s} {v / outer:.4f} ms")
-    return launches
+    args, kw = timer.first["sa_inner kernel"]
+    k2 = device_ms(lambda: sa_inner.sa_inner_loop(*args, **kw))
+    log(f"  sa_inner on the path's inputs: device {fmt_ms(k2)} ms per call")
+    return launches, k2
 
 
 # ---------------------------------------------------------------------------
@@ -882,8 +1072,10 @@ def zero_counts():
     from repro_torch.kernels.gram import gram_t
     for fn in counters().values():
         fn.launches = 0
+    from repro_torch.kernels.svm_inner import svm_inner_loop
     flash_attention.route_launches.update(wgmma=0, simt=0)
     gram_t.route_launches.update(wgmma=0, simt=0)
+    svm_inner_loop.route_launches.update(warp=0, block=0)
 
 
 def read_counts():
@@ -991,6 +1183,7 @@ def spmm_row(args, kw):
     tensor of the same rows, and the bound from the slots this call
     reads (active nonzeros, the distinct D rows they touch)."""
     import torch
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.spmm import ell_spmm
     from repro_torch.kernels.spmm.ref import ell_spmm_ref
     vals, idx, blocks, D = args
@@ -1007,6 +1200,8 @@ def spmm_row(args, kw):
     err = check_close(f"spmm on the path's inputs (R={R} K={K} C={C} "
                       f"Q={Q}, {nnz} active slots)", out,
                       ell_spmm_ref(vals, idx, D), 1e-4, 1e-4)
+    if not torch.equal(out, ell_spmm(*args, **kw)):
+        raise AssertionError("spmm on the path's inputs: two calls differ")
     crow = torch.zeros(R + 1, dtype=torch.int64, device="cuda")
     crow[1:] = torch.cumsum(active.sum(1), 0)
     csr = torch.sparse_csr_tensor(crow, idx[active].to(torch.int64),
@@ -1016,21 +1211,40 @@ def spmm_row(args, kw):
            "source": "src/repro_torch/kernels/csrc/spmm.cu",
            "replaces": "src/repro/kernels/spmm/kernel.py:62",
            "max_abs_err": err,
-           "ms": time_ms(lambda: ell_spmm(*args, **kw), 50, 3),
            "plain_ms": time_ms(lambda: ell_spmm_ref(vals, idx, D), 3, 1),
-           "bound_ms": b, "bound_by": why,
-           "library_ms": time_ms(lambda: torch.sparse.mm(csr, D), 50, 3)}
-    log(f"  spmm at this shape: {row['ms']:.4f} ms (plain "
-        f"{row['plain_ms']:.4f}, torch.sparse.mm {row['library_ms']:.4f} "
-        f"[max abs diff {lib_err:.2e}], bound {b:.5f} ms by {why}: "
-        f"{nbytes / 1e6:.2f} MB, {2.0 * nnz * Q / 1e6:.2f} MFLOP)")
+           "bound_ms": b, "bound_by": why}
+    # The kernel and torch.sparse.mm in turns, three rounds; medians.
+    timed = {"ms": lambda: ell_spmm(*args, **kw),
+             "library_ms": lambda: torch.sparse.mm(csr, D)}
+    rounds = {name: [] for name in timed}
+    for _ in range(3):
+        for name, fn in timed.items():
+            rounds[name].append(time_ms(fn, 50, 3))
+    row.update({name: sorted(ts)[1] for name, ts in rounds.items()})
+    row["device_ms"] = device_ms(lambda: ell_spmm(*args, **kw))
+    lib_dev = device_ms(lambda: torch.sparse.mm(csr, D))
+    plan = dispatch.spmm_plan(R, K, Q, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    dev = row["device_ms"]
+    log(f"  spmm at this shape: {row['ms']:.4f} ms, device {fmt_ms(dev)} "
+        f"({fmt_ms(dev and dev / b)}x the bound; {plan}); "
+        f"torch.sparse.mm {row['library_ms']:.4f} ms, device "
+        f"{fmt_ms(lib_dev)} [max abs diff {lib_err:.2e}]; plain "
+        f"{row['plain_ms']:.4f}; bound {b:.5f} ms by {why}: "
+        f"{nbytes / 1e6:.2f} MB, {2.0 * nnz * Q / 1e6:.2f} MFLOP (rounds, "
+        f"ms: " + "; ".join(f"{n} {' '.join(f'{t:.4f}' for t in ts)}"
+                            for n, ts in rounds.items()) + ")")
     return row
 
 
 def svm_inner_row(args, kw):
-    """The svm_inner kernel row on the arguments the main path gave it."""
+    """The svm_inner kernel row on the arguments the main path gave it:
+    the body the route picks against the plain version, its time through
+    the wrapper and on the device alone, and the block body's beside it."""
     import torch
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.svm_inner import svm_inner_loop
+    from repro_torch.kernels.svm_inner.ops import _launch
     from repro_torch.kernels.svm_inner.ref import svm_inner_ref
     G, proj, b_sel, a_vals, idx = args
     s, mu = proj.shape
@@ -1051,9 +1265,26 @@ def svm_inner_row(args, kw):
            "ms": time_ms(lambda: svm_inner_loop(*args, **kw), 200, 5),
            "plain_ms": time_ms(lambda: svm_inner_ref(
                *args, kw["gamma"], kw["nu"], kw["power_iters"]), 3, 1),
+           "device_ms": device_ms(lambda: svm_inner_loop(*args, **kw)),
            "bound_ms": b, "bound_by": why, "library_ms": None}
-    log(f"  svm_inner at this shape: {row['ms']:.4f} ms (plain "
-        f"{row['plain_ms']:.4f}, bound {b:.6f} ms by {why})")
+    route = dispatch.svm_inner_route(s, mu, isz)
+    block = (*args, kw["gamma"], kw["nu"], kw["power_iters"])
+    th_b, dl_b = _launch(*block, route="block")
+    check_close("the block body on the same inputs, theta", th_b, th_r,
+                1e-4, 1e-5)
+    check_close("the block body on the same inputs, dual increments",
+                dl_b, dl_r, 1e-4, 1e-4)
+    block_ms = time_ms(lambda: _launch(*block, route="block"), 200, 5)
+    block_dev = device_ms(lambda: _launch(*block, route="block"))
+    step = PROBE.get("step_ms")
+    lat = None if step is None else s * step
+    ratio = None if lat is None or row["device_ms"] is None \
+        else row["device_ms"] / lat
+    log(f"  svm_inner at this shape [{route}]: {row['ms']:.4f} ms, device "
+        f"{fmt_ms(row['device_ms'])} ({fmt_ms(ratio)}x the latency bound "
+        f"{fmt_ms(lat)} ms of {s} probe steps); block body "
+        f"{block_ms:.4f} ms, device {fmt_ms(block_dev)}; plain "
+        f"{row['plain_ms']:.4f}; bound {b:.6f} ms by {why}")
     return row
 
 
@@ -1081,6 +1312,11 @@ def phase_svm():
     res, obj, launches = solve_counted(
         problem, cfg, {"gram": 0, "sa_inner": 0, "spmm": outer,
                        "svm_inner": outer, "flash_attention": 0})
+    bodies = dict(svm_inner.svm_inner_loop.route_launches)
+    log(f"  svm_inner by body {bodies} (expected {outer} warp)")
+    if bodies != {"warp": outer, "block": 0}:
+        raise AssertionError(f"svm_inner bodies {bodies}, expected {outer} "
+                             f"warp")
     classical = api.solve(problem, dataclasses.replace(cfg, s=1))
     check_trace(obj, classical.objective.cpu(), "dual trace", descent=True)
     steady(problem, cfg)
@@ -1411,7 +1647,9 @@ def flash_row(args, kw):
            "bound_ms": b, "bound_by": why,
            "simt_ms": time_ms(simt, 3, 1),
            **{name: sorted(ts)[1] for name, ts in rounds.items()}}
-    log(f"  flash_attention at this shape: {row['ms']:.4f} ms, "
+    row["device_ms"] = device_ms(lambda: flash_attention(q, k, v, **kw), 5)
+    log(f"  flash_attention at this shape: {row['ms']:.4f} ms (device "
+        f"{fmt_ms(row['device_ms'])}), "
         f"{flops / row['ms'] / 1e9:.2f} TFLOP/s, {b / row['ms']:.3f} of "
         f"the bound; without ping-pong {row['no_pingpong_ms']:.4f} ms; "
         f"SDPA {row['library_ms']:.4f} ms, "
@@ -1749,7 +1987,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
 
     rows = phase_kernels()
-    launches = phase_main_path()
+    launches, rows["sa_inner"]["device_ms"] = phase_main_path()
     torch.cuda.empty_cache()
     phase_f64()
     svm_rows, svm_launches = phase_svm()
@@ -1773,8 +2011,8 @@ def main() -> int:
     for name in svm_rows:
         rows[name]["launches"] = svm_launches[name]
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in rows.values()]}))
     print(smi)

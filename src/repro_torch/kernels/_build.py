@@ -20,6 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+import torch
+
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -112,3 +114,12 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def raw_stream(index: int) -> int:
+    """The current CUDA stream of card ``index`` as the integer a C entry
+    point takes, without building a ``torch.cuda.Stream`` per call."""
+    fn = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if fn is not None:
+        return fn(index)
+    return torch.cuda.current_stream(index).cuda_stream

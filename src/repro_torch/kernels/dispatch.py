@@ -26,11 +26,22 @@ same kernel.
   memory (through L2). ``sa_inner_smem_bytes`` must match the layout in
   ``csrc/sa_inner.cu`` (which exports the same formula;
   ``chip_smoke.py`` checks that they agree).
-* ``svm_inner``: the same placement rule for its G, with
-  ``svm_inner_smem_bytes`` matching ``csrc/svm_inner.cu``.
-* ``spmm``: one block per output row and 256-wide tile of the dense
-  operand's columns (``spmm_q_tiles`` of them along grid y); the kernel
-  exports its tile width as ``spmm_q_tile`` for the same cross-check.
+* ``svm_inner``: two bodies, chosen by ``svm_inner_route``. The
+  ``warp`` body (mu <= 32, s mu <= 256, its layout in shared memory)
+  runs the dependent chain in one warp, right-looking, over G's
+  b-scaled columns held transposed; ``svm_inner_warp_smem_bytes`` is its
+  layout. The ``block`` body keeps G in shared memory by the same
+  placement rule as ``sa_inner`` (``svm_inner_smem_bytes``), else reads
+  it from global memory. ``csrc/svm_inner.cu`` exports both formulas.
+* ``spmm``: ``spmm_plan`` is the Python mirror of the grid. A warp
+  covers a tile of the dense operand's columns in ``col_groups`` groups
+  of 32 (at most ``SPMM_MAX_COL_GROUPS``, a 256-wide tile; wider Q takes
+  ``spmm_q_tiles`` tiles along grid y); each output row's slots are
+  split over a cluster of ``splits`` blocks of ``SPMM_WARPS`` warps,
+  each warp a contiguous range (``spmm_worker_range``), and the
+  cluster's partial rows are summed in a fixed order through
+  distributed shared memory. The kernel exports its constants for the
+  cross-check.
 * ``flash_attention``: two bodies, chosen by ``flash_attention_route``.
   The ``wgmma`` body (bf16 at D = 64 and 128) runs one block of three
   warpgroups per 128-row query tile and (batch, query head); Q and a
@@ -61,7 +72,17 @@ GRAM_WGMMA_TILE_NS = (24, 72, 136)   # wgmma widths N of the tiles of q
 
 SA_INNER_WARPS = 16
 SVM_INNER_WARPS = 16
-SPMM_Q_TILE = 256
+# The warp body of svm_inner: blocks of at most one warp's width, and at
+# most this many rows per lane (s mu <= 256).
+SVM_INNER_WARP_MAX_MU = 32
+SVM_INNER_WARP_MAX_ROWS_PER_LANE = 8
+SPMM_Q_TILE = 256             # widest tile of Q: SPMM_MAX_COL_GROUPS x 32
+SPMM_MAX_COL_GROUPS = SPMM_Q_TILE // 32
+SPMM_WARPS = 4                # warps of one spmm block
+SPMM_MAX_SPLITS = 8           # blocks of a cluster (the portable size)
+SPMM_BLOCKS_PER_SM = 4        # split rows until the grid has this many
+SPMM_MIN_SLOTS = 8            # ... but not below this many slots a warp
+GRID_X_MAX = 2 ** 31 - 1       # blocks along grid x
 
 FLASH_BLOCK_Q = 64
 FLASH_BLOCK_K = 64
@@ -106,6 +127,31 @@ def svm_inner_smem_bytes(s: int, mu: int, itemsize: int = 4,
 def svm_inner_g_in_smem(s: int, mu: int, itemsize: int = 4) -> bool:
     """Does ``svm_inner`` keep G in shared memory at (s, mu)?"""
     return svm_inner_smem_bytes(s, mu, itemsize, True) <= SMEM_PER_BLOCK
+
+
+def svm_inner_warp_smem_bytes(s: int, mu: int, itemsize: int = 4) -> int:
+    """The warp body's layout: int64 sampled ids (s*mu), then at
+    ``itemsize``: G's b-scaled columns transposed at a pitch of s*mu + 1
+    (s*mu rows), the diagonal blocks (s*mu*mu), the theta, gradient and
+    b*theta histories (3 s*mu), 1 / lambda_max per step (s) and each
+    warp's two power-iteration vectors (2 mu)."""
+    smu = s * mu
+    elems = smu * (smu + 1) + smu * mu + 3 * smu + s \
+        + SVM_INNER_WARPS * 2 * mu
+    return smu * 8 + elems * itemsize
+
+
+def svm_inner_route(s: int, mu: int, itemsize: int = 4) -> str:
+    """The body of ``csrc/svm_inner.cu`` that serves (s, mu): ``"warp"``
+    where mu <= ``SVM_INNER_WARP_MAX_MU``, each lane owns at most
+    ``SVM_INNER_WARP_MAX_ROWS_PER_LANE`` of the s*mu rows and the warp
+    body's layout fits a block's shared memory; else ``"block"``."""
+    smu = s * mu
+    if mu <= SVM_INNER_WARP_MAX_MU \
+            and smu <= 32 * SVM_INNER_WARP_MAX_ROWS_PER_LANE \
+            and svm_inner_warp_smem_bytes(s, mu, itemsize) <= SMEM_PER_BLOCK:
+        return "warp"
+    return "block"
 
 
 def flash_attention_route(dtype, D: int) -> str:
@@ -181,9 +227,63 @@ def tma_strides_ok(strides: Sequence[int], data_ptr: int,
         for s in outer)
 
 
+def flash_operand_ok(strides: Sequence[int], data_ptr: int, itemsize: int,
+                     route: str) -> bool:
+    """Can ``route``'s body of ``flash_attention`` read a (B, H, S, D)
+    operand with these element ``strides`` at ``data_ptr`` in place?
+    wgmma: ``tma_strides_ok``; simt: a unit stride along D, the others
+    multiples of 4 elements, and a 16-byte aligned start. The wrapper
+    copies an operand that fails into fresh (aligned, contiguous)
+    storage."""
+    if route == "wgmma":
+        return tma_strides_ok(strides, data_ptr, itemsize)
+    return strides[-1] == 1 and all(s % 4 == 0 for s in strides[:-1]) \
+        and data_ptr % 16 == 0
+
+
 def spmm_q_tiles(Q: int) -> int:
-    """Grid y of the ``spmm`` launch: 256-wide tiles covering Q columns."""
+    """Grid y of the ``spmm`` launch: tiles of at most ``SPMM_Q_TILE``
+    columns covering Q."""
     return -(-Q // SPMM_Q_TILE)
+
+
+class SpmmPlan(NamedTuple):
+    """The grid of one ``spmm`` launch: ``splits`` blocks (a cluster) per
+    output row and ``q_tiles`` tiles of ``col_groups`` x 32 columns;
+    grid (rows x splits, q_tiles), ``SPMM_WARPS`` warps a block."""
+    col_groups: int
+    q_tiles: int
+    splits: int
+    grid_x: int
+    grid_y: int
+
+
+def spmm_plan(R: int, K: int, Q: int,
+              num_sms: int = NUM_SMS_H100) -> SpmmPlan:
+    """The ``spmm`` grid for R rows of K padded ELL slots against a
+    Q-wide D: the column groups a warp covers (ceil(Q/32), at most
+    ``SPMM_MAX_COL_GROUPS``, then more tiles of q), and enough blocks per
+    row (at most ``SPMM_MAX_SPLITS``, one cluster) that the grid puts
+    ``SPMM_BLOCKS_PER_SM`` blocks on every SM, unless a warp would get
+    fewer than ``SPMM_MIN_SLOTS`` of the K slots."""
+    groups = min(-(-Q // 32), SPMM_MAX_COL_GROUPS)
+    q_tiles = spmm_q_tiles(Q)
+    want = -(-SPMM_BLOCKS_PER_SM * num_sms // (R * q_tiles))
+    splits = max(1, min(SPMM_MAX_SPLITS, want,
+                        -(-K // (SPMM_WARPS * SPMM_MIN_SLOTS)),
+                        GRID_X_MAX // R))
+    return SpmmPlan(groups, q_tiles, splits, R * splits, q_tiles)
+
+
+def spmm_worker_range(K: int, active: int, workers: int,
+                      worker: int) -> Tuple[int, int]:
+    """The slots [lo, hi) of one row that warp ``worker`` of ``workers``
+    (splits x SPMM_WARPS, block-rank major) reads: an even share of the K
+    padded slots, cut at the row's ``active`` slots (the rest hold
+    zeros)."""
+    lo = worker * K // workers
+    hi = (worker + 1) * K // workers
+    return min(lo, active), min(hi, active)
 
 
 def gram_splits(m: int, p: int, q: int,
@@ -201,19 +301,23 @@ def gram_splits(m: int, p: int, q: int,
 
 
 def gram_route(dtype, m: int, p: int, q: int,
-               y_cols: Optional[int] = None) -> str:
+               y_cols: Optional[int] = None,
+               operands: Sequence[Tuple[Sequence[int], int]] = ()) -> str:
     """The body of ``csrc/gram.cu`` that serves x (m, p) against a q-wide
     y (``y_cols`` of it read from a row-major tensor, the other q -
     y_cols vectors read in place; default all q): ``"wgmma"`` for f32
     when TMA can describe x and y, i.e. p and ``y_cols`` are multiples of
-    4 (row strides of whole 16-byte units), and there are at most
-    ``GRAM_WGMMA_MAX_VECS`` vectors; else ``"simt"`` (f64 always: TF32
-    products would not keep its accuracy). ``dtype`` is a torch dtype or
-    its name."""
+    4 (row strides of whole 16-byte units), every (strides, data_ptr) of
+    ``operands`` (x's and y's, where the caller has them) passes
+    ``tma_strides_ok``, and there are at most ``GRAM_WGMMA_MAX_VECS``
+    vectors; else ``"simt"`` (f64 always: TF32 products would not keep
+    its accuracy; an f32 operand at an unaligned start: the simt body
+    reads scalars). ``dtype`` is a torch dtype or its name."""
     name = str(dtype).rsplit(".", 1)[-1]
     y_cols = q if y_cols is None else y_cols
     if name == "float32" and min(m, p, y_cols) >= 1 and p % 4 == 0 \
-            and y_cols % 4 == 0 and q - y_cols <= GRAM_WGMMA_MAX_VECS:
+            and y_cols % 4 == 0 and q - y_cols <= GRAM_WGMMA_MAX_VECS \
+            and all(tma_strides_ok(st, ptr, 4) for st, ptr in operands):
         return "wgmma"
     return "simt"
 

@@ -10,7 +10,10 @@ chosen by ``dispatch.flash_attention_route``: ``wgmma`` (bf16 at D = 64
 and 128, fed by TMA) and ``simt`` (f32, and bf16 at D = 32 and 160). A
 failed build or launch raises; neither body stands in for the other. The
 kernel takes ragged lengths as they are (no padding), so the
-causal/window band sits at the unpadded offset Sk - Sq. Backward: the
+causal/window band sits at the unpadded offset Sk - Sq. An operand whose
+strides or start the chosen body cannot read (an unaligned view, a head
+dimension that is not contiguous) is copied into fresh, aligned storage
+first (``_readable``), and the kernel runs on the copy. Backward: the
 plain version's VJP, as ``repro``'s ``_flash_bwd``; no backward kernel
 exists there. ``flash_attention.launches`` counts kernel launches and
 ``flash_attention.route_launches`` the launches of each body.
@@ -74,6 +77,19 @@ def _check(q, k, v):
                          f"{tuple(k.shape)}")
 
 
+def _readable(t, route: str):
+    """``t`` where ``route``'s body can read it in place
+    (``dispatch.flash_operand_ok``: TMA's stride and alignment rule for
+    wgmma, a unit stride along D, strides of whole 16-byte units and an
+    aligned start for simt), else a copy in fresh storage, which
+    PyTorch's allocator aligns and lays out contiguously, so that either
+    body reads it. The kernel runs on the copy; nothing falls back."""
+    if dispatch.flash_operand_ok(t.stride(), t.data_ptr(), t.element_size(),
+                                 route):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch(q, k, v, causal: bool, window: int, scale: float,
             route: str | None = None, pingpong: bool = True):
     """The kernel on CUDA tensors -> (B, Hq, Sq, D) in q's dtype, through
@@ -98,21 +114,7 @@ def _launch(q, k, v, causal: bool, window: int, scale: float,
             route == "wgmma" and D not in dispatch.FLASH_WGMMA_HEAD_DIMS):
         raise ValueError(f"flash_attention has no {route!r} body for "
                          f"{q.dtype} at D = {D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if route == "wgmma":
-            if not dispatch.tma_strides_ok(t.stride(), t.data_ptr(),
-                                           t.element_size()):
-                raise ValueError(
-                    f"flash_attention: TMA needs {name} with a contiguous "
-                    f"head dimension, strides that are multiples of 16 "
-                    f"bytes and a 16-byte aligned start; got strides "
-                    f"{t.stride()}")
-        elif t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(
-                f"flash_attention: {name} needs a contiguous head dimension,"
-                f" strides that are multiples of 4 and a 16-byte aligned "
-                f"start; got strides {t.stride()}")
+    q, k, v = (_readable(t, route) for t in (q, k, v))
     lib = _build.load("flash_attention", _declare)
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     schedule = (int(pingpong),) if route == "wgmma" else ()

@@ -8,8 +8,9 @@ lie (no concatenated copy). On a CPU tensor the plain version
 launches, or the call raises. The kernel has two bodies, chosen by
 ``dispatch.gram_route``: ``wgmma`` (f32 at f32 accuracy from three TF32
 tensor-core products, fed by TMA) and ``simt`` (f64, and f32 shapes TMA
-cannot describe). A failed build or launch raises; neither body stands in
-for the other. The wrappers check device, dtype, shape and contiguity,
+cannot describe, such as a view at an unaligned start). A failed build or
+launch raises; neither body stands in for the other. The wrappers check
+device, dtype and shape, copy a non-contiguous view into fresh storage,
 allocate the output and the split-K partials with ``torch.empty``,
 launch on the current stream and do not synchronise. ``gram_t.launches``
 counts launches through either entry and ``gram_t.route_launches`` the
@@ -70,19 +71,41 @@ def _check(x, y):
         raise ValueError(f"empty operand: {tuple(x.shape)}, {tuple(y.shape)}")
 
 
+def _operands(x, y):
+    """x and y as the kernel reads them: row-major and contiguous. A view
+    that is not is copied first (a copy, not a fallback: the kernel still
+    runs); y stays x where it was x."""
+    same = y is x
+    x = x.contiguous()
+    return x, (x if same else y.contiguous())
+
+
+def _route(x, y, k: int) -> str:
+    """The body ``dispatch.gram_route`` picks for x^T [y | v^T] with k
+    vectors, from the shapes and from x's and y's strides and start
+    addresses: an f32 operand that TMA cannot describe (a start that is
+    not 16-byte aligned) goes to the simt body."""
+    (m, p), qy = x.shape, y.shape[1]
+    return dispatch.gram_route(
+        x.dtype, m, p, qy + k, y_cols=qy,
+        operands=[(t.stride(), t.data_ptr()) for t in (x, y)])
+
+
 def _launch(x, y, v=None, route: str | None = None):
     """The kernel on CUDA tensors: x^T [y | v^T] -> (p, qy + k), through
-    the body ``dispatch.gram_route`` picks. ``route`` forces a body, for
-    measurement only: ``chip_smoke.py`` times the simt body that way."""
+    the body ``dispatch.gram_route`` picks. Any operand that ``gram_t``
+    takes runs: a non-contiguous view is copied, and an unaligned one
+    goes to the simt body. ``route`` forces a body, for measurement only
+    (``chip_smoke.py`` times the simt body that way), and raises where
+    that body cannot read the operands."""
     if x.device.type != "cuda":
         raise ValueError(f"gram_t runs on cpu or cuda tensors, not "
                          f"{x.device}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("gram_t needs contiguous row-major operands")
+    x, y = _operands(x, y)
     (m, p), qy = x.shape, y.shape[1]
     k = 0 if v is None else v.shape[0]
     if route is None:
-        route = dispatch.gram_route(x.dtype, m, p, qy + k, y_cols=qy)
+        route = _route(x, y, k)
     if (route, x.dtype) not in _C_FN:
         raise ValueError(f"gram has no {route!r} body for {x.dtype}")
     if route == "wgmma":

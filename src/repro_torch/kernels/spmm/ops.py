@@ -23,6 +23,8 @@ from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.spmm import ref as _ref
 
 _C_FN = {torch.float32: "ell_spmm_f32", torch.float64: "ell_spmm_f64"}
+# (R, K, Q, device index) -> dispatch.spmm_plan's arguments to the C entry.
+_PLANS: dict = {}
 
 
 def spmm_impl(device) -> str:
@@ -34,38 +36,57 @@ def spmm_impl(device) -> str:
 def _declare(lib):
     for fn in _C_FN.values():
         f = getattr(lib, fn)
-        f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+        # vals, idx, blocks, D, out, R, K, Q, ell_block, col_groups,
+        # q_tiles, splits, device, stream
+        f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         f.restype = ctypes.c_int
-    lib.spmm_q_tile.argtypes = []
-    lib.spmm_q_tile.restype = ctypes.c_int
+    for fn in ("spmm_q_tile", "spmm_warps", "spmm_max_splits"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.spmm_in_flight.argtypes = [ctypes.c_int]
+    lib.spmm_in_flight.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
 
 
 def _check(vals, idx, blocks, D, ell_block):
-    if vals.dim() != 2 or idx.shape != vals.shape or D.dim() != 2 \
-            or blocks.shape != vals.shape[:1]:
+    shape = vals.shape
+    if len(shape) != 2 or idx.shape != shape or D.dim() != 2 \
+            or blocks.shape != shape[:1]:
         raise ValueError(
             f"ell_spmm expects vals/idx (R, K), blocks (R,) and D (C, Q); "
-            f"got {tuple(vals.shape)}, {tuple(idx.shape)}, "
+            f"got {tuple(shape)}, {tuple(idx.shape)}, "
             f"{tuple(blocks.shape)}, {tuple(D.shape)}")
-    for name, t in (("idx", idx), ("blocks", blocks), ("D", D)):
-        if t.device != vals.device:
-            raise ValueError(f"ell_spmm: {name} on {t.device}, vals on "
-                             f"{vals.device}")
-    if vals.dtype != D.dtype or vals.dtype not in _C_FN:
+    dev = vals.device
+    if idx.device != dev or blocks.device != dev or D.device != dev:
+        raise ValueError(f"ell_spmm: vals on {dev}, idx on {idx.device}, "
+                         f"blocks on {blocks.device}, D on {D.device}")
+    dt = vals.dtype
+    if D.dtype != dt or dt not in _C_FN:
         raise TypeError(f"ell_spmm takes float32 or float64 vals and D of "
-                        f"one dtype; got {vals.dtype} and {D.dtype}")
+                        f"one dtype; got {dt} and {D.dtype}")
     if idx.dtype != torch.int32 or blocks.dtype != torch.int32:
         raise TypeError(f"ell_spmm: idx and blocks must be int32, got "
                         f"{idx.dtype} and {blocks.dtype}")
-    if min(vals.shape) < 1 or min(D.shape) < 1:
-        raise ValueError(f"empty operand: {tuple(vals.shape)}, "
+    if shape[0] < 1 or shape[1] < 1 or D.shape[0] < 1 or D.shape[1] < 1:
+        raise ValueError(f"empty operand: {tuple(shape)}, "
                          f"{tuple(D.shape)}")
-    if vals.shape[1] % ell_block != 0:
-        raise ValueError(f"ELL width {vals.shape[1]} is not a multiple of "
+    if shape[1] % ell_block != 0:
+        raise ValueError(f"ELL width {shape[1]} is not a multiple of "
                          f"ell_block={ell_block}")
+
+
+def _plan(R: int, K: int, Q: int, device) -> tuple:
+    """(col_groups, q_tiles, splits) of ``dispatch.spmm_plan`` on the
+    card's SM count, cached per shape and card."""
+    key = (R, K, Q, device.index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        p = dispatch.spmm_plan(R, K, Q, sms)
+        plan = _PLANS[key] = (p.col_groups, p.q_tiles, p.splits)
+    return plan
 
 
 def ell_spmm(vals, idx, blocks, D, ell_block: int = 8):
@@ -74,20 +95,23 @@ def ell_spmm(vals, idx, blocks, D, ell_block: int = 8):
     ``ell_block``; blocks (R,) each row's active K-block count (the
     kernel skips the rest, which hold zeros); D (C, Q) dense."""
     _check(vals, idx, blocks, D, ell_block)
-    if vals.device.type == "cpu":
+    dev = vals.device
+    if dev.type == "cpu":
         return _ref.ell_spmm_ref(vals, idx, D)
-    if vals.device.type != "cuda":
-        raise ValueError(f"ell_spmm runs on cpu or cuda tensors, not "
-                         f"{vals.device}")
-    if not all(t.is_contiguous() for t in (vals, idx, blocks, D)):
+    if dev.type != "cuda":
+        raise ValueError(f"ell_spmm runs on cpu or cuda tensors, not {dev}")
+    if not (vals.is_contiguous() and idx.is_contiguous()
+            and blocks.is_contiguous() and D.is_contiguous()):
         raise ValueError("ell_spmm needs contiguous operands")
     lib = _build.load("spmm", _declare)
     (R, K), Q = vals.shape, D.shape[1]
-    out = torch.empty((R, Q), dtype=D.dtype, device=D.device)
+    out = torch.empty((R, Q), dtype=D.dtype, device=dev)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
     rc = getattr(lib, _C_FN[D.dtype])(
         vals.data_ptr(), idx.data_ptr(), blocks.data_ptr(), D.data_ptr(),
-        out.data_ptr(), R, K, Q, ell_block, dispatch.spmm_q_tiles(Q),
-        D.device.index or 0, torch.cuda.current_stream(D.device).cuda_stream)
+        out.data_ptr(), R, K, Q, ell_block, *_plan(R, K, Q, dev), index,
+        _build.raw_stream(index))
     _build.check(lib, rc, "ell_spmm")
     ell_spmm.launches += 1
     return out

@@ -268,7 +268,8 @@ def test_tma_stride_rule():
 
 def test_wgmma_route_refuses_before_the_card(monkeypatch):
     """A forced body that does not exist for (dtype, D) raises in the
-    wrapper; so does an operand TMA cannot describe."""
+    wrapper; an operand TMA cannot describe is copied into fresh storage
+    and goes on to the launch (here: to the build, stopped before nvcc)."""
     from repro_torch.kernels.flash_attention import ops
     q = torch.zeros(1, 2, 8, 64)
     monkeypatch.setattr(torch.Tensor, "device",
@@ -279,8 +280,20 @@ def test_wgmma_route_refuses_before_the_card(monkeypatch):
     with pytest.raises(ValueError, match="no 'wgmma' body"):
         ops._launch(qb, qb, qb, True, 0, 0.125, route="wgmma")
     x = torch.zeros(1, 2, 8, 68, dtype=torch.bfloat16)[..., 4:]
-    with pytest.raises(ValueError, match="TMA needs q"):
+    seen = []
+
+    def build_stop(name, declare):
+        raise LookupError(name)
+    monkeypatch.setattr(ops._build, "load", build_stop)
+    real = ops._readable
+    monkeypatch.setattr(ops, "_readable",
+                        lambda t, route: seen.append(real(t, route))
+                        or seen[-1])
+    with pytest.raises(LookupError, match="flash_attention"):
         ops._launch(x, x, x, True, 0, 0.125)
+    assert len(seen) == 3 and all(
+        t.is_contiguous() and t.data_ptr() != x.data_ptr()
+        and torch.equal(t, x) for t in seen)
     assert flash_attention.route_launches == {"wgmma": 0, "simt": 0}
 
 
