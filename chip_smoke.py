@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
 
 1. builds the kernels (one ``nvcc`` per source, together; ptxas's
-   registers and spills of each ``gram``, ``flash_attention``, ``spmm``
-   and ``svm_inner`` instance are printed, and a spill in a ``wgmma``
-   body fails), holds each kernel against its plain PyTorch version on
+   registers and spills of each ``gram``, ``flash_attention``, ``spmm``,
+   ``svm_inner`` and ``sa_inner`` instance are printed, and a spill in a
+   ``wgmma`` body or an ``sa_inner`` instance fails), holds each kernel
+   against its plain PyTorch version on
    the card, at the main paths' shapes and at edge shapes, and times
    ``gram`` and ``sa_inner`` with their plain versions and (``gram``)
    ``torch.matmul`` with CUDA events. ``gram`` routes by
@@ -17,7 +18,12 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    for f32 where TMA can describe the operands, else ``simt``: f64, and
    f32 views at an unaligned start; a non-contiguous view is copied
    first), that two calls give the same bits, and the C side's tile plan
-   and shared-memory formula against ``kernels/dispatch.py``; the path's
+   and shared-memory formula against ``kernels/dispatch.py``; ``sa_inner``
+   routes by ``dispatch.sa_inner_route`` (``warp``: mu <= 32 and its
+   layout in shared memory; ``block``: the rest) and runs both bodies
+   where the warp body serves (f32 and f64, an all-zero diagonal block,
+   its f32 cap (238, 1)), each twice for the same bits, with its layouts
+   and power-warp count checked against dispatch's; the path's
    call Y^T [Y | ytil | ztil] is timed with both bodies and
    ``torch.matmul`` (TF32 off), and a 1xTF32 emulation of it must miss
    K1's bar there. ``flash_attention`` runs on bf16 views one element
@@ -30,13 +36,15 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
 2. drives the dense Lasso path — ``repro_torch.api.solve`` on a dense
    Lasso at the shape of LIBSVM ``epsilon`` (400,000 x 2,000, f32),
    SA-accBCD with mu = 8, s = 16, H = 512 — checks that ``gram`` (all
-   through its ``wgmma`` body) and ``sa_inner`` each launched ceil(H/s) =
-   32 times, that the objective is finite and falls, and that the
+   through its ``wgmma`` body) and ``sa_inner`` (all through its ``warp``
+   body) each launched ceil(H/s) = 32 times, that the objective is
+   finite and falls, and that the
    classical accBCD (s = 1) gives the same trace within rel 1e-3; then
-   times where each outer iteration's time goes;
+   times where each outer iteration's time goes, and ``sa_inner``'s two
+   bodies on the inputs the solve gave it;
 3. runs an f64 solve on the card (epsilon-like, 8192 x 512) through the
-   same kernels (``gram``'s ``simt`` body) and holds it to the CPU solve
-   within 1e-8;
+   same kernels (``gram``'s ``simt`` body, ``sa_inner``'s ``warp`` body)
+   and holds it to the CPU solve within 1e-8;
 4. drives the sparse SVM path — ``api.solve`` on a linear SVM-L1 at the
    shape of LIBSVM ``news20.binary`` (19,996 x 1,355,191, ~9.1 M nonzeros,
    a SparseOperand made on the card), SA-BDCD mu = 1, s = 64, H = 4096 —
@@ -49,7 +57,8 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
 5. drives the sparse Lasso path — SA-accBCD mu = 8, s = 16, H = 512 on a
    sparse Lasso at the shape of LIBSVM ``url`` (2,396,130 x 3,231,961,
    ~279 M nonzeros) — with the same checks (32 launches each of ``spmm``
-   and ``sa_inner``, none of ``gram``) and phase split;
+   and ``sa_inner``, all of its ``warp`` body, none of ``gram``) and
+   phase split;
 6. runs f64 sparse solves on the card (SVM rcv1-like, Lasso news20-like)
    through ``spmm``, ``svm_inner`` and ``sa_inner`` and holds them to the
    CPU solves within 1e-8;
@@ -276,6 +285,11 @@ def log_ptxas(name: str) -> None:
                 body = (f"warp {prec} rows/lane={dim}" if "warp" in entry
                         else f"block {prec} G " + (
                             "smem" if "Lb1E" in entry else "global"))
+            elif name == "sa_inner":
+                body = ("probe" if "probe" in entry else
+                        f"warp {prec} rows/lane={dim}" if "warp" in entry
+                        else f"block {prec} G " + (
+                            "smem" if "Lb1E" in entry else "global"))
             elif name == "gram":
                 kind = re.search(r"(gram_[a-z]+_kernel)I(\w)", entry)
                 prec = "f64" if kind.group(2) == "d" else "f32"
@@ -286,7 +300,8 @@ def log_ptxas(name: str) -> None:
                         "simt f32" if "kernelIf" in entry else
                         "simt bf16") + f" D={dim}"
             log(f"  ptxas {name} {body}: {m.group(1)} registers; {spill}")
-            if "wgmma" in entry and ", 0 bytes spill stores" not in spill:
+            if ("wgmma" in entry or name == "sa_inner") \
+                    and ", 0 bytes spill stores" not in spill:
                 raise AssertionError(f"ptxas: {name} {body} spills: {spill}")
             entry = None
 
@@ -530,19 +545,140 @@ def sync_step_ms(lib):
     return (time_ms(lambda: run(n), 20, 2) - empty) / n, empty
 
 
-def phase_kernels():
+def sa_inner_call(ins, kw, body):
+    """One K2 call through ``body`` (the route's, via the public wrapper,
+    or forced): checks that it took that body -> (dz, eta)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.sa_inner import sa_inner_loop
+    from repro_torch.kernels.sa_inner.ops import _launch
+    s, mu = ins[1].shape
+    before = dict(sa_inner_loop.route_launches)
+    out = (sa_inner_loop(*ins, **kw)
+           if body == dispatch.sa_inner_route(s, mu, ins[0].element_size())
+           else _launch(*ins, kw["q"], kw["lam1"], kw["lam2"],
+                        kw["power_iters"], route=body))
+    took = [r for r, n in sa_inner_loop.route_launches.items()
+            if n != before[r]]
+    if took != [body]:
+        raise AssertionError(f"sa_inner ({s}, {mu}) took {took}, not {body}")
+    return out
+
+
+def phase_sa_inner(gen):
+    """K2's two bodies against the plain version: the C side's layouts,
+    power-warp count and route against dispatch's; every case through
+    the body the route picks and, where that is the warp body, the block
+    body too (forced), each twice (the same bits); an all-zero diagonal
+    block (the tiny floor) and the warp body at its f32 cap (238, 1);
+    then the times at the paths' (16, 8) f32. Returns the kernel row."""
     import torch
     from repro_torch.kernels import _build, dispatch
     from repro_torch.kernels.sa_inner import sa_inner_loop
-    from repro_torch.kernels.sa_inner.ops import _declare as inner_declare
+    from repro_torch.kernels.sa_inner.ops import _declare
     from repro_torch.kernels.sa_inner.ref import sa_inner_ref
+    lib = _build.load("sa_inner", _declare)
+    for s, mu, isz in ((16, 8, 4), (64, 8, 4), (16, 8, 8), (238, 1, 4),
+                       (239, 1, 4), (168, 1, 8), (169, 1, 8), (2, 32, 4),
+                       (3, 5, 4), (7, 20, 8), (85, 3, 4), (1, 1, 8)):
+        for g in (True, False):
+            want = dispatch.sa_inner_smem_bytes(s, mu, isz, g)
+            got = lib.sa_inner_smem_bytes(s, mu, isz, int(g))
+            if got != want:
+                raise AssertionError(f"sa_inner smem layout differs: C {got}"
+                                     f" vs dispatch {want} at {(s, mu, isz)}")
+        got = (lib.sa_inner_warp_smem_bytes(s, mu, isz),
+               lib.sa_inner_power_warps(s, mu),
+               "warp" if lib.sa_inner_warp_fits(s, mu, isz) else "block")
+        if got != (dispatch.sa_inner_warp_smem_bytes(s, mu, isz),
+                   dispatch.sa_inner_power_warps(s, mu),
+                   dispatch.sa_inner_route(s, mu, isz)):
+            raise AssertionError(f"sa_inner warp layout / power warps / "
+                                 f"route differ: C {got} at {(s, mu, isz)}")
+    f32, f64 = torch.float32, torch.float64
+    kw = dict(q=250.0, lam1=0.05, lam2=0.01, power_iters=32)
+    # (s, mu, dtype, ids drawn from 0..n_ids-1, all-zero diagonal block)
+    for s, mu, dtype, n_ids, zero in ((16, 8, f32, 2000, None),
+                                      (16, 8, f32, 12, None),
+                                      (16, 8, f32, 2000, 5),
+                                      (64, 8, f32, 2000, None),
+                                      (4, 1, f32, 4, None),
+                                      (238, 1, f32, 4000, None),
+                                      (239, 1, f32, 4000, None),
+                                      (3, 5, f32, 64, None),
+                                      (2, 32, f32, 12, None),
+                                      (7, 20, f32, 50, None),
+                                      (4, 1, f64, 4, None),
+                                      (16, 8, f64, 2000, None),
+                                      (16, 8, f64, 2000, 5),
+                                      (168, 1, f64, 4000, None),
+                                      (7, 20, f64, 50, None)):
+        ins = inner_inputs(s, mu, n_ids, dtype, gen)
+        if zero is not None:
+            G, yp, zp = ins[0], ins[1], ins[2]
+            G[zero * mu:(zero + 1) * mu, :] = 0.0
+            G[:, zero * mu:(zero + 1) * mu] = 0.0
+            yp[zero] = 0.0
+            zp[zero] = 0.0
+        isz = ins[0].element_size()
+        route = dispatch.sa_inner_route(s, mu, isz)
+        where = "smem" if dispatch.sa_inner_g_in_smem(s, mu, isz) \
+            else "global"
+        dz_r, eta_r = sa_inner_ref(*ins, **kw)
+        tol = (1e-4, 1e-5) if dtype == f32 else (1e-12, 1e-12)
+        name = f"sa_inner {dtype} (s={s}, mu={mu}, ids < {n_ids}" + (
+            f", block {zero} all zero)" if zero is not None else ")")
+        etas = {}
+        for body in ("warp", "block") if route == "warp" else ("block",):
+            dz, eta = sa_inner_call(ins, kw, body)
+            tag = "warp" if body == "warp" else f"block, G {where}"
+            e = check_close(f"{name} [{tag}] dz", dz, dz_r, *tol)
+            check_close(f"{name} [{tag}] eta", eta, eta_r, tol[0], 0.0)
+            dz2, eta2 = sa_inner_call(ins, kw, body)
+            if not (torch.equal(dz, dz2) and torch.equal(eta, eta2)):
+                raise AssertionError(f"{name} [{body}]: two calls differ")
+            etas[body] = eta
+            if zero is not None and not (
+                    float(eta[zero]) == 1.0 / torch.finfo(dtype).tiny):
+                raise AssertionError(f"{name}: eta of the zero block "
+                                     f"{float(eta[zero])}, not 1 / tiny")
+            if (s, mu, dtype, n_ids, zero, body) == (
+                    S, MU, f32, 2000, None, "warp"):
+                row_ins, err = ins, e
+        if len(etas) == 2:
+            log(f"  {name}: the two bodies' eta equal bit for bit: "
+                f"{torch.equal(etas['warp'], etas['block'])}")
+    ins = row_ins
+    smu = S * MU
+    nbytes = smu * smu * 4 + 3 * smu * 4 + smu * 8 + 2 * S * 4 \
+        + smu * 4 + S * 4
+    b, why = bound_ms(nbytes, sa_inner_flops(S, MU, 32))
+    row = {"name": "sa_inner", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/sa_inner.cu",
+           "replaces": "src/repro/kernels/sa_inner/kernel.py:91",
+           "max_abs_err": err,
+           "ms": time_ms(lambda: sa_inner_loop(*ins, **kw), 200, 5),
+           "plain_ms": time_ms(lambda: sa_inner_ref(*ins, **kw), 5, 1),
+           "device_ms": device_ms(lambda: sa_inner_loop(*ins, **kw)),
+           "bound_ms": b, "bound_by": why, "library_ms": None}
+    block_ms = time_ms(lambda: sa_inner_call(ins, kw, "block"), 200, 5)
+    block_dev = device_ms(lambda: sa_inner_call(ins, kw, "block"))
+    log(f"  sa_inner (s={S}, mu={MU}) f32 [warp]: {row['ms']:.4f} ms, device "
+        f"{fmt_ms(row['device_ms'])}; block body {block_ms:.4f} ms, device "
+        f"{fmt_ms(block_dev)}; plain {row['plain_ms']:.4f}")
+    return row
+
+
+def phase_kernels():
+    import torch
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.sa_inner.ops import _declare as inner_declare
 
     log("phase 1: kernels against their plain versions")
     t0 = time.perf_counter()
     names = ["gram", "sa_inner", "spmm", "svm_inner", "flash_attention"]
     _build.build(names)                     # one nvcc per source, together
     log(f"  built {', '.join(names)} in {time.perf_counter() - t0:.1f} s")
-    for name in ("flash_attention", "spmm", "svm_inner"):
+    for name in ("flash_attention", "spmm", "svm_inner", "sa_inner"):
         log_ptxas(name)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -551,48 +687,8 @@ def phase_kernels():
     rows["gram"] = phase_gram(gen)
     flash_offset_case(gen)
 
-    # sa_inner: G in shared memory (16, 8), in global memory (64, 8), and
-    # forced collisions (ids from 0..3) at mu = 1, f32 and f64.
+    rows["sa_inner"] = phase_sa_inner(gen)
     lib = _build.load("sa_inner", inner_declare)
-    for s, mu, isz in ((16, 8, 4), (64, 8, 4), (16, 8, 8), (238, 1, 4)):
-        for g in (True, False):
-            want = dispatch.sa_inner_smem_bytes(s, mu, isz, g)
-            got = lib.sa_inner_smem_bytes(s, mu, isz, int(g))
-            if got != want:
-                raise AssertionError(f"sa_inner smem layout differs: C {got}"
-                                     f" vs dispatch {want} at {(s, mu, isz)}")
-    cases = ((16, 8, torch.float32, 2000, True),
-             (64, 8, torch.float32, 2000, False),
-             (4, 1, torch.float32, 4, True),
-             (4, 1, torch.float64, 4, True),
-             (16, 8, torch.float64, 2000, True))
-    for s, mu, dtype, n_ids, smem in cases:
-        ins = inner_inputs(s, mu, n_ids, dtype, gen)
-        if dispatch.sa_inner_g_in_smem(s, mu, ins[0].element_size()) != smem:
-            raise AssertionError(f"sa_inner ({s}, {mu}) G placement")
-        kw = dict(q=250.0, lam1=0.05, lam2=0.01, power_iters=32)
-        dz, eta = sa_inner_loop(*ins, **kw)
-        dz_r, eta_r = sa_inner_ref(*ins, **kw)
-        tol = (1e-4, 1e-5) if dtype == torch.float32 else (1e-12, 1e-12)
-        where = "smem" if smem else "global"
-        e = check_close(f"sa_inner {dtype} (s={s}, mu={mu}, G {where}) dz",
-                        dz, dz_r, *tol)
-        check_close(f"sa_inner {dtype} (s={s}, mu={mu}) eta", eta, eta_r,
-                    tol[0], 0.0)
-        if (s, mu, dtype) == (S, MU, torch.float32):
-            smu = s * mu
-            nbytes = smu * smu * 4 + 3 * smu * 4 + smu * 8 + 2 * s * 4 \
-                + smu * 4 + s * 4
-            b, why = bound_ms(nbytes, sa_inner_flops(s, mu, 32))
-            rows["sa_inner"] = {
-                "name": "sa_inner", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/sa_inner.cu",
-                "replaces": "src/repro/kernels/sa_inner/kernel.py:91",
-                "max_abs_err": e,
-                "ms": time_ms(lambda: sa_inner_loop(*ins, **kw), 200, 5),
-                "plain_ms": time_ms(lambda: sa_inner_ref(*ins, **kw), 5, 1),
-                "device_ms": device_ms(lambda: sa_inner_loop(*ins, **kw)),
-                "bound_ms": b, "bound_by": why, "library_ms": None}
 
     # The latency bound of sa_inner (s = 16) and svm_inner (s = 64): the
     # inner steps form one dependent chain, each step at least one warp
@@ -853,11 +949,13 @@ class PhaseTimer:
 
 def phase_main_path():
     import dataclasses
+    import inspect
     import torch
     from repro_torch import api
     from repro_torch.core import engine, sa_lasso
     from repro_torch.kernels import sa_inner
     from repro_torch.kernels.gram import gram_t
+    from repro_torch.kernels.sa_inner import ops as sa_inner_ops
 
     log(f"phase 2: main path, dense Lasso {M_EPS} x {N_EPS} f32, "
         f"SA-accBCD mu={MU} s={S} H={H}")
@@ -874,11 +972,12 @@ def phase_main_path():
     wall = time.perf_counter() - t0
     counts = read_counts()
     bodies = dict(gram_t.route_launches)
+    k2_bodies = dict(sa_inner.sa_inner_loop.route_launches)
     launches = {"gram": counts["gram"], "sa_inner": counts["sa_inner"]}
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches in the solve: {counts} (expected {outer} each of "
         f"gram and sa_inner); gram by body {bodies} (expected {outer} "
-        f"wgmma)")
+        f"wgmma); sa_inner by body {k2_bodies} (expected {outer} warp)")
     log(f"  objective {float(obj[0]):.6g} -> {float(obj[-1]):.6g}; "
         f"inner_impl {res.aux['inner_impl']}")
     log(f"  wall {wall:.4f} s, {wall / outer * 1e3:.4f} ms per outer "
@@ -890,6 +989,9 @@ def phase_main_path():
     if bodies != {"wgmma": outer, "simt": 0}:
         raise AssertionError(f"gram bodies {bodies}, expected {outer} "
                              f"wgmma")
+    if k2_bodies != {"warp": outer, "block": 0}:
+        raise AssertionError(f"sa_inner bodies {k2_bodies}, expected "
+                             f"{outer} warp")
     # Accelerated BCD is not a descent method: allow rises of 1e-2 of the
     # start within a trace that falls overall.
     rise = float((obj[1:] - obj[:-1]).max() / obj[0])
@@ -960,7 +1062,12 @@ def phase_main_path():
         log(f"    {k:36s} {v / outer:.4f} ms")
     args, kw = timer.first["sa_inner kernel"]
     k2 = device_ms(lambda: sa_inner.sa_inner_loop(*args, **kw))
-    log(f"  sa_inner on the path's inputs: device {fmt_ms(k2)} ms per call")
+    call = inspect.signature(sa_inner.sa_inner_loop).bind(*args, **kw)
+    call.apply_defaults()
+    k2_block = device_ms(lambda: sa_inner_ops._launch(*call.args,
+                                                      route="block"))
+    log(f"  sa_inner on the path's inputs: device {fmt_ms(k2)} ms per call "
+        f"[warp]; the block body on the same inputs {fmt_ms(k2_block)}")
     return launches, k2
 
 
@@ -987,10 +1094,11 @@ def phase_f64():
                                                  lam=0.1 * lam_max), cfg)
         if device == "cuda":
             n = (gram_t.launches, sa_inner.sa_inner_loop.launches,
-                 gram_t.route_launches["simt"])
-            if n != (8, 8, 8):
+                 gram_t.route_launches["simt"],
+                 sa_inner.sa_inner_loop.route_launches["warp"])
+            if n != (8, 8, 8, 8):
                 raise AssertionError(f"f64 solve launches {n}, expected 8 "
-                                     f"(gram all simt)")
+                                     f"(gram all simt, sa_inner all warp)")
     o_gpu = out["cuda"].objective.cpu()
     o_cpu = out["cpu"].objective
     dev = float(((o_gpu - o_cpu).abs() / o_cpu.abs()).max())
@@ -1072,10 +1180,12 @@ def zero_counts():
     from repro_torch.kernels.gram import gram_t
     for fn in counters().values():
         fn.launches = 0
+    from repro_torch.kernels.sa_inner import sa_inner_loop
     from repro_torch.kernels.svm_inner import svm_inner_loop
     flash_attention.route_launches.update(wgmma=0, simt=0)
     gram_t.route_launches.update(wgmma=0, simt=0)
     svm_inner_loop.route_launches.update(warp=0, block=0)
+    sa_inner_loop.route_launches.update(warp=0, block=0)
 
 
 def read_counts():
@@ -1371,6 +1481,11 @@ def phase_url():
     res, obj, launches = solve_counted(
         problem, cfg, {"gram": 0, "sa_inner": outer, "spmm": outer,
                        "svm_inner": 0, "flash_attention": 0})
+    bodies = dict(sa_inner.sa_inner_loop.route_launches)
+    log(f"  sa_inner by body {bodies} (expected {outer} warp)")
+    if bodies != {"warp": outer, "block": 0}:
+        raise AssertionError(f"sa_inner bodies {bodies}, expected {outer} "
+                             f"warp")
     classical = api.solve(problem, dataclasses.replace(cfg, s=1))
     check_trace(obj, classical.objective.cpu(), "objective", descent=False)
     del classical
@@ -1427,11 +1542,14 @@ def phase_f64_sparse():
                                            dtype=torch.float64,
                                            device=device))
         got_lasso = read_counts()
+        got_lasso["sa_inner warp"] = counters()[
+            "sa_inner"].route_launches["warp"]
         if device == "cuda":
             want_svm = {"gram": 0, "sa_inner": 0, "spmm": 32,
                         "svm_inner": 32, "flash_attention": 0}
             want_lasso = {"gram": 0, "sa_inner": 8, "spmm": 8,
-                          "svm_inner": 0, "flash_attention": 0}
+                          "svm_inner": 0, "flash_attention": 0,
+                          "sa_inner warp": 8}
             if (got_svm, got_lasso) != (want_svm, want_lasso):
                 raise AssertionError(f"f64 sparse launches {got_svm}, "
                                      f"{got_lasso}")

@@ -21,11 +21,16 @@ same kernel.
   (16 KB at f32, 32 KB at f64), the split count chosen to put a few
   blocks on every SM. ``csrc/gram.cu`` exports the wgmma body's tile
   sizes and shared-memory formula for the cross-check.
-* ``sa_inner``: G stays in shared memory while the kernel's whole
-  footprint fits; above that the same kernel reads G's rows from global
-  memory (through L2). ``sa_inner_smem_bytes`` must match the layout in
-  ``csrc/sa_inner.cu`` (which exports the same formula;
-  ``chip_smoke.py`` checks that they agree).
+* ``sa_inner``: two bodies, chosen by ``sa_inner_route``. The ``warp``
+  body (mu <= 32, s mu <= 256, its layout in shared memory) runs the
+  power iterations in registers, 32 / P blocks a warp
+  (``sa_inner_group_width``, ``sa_inner_power_warps``), while the other
+  warps stage G's columns transposed, then the dependent chain in one
+  warp, right-looking; ``sa_inner_warp_smem_bytes`` is its layout. The
+  ``block`` body keeps G in shared memory while its whole footprint fits
+  (``sa_inner_smem_bytes``), else reads G's rows from global memory
+  (through L2). ``csrc/sa_inner.cu`` exports both formulas and the power
+  warps (``chip_smoke.py`` checks that they agree).
 * ``svm_inner``: two bodies, chosen by ``svm_inner_route``. The
   ``warp`` body (mu <= 32, s mu <= 256, its layout in shared memory)
   runs the dependent chain in one warp, right-looking, over G's
@@ -71,6 +76,10 @@ GRAM_WGMMA_MAX_VECS = 8       # k of a fused call: vectors read in place
 GRAM_WGMMA_TILE_NS = (24, 72, 136)   # wgmma widths N of the tiles of q
 
 SA_INNER_WARPS = 16
+# The warp body of sa_inner: blocks of at most one warp's width, and at
+# most this many rows per lane (s mu <= 256).
+SA_INNER_WARP_MAX_MU = 32
+SA_INNER_WARP_MAX_ROWS_PER_LANE = 8
 SVM_INNER_WARPS = 16
 # The warp body of svm_inner: blocks of at most one warp's width, and at
 # most this many rows per lane (s mu <= 256).
@@ -111,6 +120,40 @@ def sa_inner_smem_bytes(s: int, mu: int, itemsize: int = 4,
 def sa_inner_g_in_smem(s: int, mu: int, itemsize: int = 4) -> bool:
     """Does ``sa_inner`` keep G in shared memory at (s, mu)?"""
     return sa_inner_smem_bytes(s, mu, itemsize, True) <= SMEM_PER_BLOCK
+
+
+def sa_inner_warp_smem_bytes(s: int, mu: int, itemsize: int = 4) -> int:
+    """The warp body's layout: at ``itemsize``, G's columns transposed at
+    a pitch of s*mu + 1 (s*mu rows), coefU and eta per step (2 s) and the
+    dz history (s*mu); then each row's next row with its sampled id
+    (s*mu int32)."""
+    smu = s * mu
+    return (smu * (smu + 2) + 2 * s) * itemsize + smu * 4
+
+
+def sa_inner_group_width(mu: int) -> int:
+    """Lanes of one power-iteration group of the warp body: the least
+    power of two >= mu (a warp runs 32 / that many blocks at once)."""
+    return 1 << (mu - 1).bit_length()
+
+
+def sa_inner_power_warps(s: int, mu: int) -> int:
+    """Warps of the warp body that run the power iterations while the
+    rest stage G: none at mu = 1 (lambda_max is G_jj itself), else
+    ceil(s P / 32)."""
+    return 0 if mu == 1 else -(-s * sa_inner_group_width(mu) // 32)
+
+
+def sa_inner_route(s: int, mu: int, itemsize: int = 4) -> str:
+    """The body of ``csrc/sa_inner.cu`` that serves (s, mu): ``"warp"``
+    where mu <= ``SA_INNER_WARP_MAX_MU``, each lane owns at most
+    ``SA_INNER_WARP_MAX_ROWS_PER_LANE`` of the s*mu rows and the warp
+    body's layout fits a block's shared memory; else ``"block"``."""
+    if mu <= SA_INNER_WARP_MAX_MU \
+            and s * mu <= 32 * SA_INNER_WARP_MAX_ROWS_PER_LANE \
+            and sa_inner_warp_smem_bytes(s, mu, itemsize) <= SMEM_PER_BLOCK:
+        return "warp"
+    return "block"
 
 
 def svm_inner_smem_bytes(s: int, mu: int, itemsize: int = 4,
