@@ -88,7 +88,25 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    rtol 0.05;
 10. runs tinyllama-1.1b widths cut to 2 layers at f32, B = 2, S = 512, on
    the card (through ``flash_attention``) and on the CPU (plain), and
-   holds the logits within rel 1e-4 and the generated tokens equal.
+   holds the logits within rel 1e-4 and the generated tokens equal;
+11. (run after phase 6) drives the sharded backend, ``api.solve(...,
+   backend="sharded")``: (a) over NCCL at world size 1 in this process,
+   on phase 2's epsilon Lasso — x and the trace bit-identical to phase
+   2's local solve, 64 all-reduces with the objective tracked and 32
+   without, 32 launches each of ``gram``'s ``wgmma`` body and
+   ``sa_inner``'s ``warp`` body; the steady walls of both backends in
+   turns, and one NCCL all-reduce of the (128, 130) f32 payload timed;
+   (b) four gloo ranks on the one card (``core.distributed.run_ranks``;
+   gloo stages CUDA tensors through the host), each making the full data
+   from the seed: epsilon (100,000 rows a rank) and news20.binary
+   (338,798 feature columns a rank) at the paths' settings, and an f64
+   epsilon-like 8192 x 512 Lasso. Each rank checks its kernels' launches
+   (32 of ``gram``'s ``wgmma`` and ``sa_inner``'s ``warp`` body; 64 of
+   ``spmm`` and ``svm_inner``'s ``warp`` body, none of ``gram``), its
+   ceil(H/s) all-reduces untracked, and that x (alpha) and the trace are
+   the same bits on every rank; rank 0's traces hold to phases 2 and
+   4's local solves within rel 1e-3, the f64 solve to the CPU within
+   1e-8.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
@@ -117,6 +135,9 @@ SRC = os.path.join(ROOT, "src")
 
 # The latency probe's time per dependent step, from phase 1.
 PROBE = {}
+# Phases 2 and 4's local solves (on the CPU), which phase 11 holds the
+# sharded backend to.
+LOCAL = {}
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, TF32 and bf16 on the dense tensor cores, and HBM3 bandwidth.
@@ -126,6 +147,7 @@ BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 M_EPS, N_EPS = 400_000, 2_000           # LIBSVM epsilon
+K0_ROUNDS = 33          # K0's dependent rounds: 32 power iterations + 1
 # Phase 2's label of K1's call, Y^T [Y | ytil | ztil] read in place.
 GRAM_PHASE = "gram kernel (Y^T [Y | V], no cat)"
 MU, S, H = 8, 16, 512
@@ -698,7 +720,9 @@ def phase_kernels():
     log(f"  latency probe: {step * 1e3:.4f} us per step (shuffle reduction "
         f"+ block barrier, 16 warps), empty launch {empty:.4f} ms; latency "
         f"bounds sa_inner (s={S}) {S * step:.6f} ms, svm_inner "
-        f"(s={S_SVM}) {S_SVM * step:.6f} ms")
+        f"(s={S_SVM}) {S_SVM * step:.6f} ms, power_iter_max_eig (K0: 32 "
+        f"iterations and the Rayleigh quotient, {K0_ROUNDS} dependent "
+        f"rounds) {K0_ROUNDS * step:.6f} ms")
 
     phase_spmm_sweep(gen)
     phase_svm_inner_sweep(gen)
@@ -971,6 +995,7 @@ def phase_main_path():
     obj = res.objective.cpu()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    LOCAL["epsilon"] = (res.x.cpu(), obj)
     bodies = dict(gram_t.route_launches)
     k2_bodies = dict(sa_inner.sa_inner_loop.route_launches)
     launches = {"gram": counts["gram"], "sa_inner": counts["sa_inner"]}
@@ -1422,6 +1447,7 @@ def phase_svm():
     res, obj, launches = solve_counted(
         problem, cfg, {"gram": 0, "sa_inner": 0, "spmm": outer,
                        "svm_inner": outer, "flash_attention": 0})
+    LOCAL["news20"] = obj
     bodies = dict(svm_inner.svm_inner_loop.route_launches)
     log(f"  svm_inner by body {bodies} (expected {outer} warp)")
     if bodies != {"warp": outer, "block": 0}:
@@ -1567,6 +1593,389 @@ def phase_f64_sparse():
         if not (dev <= 1e-8 and dx <= 1e-8 and extra <= 1e-8):
             raise AssertionError(f"f64 sparse {what} card solve differs "
                                  f"from the CPU solve")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11 (run after phase 6): the sharded backend over torch.distributed.
+# ---------------------------------------------------------------------------
+
+P_GLOO = 4
+# The epsilon path's fused payload: the (s mu, s mu + 2) Gram/projection
+# block, f32.
+PAYLOAD = (S * MU, S * MU + 2)
+
+
+def rel_dev(obj, ref):
+    """Max relative deviation of a trace from ``ref``, each step against
+    max(|ref|, 1e-3 max |ref|) (a dual trace starts near 0)."""
+    import torch
+    scale = float(ref.abs().max())
+    return float(((obj - ref).abs()
+                  / torch.clamp(ref.abs(), min=1e-3 * scale)).max())
+
+
+def solve_reductions(problem, cfg, backend="sharded"):
+    """(result, reductions counted, launches, K1 and K2 bodies) of one
+    solve, every count set to 0 just before and read just after."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import linalg
+    zero_counts()
+    with linalg.count_reductions() as c:
+        res = api.solve(problem, cfg, backend=backend)
+        torch.cuda.synchronize()
+    bodies = {f"gram {k}": v for k, v in counters()["gram"]
+              .route_launches.items()}
+    bodies.update({f"sa_inner {k}": v for k, v in counters()["sa_inner"]
+                   .route_launches.items()})
+    bodies.update({f"svm_inner {k}": v for k, v in counters()["svm_inner"]
+                   .route_launches.items()})
+    return res, c.n, read_counts(), bodies
+
+
+def check_path(what, reductions, got, bodies, want, want_bodies, outer,
+               say=log):
+    say(f"  {what}: {reductions} reductions (expected {outer}); launches "
+        f"{got}; bodies {bodies}")
+    if reductions != outer:
+        raise AssertionError(f"{what}: {reductions} reductions, expected "
+                             f"{outer}")
+    if got != want or any(bodies[k] != n for k, n in want_bodies.items()):
+        raise AssertionError(f"{what}: launches {got}, bodies {bodies}; "
+                             f"expected {want}, {want_bodies}")
+
+
+def split_solve(owner, attr, problem, cfg, backend, patches):
+    """One more solve through ``api.solve(..., backend=)`` with CUDA events
+    around the callbacks of the program ``owner.attr``, each all-reduce
+    (``linalg.preduce``; with gloo, host staging and the wait for the
+    other ranks included), the end-of-solve gathers and each (owner,
+    attribute, label) of ``patches`` -> (device ms per outer iteration by
+    phase, the traced solve's wall per outer iteration)."""
+    import dataclasses
+    import torch
+    from repro_torch import api
+    from repro_torch.core import linalg
+    timer = PhaseTimer()
+    prog = getattr(owner, attr)
+    wrapped = dataclasses.replace(
+        prog, **{k: timer.wrap(k, getattr(prog, k)) for k in
+                 ("assemble", "reduce", "inner", "defer", "finalize")})
+    patches = list(patches) + [(linalg, "preduce", "all-reduce"),
+                               (linalg, "pgather", "end gathers")]
+    saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
+    setattr(owner, attr, wrapped)
+    for (o, a, label), (_, _, fn) in zip(patches, saved):
+        setattr(o, a, timer.wrap(label, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.solve(problem, cfg, backend=backend)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(owner, attr, prog)
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+    outer = cfg.outer_iterations
+    tot = timer.totals_ms()
+    tot.setdefault("end gathers", 0.0)
+    return {k: v / outer for k, v in tot.items()}, wall / outer * 1e3
+
+
+def epsilon_split(problem, cfg, backend, say=log):
+    from repro_torch.core import engine, sa_lasso
+    from repro_torch.kernels import sa_inner
+    t, wall = split_solve(sa_lasso, "_ACC_PROGRAM", problem, cfg, backend, [
+        (engine, "sample_all", "sample"),
+        (sa_lasso, "gram_local", GRAM_PHASE),
+        (sa_inner, "sa_inner_loop", "sa_inner kernel"),
+        (sa_lasso, "deferred_steps", "deferred GEMVs")])
+    split = {
+        "sample (threefry + sort)": t["sample"],
+        "gather Y = A[:, blocks]": t["assemble"] - t[GRAM_PHASE],
+        GRAM_PHASE: t[GRAM_PHASE],
+        "all-reduce": t.get("all-reduce", 0.0),
+        "reduce rest (G, P views)": t["reduce"] - t.get("all-reduce", 0.0),
+        "sa_inner kernel": t["sa_inner kernel"],
+        "inner rest (gather z, index_add)": t["inner"]
+        - t["sa_inner kernel"],
+        "deferred GEMVs": t["deferred GEMVs"],
+        "defer rest": t["defer"] - t["deferred GEMVs"],
+        "finalize": t["finalize"],
+        "end gathers": t["end gathers"],
+    }
+    say(f"  where the time goes, {backend}, objective untracked (device "
+        f"time per outer iteration; traced solve wall {wall:.4f} ms):")
+    for k, v in split.items():
+        say(f"    {k:36s} {v:.4f} ms")
+
+
+def news20_split(problem, cfg, say):
+    import importlib
+    from repro_torch.core import engine, sparse_exec
+    from repro_torch.kernels import spmm, svm_inner
+    sa_svm = importlib.import_module("repro_torch.core.sa_svm")
+    t, wall = split_solve(sa_svm, "_BDCD_PROGRAM", problem, cfg, "sharded", [
+        (engine, "sample_all", "sample"),
+        (type(problem.A), "gather_rows", "take"),
+        (sparse_exec, "_fused_rhs", "densify"),
+        (spmm, "ell_spmm", "spmm"),
+        (svm_inner, "svm_inner_loop", "svm_inner")])
+    split = {
+        "sample (threefry + sort)": t["sample"],
+        "take (gather ELL rows)": t["take"],
+        "densify D = [Y^T | x]": t["densify"],
+        "spmm kernel": t["spmm"],
+        "assemble rest": t["assemble"] - t["take"] - t["densify"]
+        - t["spmm"],
+        "all-reduce": t["all-reduce"],
+        "reduce rest (+ gamma I)": t["reduce"] - t["all-reduce"],
+        "svm_inner kernel": t["svm_inner"],
+        "inner rest (gather b, alpha)": t["inner"] - t["svm_inner"],
+        "alpha / x updates": t["defer"],
+        "finalize": t["finalize"],
+        "end gathers": t["end gathers"],
+    }
+    say(f"  where the time goes, sharded, objective untracked (device time "
+        f"per outer iteration; traced solve wall {wall:.4f} ms):")
+    for k, v in split.items():
+        say(f"    {k:36s} {v:.4f} ms")
+
+
+def phase_sharded_nccl():
+    """Phase 11 (a): NCCL at world size 1 in this process, on the
+    epsilon Lasso of phase 2."""
+    import dataclasses
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core import distributed, linalg
+
+    log(f"phase 11 (a): sharded backend, NCCL at world size 1, dense Lasso "
+        f"{M_EPS} x {N_EPS} f32, SA-accBCD mu={MU} s={S} H={H}")
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{distributed.free_port()}",
+        world_size=1, rank=0)
+    try:
+        problem = epsilon_problem(seed=0)
+        cfg = api.SolverConfig(block_size=MU, s=S, iterations=H)
+        outer = cfg.outer_iterations
+        want = {"gram": outer, "sa_inner": outer, "spmm": 0,
+                "svm_inner": 0, "flash_attention": 0}
+        want_bodies = {"gram wgmma": outer, "sa_inner warp": outer}
+        res, tracked, got, bodies = solve_reductions(problem, cfg)
+        log(f"  tracked objective: {tracked} reductions (2 per outer "
+            f"iteration: the block and the s squared residual norms; the "
+            f"CPU test's count is {2 * outer})")
+        if tracked != 2 * outer:
+            raise AssertionError(f"tracked solve: {tracked} reductions")
+        x_l, obj_l = LOCAL["epsilon"]
+        same = (torch.equal(res.x.cpu(), x_l),
+                torch.equal(res.objective.cpu(), obj_l))
+        log(f"  x and trace bit-identical to phase 2's local solve: {same}")
+        if not all(same):
+            again = api.solve(problem, cfg)
+            log(f"  (a second local solve repeats phase 2's bits: "
+                f"{torch.equal(again.x.cpu(), x_l)}, "
+                f"{torch.equal(again.objective.cpu(), obj_l)})")
+            raise AssertionError("sharded at world size 1 differs from the "
+                                 "local solve")
+        untracked = dataclasses.replace(cfg, track_objective=False)
+        _, n, got, bodies = solve_reductions(problem, untracked)
+        check_path("untracked solve", n, got, bodies, want, want_bodies,
+                   outer)
+
+        walls = {}
+        for i in range(6):
+            turn = ("local", "sharded") if i % 2 == 0 else ("sharded",
+                                                            "local")
+            for backend in turn:
+                for c in (cfg, untracked):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    api.solve(problem, c, backend=backend)
+                    torch.cuda.synchronize()
+                    walls.setdefault((backend, c.track_objective), []) \
+                        .append((time.perf_counter() - t0) / outer * 1e3)
+        for (backend, track), w in walls.items():
+            log(f"  steady {backend}, objective "
+                f"{'tracked' if track else 'untracked'}: ms per outer "
+                f"iteration {' '.join(f'{v:.4f}' for v in w)} (median "
+                f"{statistics.median(w):.4f})")
+        epsilon_split(problem, untracked, "local")
+        epsilon_split(problem, untracked, "sharded")
+
+        buf = torch.randn(PAYLOAD, device="cuda")
+        group = dist.group.WORLD
+        pairs = []
+        for _ in range(220):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            linalg.preduce(buf, group)
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in pairs[20:]]
+        log(f"  one NCCL all-reduce of the {PAYLOAD} f32 payload "
+            f"({buf.numel() * 4} bytes) through linalg.preduce: median "
+            f"{statistics.median(ms):.4f} ms over {len(ms)} calls (CUDA "
+            f"events around each; min {min(ms):.4f}, max {max(ms):.4f})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            linalg.preduce(buf, group)
+        host = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        back = (time.perf_counter() - t0) / 200 * 1e3
+        dev = device_ms(lambda: linalg.preduce(buf, group))
+        log(f"  the same, 200 back to back: host {host:.4f} ms a call to "
+            f"return, {back:.4f} ms a call to the last one's end; device "
+            f"{fmt_ms(dev)} ms a call (torch.profiler kernel durations)")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_rank(rank, world):
+    """Phase 11 (b), one rank: the epsilon Lasso and the news20.binary
+    SVM at full width, sharded over ``world`` gloo ranks on one card, and
+    a small f64 Lasso. Every rank checks its own launches, reductions and
+    that the replicated state is the same on every rank; rank 0 logs and
+    returns what the parent compares."""
+    import dataclasses
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core import linalg
+    from repro_torch.data.sparse import make_lasso_dataset
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say = log if rank == 0 else (lambda msg: None)
+
+    def everywhere(t):
+        rows = linalg.pgather(t.reshape(1, -1), dist.group.WORLD)
+        return all(torch.equal(r, rows[0]) for r in rows)
+
+    def run(what, problem, cfg, want, want_bodies, replicated, payload,
+            split):
+        outer = cfg.outer_iterations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = api.solve(problem, cfg, backend="sharded")
+        obj = res.objective.cpu()
+        first = (time.perf_counter() - t0) / outer * 1e3
+        untracked = dataclasses.replace(cfg, track_objective=False)
+        _, n, got, bodies = solve_reductions(problem, untracked)
+        check_path(f"{what}, rank {rank}", n, got, bodies, want,
+                   want_bodies, outer, say)
+        same = [everywhere(v) for v in replicated(res) + (res.objective,)]
+        say(f"  {what}: replicated state and trace bit-identical on every "
+            f"rank: {same}")
+        if not all(same):
+            raise AssertionError(f"{what}: replicas differ across ranks")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.solve(problem, untracked, backend="sharded")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / outer * 1e3)
+        split(problem, untracked)
+        buf = torch.randn(payload, device="cuda")
+        lone = []
+        for _ in range(60):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            linalg.preduce(buf, dist.group.WORLD)
+            torch.cuda.synchronize()
+            lone.append((time.perf_counter() - t0) * 1e3)
+        say(f"  {what}: one all-reduce of its {payload} f32 payload alone, "
+            f"the ranks back to back (gloo, host-staged): median "
+            f"{statistics.median(lone[10:]):.4f} ms over 50")
+        say(f"  {what}: ms per outer iteration, first (tracked) "
+            f"{first:.4f}, steady untracked {' '.join(f'{w:.4f}' for w in walls)}"
+            f" (median {statistics.median(walls):.4f})")
+        return obj
+
+    out = {}
+    problem = epsilon_problem(seed=0)
+    cfg = api.SolverConfig(block_size=MU, s=S, iterations=H)
+    outer = cfg.outer_iterations
+    say(f"  epsilon: {M_EPS // world} rows of {M_EPS} per rank")
+    out["epsilon"] = run(
+        "epsilon", problem, cfg,
+        {"gram": outer, "sa_inner": outer, "spmm": 0, "svm_inner": 0,
+         "flash_attention": 0},
+        {"gram wgmma": outer, "sa_inner warp": outer},
+        lambda r: (r.x, r.aux["state"].carry["z"], r.aux["state"].carry["y"]),
+        PAYLOAD, lambda p, c: epsilon_split(p, c, "sharded", say))
+    del problem
+    torch.cuda.empty_cache()
+
+    problem = news20_problem(seed=0)
+    cfg = api.SolverConfig(block_size=1, s=S_SVM, iterations=H_SVM)
+    outer = cfg.outer_iterations
+    say(f"  news20.binary: {-(-N_NEWS // world)} of {N_NEWS} feature "
+        f"columns per rank")
+    out["news20"] = run(
+        "news20.binary", problem, cfg,
+        {"gram": 0, "sa_inner": 0, "spmm": outer, "svm_inner": outer,
+         "flash_attention": 0},
+        {"svm_inner warp": outer},
+        lambda r: (r.aux["alpha"], r.aux["dual"]), (S_SVM, S_SVM + 1),
+        lambda p, c: news20_split(p, c, say))
+    del problem
+    torch.cuda.empty_cache()
+
+    A, b, lam_max = make_lasso_dataset("epsilon-like", seed=0, device="cuda")
+    res = api.solve(api.LassoProblem(A=A, b=b, lam=0.1 * lam_max),
+                    api.SolverConfig(block_size=MU, s=S, iterations=128,
+                                     dtype=torch.float64),
+                    backend="sharded")
+    if not everywhere(res.x):
+        raise AssertionError("f64: x differs across ranks")
+    out["f64"] = (res.x.cpu(), res.objective.cpu())
+    return out
+
+
+def phase_sharded_gloo():
+    """Phase 11 (b): four gloo ranks on the one card (``run_ranks``)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import distributed
+    from repro_torch.data.sparse import make_lasso_dataset
+
+    log(f"phase 11 (b): sharded backend, {P_GLOO} gloo ranks (host-staged "
+        f"all-reduce) on one card: epsilon SA-accBCD mu={MU} s={S} H={H}, "
+        f"news20.binary SVM-L1 SA-BDCD mu=1 s={S_SVM} H={H_SVM}, f64 "
+        f"epsilon-like 8192 x 512")
+    t0 = time.perf_counter()
+    out = distributed.run_ranks(sharded_rank, P_GLOO, "gloo", device="cuda")
+    log(f"  {P_GLOO} ranks done in {time.perf_counter() - t0:.1f} s "
+        f"(start, data made on the card, solves)")
+    for what, key in (("epsilon", "epsilon"), ("news20.binary", "news20")):
+        ref = LOCAL[key][1] if key == "epsilon" else LOCAL[key]
+        obj = out[key]
+        dev = rel_dev(obj, ref)
+        log(f"  {what}: rank 0's trace against phase "
+            f"{2 if key == 'epsilon' else 4}'s local solve: max rel "
+            f"deviation {dev:.3e} (bar 1e-3)")
+        if not (torch.isfinite(obj).all() and dev <= 1e-3):
+            raise AssertionError(f"{what}: sharded trace differs")
+    A, b, lam_max = make_lasso_dataset("epsilon-like", seed=0, device="cpu")
+    cpu = api.solve(api.LassoProblem(A=A, b=b, lam=0.1 * lam_max),
+                    api.SolverConfig(block_size=MU, s=S, iterations=128,
+                                     dtype=torch.float64, device="cpu"))
+    x, obj = out["f64"]
+    dev = float(((obj - cpu.objective).abs() / cpu.objective.abs()).max())
+    dx = float((x - cpu.x).abs().max())
+    log(f"  f64 at P={P_GLOO} against the CPU solve: max rel objective "
+        f"deviation {dev:.3e}, max |dx| {dx:.3e} (bar 1e-8)")
+    if not (dev <= 1e-8 and dx <= 1e-8):
+        raise AssertionError("f64 sharded solve differs from the CPU solve")
 
 
 # ---------------------------------------------------------------------------
@@ -2114,6 +2523,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_f64_sparse()
     torch.cuda.empty_cache()
+    phase_sharded_nccl()
+    torch.cuda.empty_cache()
+    phase_sharded_gloo()
     phase_attention_kernel()
     arch, model = llama_model()
     rows["flash_attention"], fa_launches = phase_prefill(arch, model)

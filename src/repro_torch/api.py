@@ -3,15 +3,21 @@
     from repro_torch import api
     res = api.solve(api.LassoProblem(A=A, b=b, lam=lam),
                     api.SolverConfig(block_size=8, s=16, iterations=512))
+
+Sharded over the ranks of a ``torch.distributed`` process group, every
+rank making the same call:
+
+    res = api.solve(problem, cfg, backend="sharded")   # default group
 """
-from repro_torch.core.api import BACKENDS, families, resolve_family, solve
+from repro_torch.core.api import (BACKENDS, families, resolve_family, solve,
+                                  solve_sharded)
 from repro_torch.core.types import (FAMILIES, LassoProblem, ProblemFamily,
                                     SolveState, SolverConfig, SolverResult,
                                     SparseOperand, SVMProblem,
                                     register_family)
 
 __all__ = [
-    "solve", "resolve_family", "families", "BACKENDS",
+    "solve", "solve_sharded", "resolve_family", "families", "BACKENDS",
     "FAMILIES", "ProblemFamily", "register_family",
     "LassoProblem", "SVMProblem", "SparseOperand",
     "SolverConfig", "SolverResult", "SolveState",

@@ -1,14 +1,22 @@
 """The unified solver facade: ``repro_torch.api.solve(problem, cfg)``
-(the port of ``repro/core/api.py``, local backend).
+(the port of ``repro/core/api.py``).
 
 The family is inferred from the problem's type (plus its ``accepts``
 hook) or forced with ``family="..."``; ``cfg.s`` and ``cfg.accelerated``
 pick the variant inside the family, and ``cfg.device`` where it runs.
+The backend says how: ``"local"`` on one process, ``"sharded"`` split
+over the ranks of a ``torch.distributed`` process group by the family's
+declared partition axis (:func:`solve_sharded`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import torch.distributed as dist
+
+from repro_torch.core import linalg
+from repro_torch.core.sparse_exec import pad_slice, shard_operand
 from repro_torch.core.types import (FAMILIES, ProblemFamily, SolveState,
                                     SolverConfig, SolverResult)
 
@@ -16,7 +24,8 @@ from repro_torch.core.types import (FAMILIES, ProblemFamily, SolveState,
 import repro_torch.core.lasso  # noqa: F401  (registers "lasso")
 import repro_torch.core.svm  # noqa: F401  (registers "svm")
 
-__all__ = ["solve", "resolve_family", "families", "BACKENDS"]
+__all__ = ["solve", "solve_sharded", "resolve_family", "families",
+           "BACKENDS"]
 
 
 def families() -> Tuple[str, ...]:
@@ -47,16 +56,106 @@ def resolve_family(problem=None, family: Optional[object] = None
     return matched[0]
 
 
+def _default_group(group=None):
+    """``group``, or the default process group when it is None; raises
+    ValueError when there is none."""
+    if group is not None:
+        return group
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            "backend='sharded' needs a torch.distributed process group: "
+            "call torch.distributed.init_process_group first (torchrun, or "
+            "repro_torch.core.distributed.run_ranks), or pass group=")
+    return dist.group.WORLD
+
+
+# ---------------------------------------------------------------------------
+# The sharded backend: ONE implementation of the pad/shard/gather plumbing,
+# parameterized by the family's declared partition axis.
+# ---------------------------------------------------------------------------
+
+def solve_sharded(problem, cfg: SolverConfig, group=None,
+                  family: Optional[object] = None, x0=None,
+                  state: Optional[SolveState] = None) -> SolverResult:
+    """Distributed solve of any registered family; every rank of
+    ``group`` (the default process group when None) calls it with the
+    same full problem and config.
+
+    Pads the partitioned axis of A (rows for "row" families, columns for
+    "col") to a multiple of the world size with zeros, which is exact:
+    padded rows or columns add 0 to every Gram and projection block, and
+    their state coordinates stay 0. This rank keeps its block of that
+    axis: a view of a dense A where it needs no padding, or a
+    ``SparseOperand`` of its own with shard-local indices, built on the
+    operand's device. It runs the family's solver on it with
+    ``group=``, so each outer iteration of an SA solve makes one
+    ``linalg.preduce`` of its fused Gram/projection block (a tracked
+    Lasso objective one more), and every rank draws the same blocks from
+    the same seed. At the end the partition-layout outputs (the SVM's x,
+    the Lasso's residual, the state's partition leaves) are gathered
+    once and unpadded; the replicated ones are this rank's own.
+
+    ``state``: a LOGICAL (unpadded) :class:`SolveState` of a previous
+    solve on any world size, sharded as the problem is, so a state saved
+    at one world size resumes on another; the returned
+    ``aux["state"]`` is logical again.
+    """
+    fam = resolve_family(problem, family)
+    group = _default_group(group)
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    axis = 0 if fam.partition == "row" else 1
+    orig = problem.A.shape[axis]
+    size = -(-orig // world)
+    lo = rank * size
+    local = dataclasses.replace(
+        problem, A=shard_operand(problem.A, axis, lo, size),
+        b=pad_slice(problem.b, 0, lo, size) if axis == 0 else problem.b)
+    if x0 is not None and fam.x0_layout == "partition":
+        x0 = pad_slice(x0, 0, lo, size)
+    layout = fam.state_layout(cfg) if fam.state_layout is not None else ()
+    kw = {}
+    if state is not None:
+        if not layout:
+            raise ValueError(f"family {fam.name!r} declares no state_layout"
+                             f" — it cannot resume from a SolveState")
+        kw["state"] = SolveState(int(state.iteration), {
+            name: pad_slice(state.carry[name], 0, lo, size)
+            if lay == "partition" else state.carry[name]
+            for name, lay in layout})
+    res = fam.solve(local, cfg, x0=x0, group=group, **kw)
+
+    def gathered(v):
+        return linalg.pgather(v, group)[:orig]
+
+    partition = {k for k, lay in fam.aux_out if lay == "partition"}
+    aux = {k: gathered(v) if k in partition else v
+           for k, v in res.aux.items() if k != "state"}
+    if layout:
+        st = res.aux["state"]
+        aux["state"] = SolveState(st.iteration, {
+            name: gathered(st.carry[name]) if lay == "partition"
+            else st.carry[name] for name, lay in layout})
+    x = gathered(res.x) if fam.partition == "col" else res.x
+    return SolverResult(x=x, objective=res.objective, aux=aux)
+
+
+# ---------------------------------------------------------------------------
+# The facade.
+# ---------------------------------------------------------------------------
+
 def _local_backend(fam: ProblemFamily, problem, cfg: SolverConfig, *,
-                   x0=None, state=None) -> SolverResult:
+                   group=None, x0=None, state=None) -> SolverResult:
+    if group is not None:
+        raise ValueError("group= is the sharded backend's; pass "
+                         "backend='sharded'")
     kw = {} if state is None else {"state": state}
     return fam.solve(problem, cfg, x0=x0, **kw)
 
 
-def _sharded_backend(fam, problem, cfg, *, x0=None, state=None):
-    raise NotImplementedError(
-        "backend='sharded' is not ported yet: it is the next slice of the "
-        "port (ROADMAP.md, Queue 1, 'Sharded backend' over NCCL)")
+def _sharded_backend(fam: ProblemFamily, problem, cfg: SolverConfig, *,
+                     group=None, x0=None, state=None) -> SolverResult:
+    return solve_sharded(problem, cfg, group, family=fam, x0=x0,
+                         state=state)
 
 
 BACKENDS: Dict[str, Callable] = {
@@ -68,7 +167,8 @@ BACKENDS: Dict[str, Callable] = {
 def solve(problem, cfg: Optional[SolverConfig] = None,
           backend: str = "local", *,
           family: Optional[object] = None, x0=None,
-          state: Optional[SolveState] = None,
+          state: Optional[SolveState] = None, group=None,
+          mesh=None, axes=None,
           tune: Optional[str] = None,
           callbacks: Optional[Sequence[Callable]] = None) -> SolverResult:
     """Solve a registered problem family.
@@ -78,14 +178,23 @@ def solve(problem, cfg: Optional[SolverConfig] = None,
               An SVMProblem with a kernel other than "linear" raises
               NotImplementedError (the kernel-SVM family is not ported).
     cfg:      SolverConfig (defaults to ``SolverConfig()``, on the card).
-    backend:  "local" ("sharded" is a later slice and raises).
+    backend:  "local" (one process) or "sharded" (:func:`solve_sharded`
+              over ``group``; every rank calls it with the same problem).
     family:   optional explicit family name, overriding type inference.
     x0:       optional warm start in the family's iterate space.
     state:    optional :class:`SolveState` from a previous solve's
               ``result.aux["state"]`` (or ``convert.state_from_numpy``)
-              — resumes the full recurrence state; exclusive with x0.
-    tune:     the autotuner is not ported yet; anything but None/"off"
-              raises.
+              — resumes the full recurrence state; exclusive with x0. On
+              the sharded backend it is logical (unpadded), so it may
+              come from a solve on another world size.
+    group:    the sharded backend's ``torch.distributed`` process group;
+              None means the default group, which must be initialised.
+    mesh, axes: ``repro``'s JAX mesh arguments, which have no counterpart
+              here: passing either raises ValueError (a group spans all
+              the ranks it reduces over).
+    tune:     the autotuner is not ported yet: anything but None/"off"
+              raises (ValueError on the sharded backend, as in ``repro``,
+              NotImplementedError on the local one).
     callbacks: callables invoked as ``cb(result)`` after the solve.
     """
     fam = resolve_family(problem, family)
@@ -94,11 +203,19 @@ def solve(problem, cfg: Optional[SolverConfig] = None,
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; registered: {sorted(BACKENDS)}")
+    if mesh is not None or axes is not None:
+        raise ValueError(
+            "mesh=/axes= name a JAX mesh, which the port does not have: "
+            "the sharded backend reduces over a torch.distributed process "
+            "group (group=)")
     if tune not in (None, False, "off"):
+        if backend != "local":
+            raise ValueError("tune= only supports backend='local'")
         raise NotImplementedError(
             "tune= is not ported yet (ROADMAP.md, Queue 1, 'Cost model, "
             "tuner, CLI and benchmarks')")
-    result = BACKENDS[backend](fam, problem, cfg, x0=x0, state=state)
+    result = BACKENDS[backend](fam, problem, cfg, group=group, x0=x0,
+                               state=state)
     for cb in callbacks or ():
         cb(result)
     return result

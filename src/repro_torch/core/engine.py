@@ -68,10 +68,11 @@ def grouped_impl_label(impl_fn, H: int, s: int) -> str:
 # Fused Gram/projection payload helpers.
 # ---------------------------------------------------------------------------
 
-def reduce_gram_proj(local, smu: int, vec_cols: int, axis_name=None,
+def reduce_gram_proj(local, smu: int, vec_cols: int, group=None,
                      symmetric: bool = False):
     """The fused reduction of the LOCAL (smu, smu + k) Gram/projection
-    block -> (G, P), G (smu, smu) and P (smu, k).
+    block -> (G, P), G (smu, smu) and P (smu, k): ONE ``linalg.preduce``
+    over ``group`` (None on one process).
 
     symmetric (``SolverConfig.symmetric_gram``, paper footnote 3): only
     G's lower triangle is packed and reduced, then mirrored — half the
@@ -80,13 +81,13 @@ def reduce_gram_proj(local, smu: int, vec_cols: int, axis_name=None,
         il, jl = torch.tril_indices(smu, smu, device=local.device)
         packed = torch.cat([local[:, :smu][il, jl],
                             local[:, smu:].reshape(-1)])
-        packed = linalg.preduce(packed, axis_name)
+        packed = linalg.preduce(packed, group)
         ntri = il.shape[0]
         G = torch.zeros((smu, smu), dtype=local.dtype, device=local.device)
         G[il, jl] = packed[:ntri]
         G = G + torch.tril(G, -1).T
         return G, packed[ntri:].reshape(smu, vec_cols)
-    out = linalg.preduce(local, axis_name)
+    out = linalg.preduce(local, group)
     return out[:, :smu], out[:, smu:]
 
 
@@ -98,11 +99,11 @@ def gram_local(Y, vecs):
     return gram_fused(Y, vecs)
 
 
-def gram_and_proj(Y, vecs, axis_name=None, symmetric: bool = False):
-    """:func:`gram_local` followed by :func:`reduce_gram_proj`: (G, P);
-    vecs (k, m_loc) as there."""
+def gram_and_proj(Y, vecs, group=None, symmetric: bool = False):
+    """:func:`gram_local` followed by :func:`reduce_gram_proj` over
+    ``group``: (G, P); vecs (k, m_loc) as there."""
     return reduce_gram_proj(gram_local(Y, vecs), Y.shape[1], vecs.shape[0],
-                            axis_name, symmetric)
+                            group, symmetric)
 
 
 def sample_all(key, sampler, start: int, s_grp: int):
@@ -164,9 +165,11 @@ class FamilyProgram:
     ``(sched[start:start+s_grp], sched[start+1:start+s_grp+1])`` or
     None):
 
-    setup(problem, cfg, x0, carry0) -> (ctx, carry)
-        ``ctx.device`` is the solve's device (the RNG keys live there) and
-        ``ctx.sample_width`` the size of the sampled axis.
+    setup(problem, cfg, group, x0, carry0) -> (ctx, carry)
+        ``ctx.device`` is the solve's device (the RNG keys live there),
+        ``ctx.sample_width`` the size of the sampled axis and
+        ``ctx.group`` the process group the payload is reduced over
+        (None on one process).
     sample(ctx, keys (B, 2)) -> (B, mu) blocks
     assemble(ctx, carry, idxs, s_grp) -> (handle, local)
     reduce(ctx, local, idxs, s_grp) -> payload   (the ONE reduction)
@@ -200,11 +203,14 @@ class FamilyProgram:
 
 
 def run_program(prog: FamilyProgram, problem, cfg, x0=None,
-                state=None) -> SolverResult:
-    """Run a :class:`FamilyProgram` over the full grouped schedule."""
+                state=None, group=None) -> SolverResult:
+    """Run a :class:`FamilyProgram` over the full grouped schedule.
+    ``group``: the process group of a sharded solve (``problem`` then
+    holds this rank's shard), None on one process. Every rank draws the
+    same blocks from the same key, so the draws need no collective."""
     carry0 = resume_carry(state, x0, prog.name)
     h0 = 0 if state is None else int(state.iteration)
-    ctx, carry = prog.setup(problem, cfg, x0, carry0)
+    ctx, carry = prog.setup(problem, cfg, group, x0, carry0)
     key = rng.key(cfg.seed, rng.bits_for(cfg.dtype), ctx.device)
     s, H = cfg.s, cfg.iterations
     sched = None if prog.schedule is None \

@@ -1,7 +1,14 @@
 """Classical (synchronous) coordinate-descent solvers for proximal
 least-squares — paper Algorithm 1 and its non-accelerated /
 single-coordinate variants (accBCD, BCD, accCD, CD). The port of
-``repro/core/lasso.py``, one process, dense or sparse operands.
+``repro/core/lasso.py``, dense or sparse operands.
+
+Two execution modes, as in ``repro``:
+
+* one process: ``group=None``, A is the full (m, n) matrix;
+* sharded (``repro_torch.core.api.solve_sharded``): A, b and the
+  residuals are this rank's rows; x is replicated, and every (mu, mu + 1)
+  Gram/projection block is summed over ``group`` by ``linalg.preduce``.
 
 These are the in-port oracle the SA solvers are held to (SA and
 classical draw the same blocks and agree in exact arithmetic). Each
@@ -84,9 +91,12 @@ def _prep(problem: LassoProblem, cfg: SolverConfig):
     return A, b, n, mu, q, sampler, prox, device
 
 
-def _objective(residual, x, problem):
-    """1/2 ||residual||^2 + g(x), over the last axis."""
-    return 0.5 * torch.sum(residual * residual, dim=-1) \
+def _objective(residual, x, problem, group=None):
+    """1/2 ||residual||^2 + g(x), over the last axis; the squared norms of
+    a row-sharded residual (one per leading index) are summed over
+    ``group`` in one reduction."""
+    quad = linalg.preduce(torch.sum(residual * residual, dim=-1), group)
+    return 0.5 * quad \
         + prox_lib.reg_value(x, problem.lam, problem.l2, problem.groups)
 
 
@@ -103,11 +113,14 @@ def _draws(cfg, sampler, device, start: int, n: int):
 # ---------------------------------------------------------------------------
 
 def bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
-              state: Optional[SolveState] = None) -> SolverResult:
+              state: Optional[SolveState] = None,
+              group=None) -> SolverResult:
     """Classical (non-accelerated) randomized block coordinate descent.
 
     x0: optional warm start; state: optional :class:`SolveState` carrying
-    x and the residual plus the global iteration offset."""
+    x and the residual plus the global iteration offset; group: the
+    process group of a row-sharded solve (one reduction per iteration,
+    two with the objective tracked)."""
     A, b, n, mu, q, sampler, prox, device = _prep(problem, cfg)
     block_gram, block_apply = col_block_ops(A)
     carry0 = resume_carry(state, x0, "bcd_lasso")
@@ -123,7 +136,8 @@ def bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
         r = operand_matvec(A, x) - b
     objs = []
     for idx in _draws(cfg, sampler, device, start, n):
-        Ah, GR = block_gram(idx, r[:, None])
+        Ah, local = block_gram(idx, r[:, None])
+        GR = linalg.preduce(local, group)
         G, rh = GR[:, :mu], GR[:, mu]
         v = linalg.power_iteration_max_eig(G, cfg.power_iters)
         eta = 1.0 / linalg.floor_eig(v)
@@ -131,7 +145,8 @@ def bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
         dx = prox(g, eta) - x[idx]
         x = x.index_add(0, idx, dx)
         r = r + block_apply(Ah, dx)
-        objs.append(_objective(r, x, problem) if cfg.track_objective
+        objs.append(_objective(r, x, problem, group)
+                    if cfg.track_objective
                     else torch.zeros((), dtype=cfg.dtype, device=device))
     return SolverResult(
         x=x, objective=torch.stack(objs),
@@ -146,12 +161,14 @@ def bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
 # ---------------------------------------------------------------------------
 
 def acc_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
-                  state: Optional[SolveState] = None) -> SolverResult:
+                  state: Optional[SolveState] = None,
+                  group=None) -> SolverResult:
     """Paper Algorithm 1: accelerated block coordinate descent for Lasso.
 
     State: z, y in R^n, ztil = Az - b, ytil = Ay in R^m; the iterate
     x_h = theta_h^2 y_h + z_h is implicit. x0 seeds z (y restarts at 0);
-    state resumes z, y, ztil, ytil and the theta schedule."""
+    state resumes z, y, ztil, ytil and the theta schedule; group as in
+    :func:`bcd_lasso` (z, y replicated, ztil, ytil row-sharded)."""
     A, b, n, mu, q, sampler, prox, device = _prep(problem, cfg)
     block_gram, block_apply = col_block_ops(A)
     H = cfg.iterations
@@ -178,7 +195,8 @@ def acc_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
     for i, idx in enumerate(_draws(cfg, sampler, device, start, n)):
         th_prev, th_cur = thetas[start + i], thetas[start + i + 1]
         w = th_prev * th_prev * ytil + ztil
-        Ah, GR = block_gram(idx, w[:, None])                # lines 8-9
+        Ah, local = block_gram(idx, w[:, None])             # lines 8-9
+        GR = linalg.preduce(local, group)
         G, rh = GR[:, :mu], GR[:, mu]
         v = linalg.power_iteration_max_eig(G, cfg.power_iters)   # line 10
         eta = 1.0 / linalg.floor_eig(q * th_prev * v)     # line 11
@@ -192,7 +210,8 @@ def acc_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
         ytil = ytil - coef * Adz                          # line 17
         if cfg.track_objective:
             objs.append(_objective(th_cur * th_cur * ytil + ztil,
-                                   th_cur * th_cur * y + z, problem))
+                                   th_cur * th_cur * y + z, problem,
+                                   group))
         else:
             objs.append(torch.zeros((), dtype=cfg.dtype, device=device))
     thH = thetas[-1]
@@ -206,28 +225,30 @@ def acc_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
 
 
 def cd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
-             state: Optional[SolveState] = None) -> SolverResult:
+             state: Optional[SolveState] = None,
+             group=None) -> SolverResult:
     """CD = BCD with mu = 1."""
     require_unit_block(cfg, "cd_lasso")
-    return bcd_lasso(problem, cfg, x0, state)
+    return bcd_lasso(problem, cfg, x0, state, group)
 
 
 def acc_cd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
-                 state: Optional[SolveState] = None) -> SolverResult:
+                 state: Optional[SolveState] = None,
+                 group=None) -> SolverResult:
     """accCD = accBCD with mu = 1."""
     require_unit_block(cfg, "acc_cd_lasso")
-    return acc_bcd_lasso(problem, cfg, x0, state)
+    return acc_bcd_lasso(problem, cfg, x0, state, group)
 
 
-def lasso_objective(problem: LassoProblem, x):
+def lasso_objective(problem: LassoProblem, x, group=None):
     """Direct objective evaluation 1/2 ||Ax - b||^2 + g(x), in A's dtype
-    on A's device."""
+    on A's device (A and b this rank's rows when ``group`` is given)."""
     A = problem.A if isinstance(problem.A, SparseOperand) \
         else torch.as_tensor(problem.A)
     x = torch.as_tensor(x).to(device=A.device, dtype=A.dtype)
     residual = operand_matvec(A, x) \
         - torch.as_tensor(problem.b).to(A.device, A.dtype)
-    return _objective(residual, x, problem)
+    return _objective(residual, x, problem, group)
 
 
 def _cli_problem(args):
@@ -249,6 +270,10 @@ def _cli_describe(args, res, elapsed: float) -> str:
 @register_family(
     "lasso",
     problem_cls=LassoProblem,
+    partition="row",
+    default_axes="data",
+    x0_layout="replicated",
+    aux_out=(("residual", "partition"),),
     variants={
         "classical": "repro_torch.core.lasso:bcd_lasso",
         "accelerated": "repro_torch.core.lasso:acc_bcd_lasso",
@@ -266,12 +291,13 @@ def _cli_describe(args, res, elapsed: float) -> str:
         (("x", "replicated"), ("residual", "partition"))),
 )
 def solve_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
-                state=None) -> SolverResult:
-    """Dispatch on (accelerated, s): s == 1 -> this module; s > 1 -> SA."""
+                state=None, group=None) -> SolverResult:
+    """Dispatch on (accelerated, s): s == 1 -> this module; s > 1 -> SA.
+    ``group``: the process group of a row-sharded solve."""
     if cfg.s > 1:
         from repro_torch.core import sa_lasso
         fn = (sa_lasso.sa_acc_bcd_lasso if cfg.accelerated
               else sa_lasso.sa_bcd_lasso)
     else:
         fn = acc_bcd_lasso if cfg.accelerated else bcd_lasso
-    return fn(problem, cfg, x0, state)
+    return fn(problem, cfg, x0, state, group)

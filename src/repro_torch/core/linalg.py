@@ -2,8 +2,12 @@
 (the port of ``repro/core/linalg.py``)."""
 from __future__ import annotations
 
+import contextlib
+import types
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import rng
 
@@ -71,11 +75,52 @@ def sample_group(keys, n_groups: int, group_size: int, bits: int = 32):
         + torch.arange(group_size, device=keys.device)
 
 
-def preduce(x, axis_name=None):
-    """The all-reduce seam: identity on one process (the sharded backend
-    comes in a later slice)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "sharded reduction is not ported yet (ROADMAP Queue 1, "
-            "sharded backend)")
+_OPEN_COUNTS = []     # the counters of the open count_reductions blocks
+
+
+@contextlib.contextmanager
+def count_reductions():
+    """Count the all-reduces made inside the ``with`` block:
+
+        with linalg.count_reductions() as c:
+            api.solve(problem, cfg, backend="sharded")
+        c.n   # ceil(H/s) for an SA solve with track_objective=False
+
+    Only :func:`preduce` adds to it (once per ``all_reduce`` it calls);
+    :func:`pgather` does not."""
+    c = types.SimpleNamespace(n=0)
+    _OPEN_COUNTS.append(c)
+    try:
+        yield c
+    finally:
+        _OPEN_COUNTS.remove(c)
+
+
+def preduce(x, group=None):
+    """The all-reduce seam: the sum of ``x`` over the ranks of ``group``
+    (a ``torch.distributed`` process group), or ``x`` itself when
+    ``group`` is None. The one ``all_reduce`` call site of the port.
+
+    A contiguous ``x`` is reduced in place and returned; any other view
+    (``all_reduce`` takes only dense tensors) is copied first."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    for c in _OPEN_COUNTS:
+        c.n += 1
     return x
+
+
+def pgather(x, group=None):
+    """The partition-layout gather: every rank's ``x`` (the same shape on
+    each) concatenated along the first axis in rank order, or ``x``
+    itself when ``group`` is None. The sharded backend calls it once per
+    output at the end of a solve; it is not a reduction and is not
+    counted."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts)

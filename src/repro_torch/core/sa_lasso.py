@@ -7,7 +7,9 @@ operands).
 Per outer iteration: sample s blocks, build ONE (s mu) x (s mu + k)
 Gram/projection block Y^T [Y | vecs], run the s dependent inner updates
 on it, then apply the deferred m-dimensional updates as one product.
-The iterate sequence is Algorithm 1's in exact arithmetic.
+The iterate sequence is Algorithm 1's in exact arithmetic. Sharded by
+rows (``group`` given), the block is the one all-reduce of the outer
+iteration; a tracked objective adds one more, of its s squared norms.
 
 On a card the hot spots are hand-written kernels:
   * ``repro_torch.kernels.gram``     — the fused  Y^T [Y | ytil | ztil]
@@ -37,13 +39,13 @@ from repro_torch.core.types import (LassoProblem, SolveState, SolverConfig,
 from repro_torch.kernels import sa_inner
 
 
-def _lasso_ctx(problem, cfg):
+def _lasso_ctx(problem, cfg, group):
     A, b, n, mu, q, sampler, prox, device = _prep(problem, cfg)
     return Ctx(A=A, b=b, n=n, mu=mu, q=q, sampler=sampler, prox=prox,
                sparse=isinstance(A, SparseOperand),
                block_gram=col_block_ops(A)[0],
                m_loc=A.shape[0], problem=problem, cfg=cfg, device=device,
-               sample_width=n,
+               sample_width=n, group=group,
                group_lasso=problem.groups is not None)
 
 
@@ -64,7 +66,7 @@ def _lasso_assemble(ctx, vecs, idxs, s_grp):
 
 
 def _lasso_reduce(ctx, local, s_grp, vec_cols):
-    return reduce_gram_proj(local, s_grp * ctx.mu, vec_cols, None,
+    return reduce_gram_proj(local, s_grp * ctx.mu, vec_cols, ctx.group,
                             ctx.cfg.symmetric_gram)
 
 
@@ -79,8 +81,8 @@ def _stepped(x, idxs, buf, s_grp, n):
 # SA-BCD (non-accelerated): r_j = A_j^T r_sk + sum_{t<j} G[j,t] dx_t
 # ---------------------------------------------------------------------------
 
-def _bcd_setup(problem, cfg, x0, carry0):
-    ctx = _lasso_ctx(problem, cfg)
+def _bcd_setup(problem, cfg, group, x0, carry0):
+    ctx = _lasso_ctx(problem, cfg, group)
     if carry0 is not None:
         x = as_vector(carry0["x"], cfg, ctx.device)
         r = as_vector(carry0["residual"], cfg, ctx.device)
@@ -134,7 +136,7 @@ def _bcd_defer(ctx, carry, handle, dx_buf, payload, idxs, win, s):
         dfull = _stepped(x, idxs, dx_buf, s, ctx.n)
         x_steps = (x - torch.sum(dfull, 0))[None, :] \
             + torch.cumsum(dfull, dim=0)
-        objs = _objective(r_steps, x_steps, ctx.problem)
+        objs = _objective(r_steps, x_steps, ctx.problem, ctx.group)
     else:
         objs = torch.zeros(s, dtype=cfg.dtype, device=ctx.device)
     return (x, r_new), objs
@@ -154,16 +156,17 @@ _BCD_PROGRAM = FamilyProgram(
 
 
 def sa_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
-                 state: Optional[SolveState] = None) -> SolverResult:
-    return run_program(_BCD_PROGRAM, problem, cfg, x0, state)
+                 state: Optional[SolveState] = None,
+                 group=None) -> SolverResult:
+    return run_program(_BCD_PROGRAM, problem, cfg, x0, state, group)
 
 
 # ---------------------------------------------------------------------------
 # SA-accBCD — paper Algorithm 2.
 # ---------------------------------------------------------------------------
 
-def _acc_setup(problem, cfg, x0, carry0):
-    ctx = _lasso_ctx(problem, cfg)
+def _acc_setup(problem, cfg, group, x0, carry0):
+    ctx = _lasso_ctx(problem, cfg, group)
     if carry0 is not None:
         z = as_vector(carry0["z"], cfg, ctx.device)
         y = as_vector(carry0["y"], cfg, ctx.device)
@@ -269,7 +272,7 @@ def _acc_defer(ctx, carry, handle, dz_buf, payload, idxs, win, s):
             - torch.cumsum(coefU[:, None] * dz_full, dim=0)
         th2 = (th_cur * th_cur)[:, None]
         objs = _objective(th2 * ytil_steps + ztil_steps,
-                          th2 * y_steps + z_steps, ctx.problem)
+                          th2 * y_steps + z_steps, ctx.problem, ctx.group)
     else:
         objs = torch.zeros(s, dtype=cfg.dtype, device=ctx.device)
     return (z, y, ztil_new, ytil_new), objs
@@ -292,15 +295,16 @@ _ACC_PROGRAM = FamilyProgram(
 
 
 def sa_acc_bcd_lasso(problem: LassoProblem, cfg: SolverConfig, x0=None,
-                     state: Optional[SolveState] = None) -> SolverResult:
-    return run_program(_ACC_PROGRAM, problem, cfg, x0, state)
+                     state: Optional[SolveState] = None,
+                     group=None) -> SolverResult:
+    return run_program(_ACC_PROGRAM, problem, cfg, x0, state, group)
 
 
-def sa_cd_lasso(problem, cfg, x0=None, state=None):
+def sa_cd_lasso(problem, cfg, x0=None, state=None, group=None):
     require_unit_block(cfg, "sa_cd_lasso")
-    return sa_bcd_lasso(problem, cfg, x0, state)
+    return sa_bcd_lasso(problem, cfg, x0, state, group)
 
 
-def sa_acc_cd_lasso(problem, cfg, x0=None, state=None):
+def sa_acc_cd_lasso(problem, cfg, x0=None, state=None, group=None):
     require_unit_block(cfg, "sa_acc_cd_lasso")
-    return sa_acc_bcd_lasso(problem, cfg, x0, state)
+    return sa_acc_bcd_lasso(problem, cfg, x0, state, group)

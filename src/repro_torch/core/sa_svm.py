@@ -9,7 +9,9 @@ add gamma I, run the s dependent block updates on it through the
 ``svm_inner`` kernel (lines 11-20), then apply the deferred primal update
 x += Y^T (b * theta) in one product. The iterates are those of
 ``core.svm.bdcd_svm`` in exact arithmetic; row ids repeating across the s
-blocks are corrected inside the inner loop.
+blocks are corrected inside the inner loop. Sharded by columns (``group``
+given), the fused block is the one all-reduce of the outer iteration;
+alpha and the tracked dual are replicated and need no other.
 """
 from __future__ import annotations
 
@@ -30,15 +32,17 @@ from repro_torch.core.types import (SVMProblem, SolveState, SolverConfig,
 from repro_torch.kernels import svm_inner
 
 
-def _svm_setup(problem, cfg, alpha0, carry0):
+def _svm_setup(problem, cfg, group, alpha0, carry0):
     A, b, device = svm_operands(problem, cfg)
     take, gram, _, apply_t = row_block_ops(A)
     ctx = Ctx(A=A, b=b, m=A.shape[0], mu=cfg.block_size,
               gamma=float(problem.gamma), nu=float(problem.nu),
               sparse=isinstance(A, SparseOperand), take=take, gram=gram,
               apply_t=apply_t, cfg=cfg, device=device,
-              sample_width=A.shape[0], bits=rng.bits_for(cfg.dtype))
-    return ctx, svm_start(A, b, cfg, problem, alpha0, carry0, device)
+              sample_width=A.shape[0], bits=rng.bits_for(cfg.dtype),
+              group=group)
+    return ctx, svm_start(A, b, cfg, problem, alpha0, carry0, device,
+                          group)
 
 
 def _svm_sample(ctx, keys):
@@ -56,7 +60,8 @@ def _svm_assemble(ctx, carry, idxs, s_grp):
 
 def _svm_reduce(ctx, local, idxs, s_grp):
     smu = s_grp * ctx.mu
-    Graw, P = reduce_gram_proj(local, smu, 1, None, ctx.cfg.symmetric_gram)
+    Graw, P = reduce_gram_proj(local, smu, 1, ctx.group,
+                               ctx.cfg.symmetric_gram)
     G = Graw + ctx.gamma * torch.eye(smu, dtype=ctx.cfg.dtype,
                                      device=ctx.device)   # line 9
     return G, P[:, 0].reshape(s_grp, ctx.mu)             # line 10: Y x_sk
@@ -98,14 +103,16 @@ _BDCD_PROGRAM = FamilyProgram(
 
 
 def sa_bdcd_svm(problem: SVMProblem, cfg: SolverConfig, alpha0=None,
-                state: Optional[SolveState] = None) -> SolverResult:
+                state: Optional[SolveState] = None,
+                group=None) -> SolverResult:
     """s-step unrolled BDCD: the iterates of ``bdcd_svm`` in exact
     arithmetic, one fused Gram/projection block per s inner iterations."""
-    return run_program(_BDCD_PROGRAM, problem, cfg, alpha0, state)
+    return run_program(_BDCD_PROGRAM, problem, cfg, alpha0, state, group)
 
 
 def sa_svm(problem: SVMProblem, cfg: SolverConfig, alpha0=None,
-           state: Optional[SolveState] = None) -> SolverResult:
+           state: Optional[SolveState] = None,
+           group=None) -> SolverResult:
     """Paper Algorithm 4: the block_size = 1 case of sa_bdcd_svm."""
     require_unit_block(cfg, "sa_svm")
-    return sa_bdcd_svm(problem, cfg, alpha0, state)
+    return sa_bdcd_svm(problem, cfg, alpha0, state, group)

@@ -42,6 +42,35 @@ def prep_operand(A, dtype, device):
     return A
 
 
+def pad_slice(t, axis: int, lo: int, size: int):
+    """The block [lo, lo + size) of tensor (or array) ``t`` along ``axis``,
+    zero-padded past its end (the padding rule of ``repro``'s sharded
+    backend, ``_pad_to``): a view of ``t`` where no padding is needed."""
+    t = torch.as_tensor(t)
+    end = t.shape[axis]
+    have = max(0, min(size, end - lo))
+    part = t.narrow(axis, min(lo, end), have)
+    if have == size:
+        return part
+    pad = list(t.shape)
+    pad[axis] = size - have
+    return torch.cat([part, t.new_zeros(pad)], dim=axis)
+
+
+def shard_operand(A, axis: int, lo: int, size: int):
+    """A rank's shard of the data matrix: the block [lo, lo + size) of A
+    along ``axis`` (0: rows, 1: columns), zero-padded past A's end —
+    ``SparseOperand.shard`` for a sparse A (shard-local indices; padded
+    rows or columns store nothing), :func:`pad_slice` for a dense one."""
+    if isinstance(A, SparseOperand):
+        return A.shard(axis, lo, size)
+    A = torch.as_tensor(A)
+    if A.dim() != 2:
+        raise ValueError(f"A must be an (m, n) matrix; got shape "
+                         f"{tuple(A.shape)}")
+    return pad_slice(A, axis, lo, size)
+
+
 def _fused_rhs(idx, vals, size: int, vecs):
     """[densified gathered rows | vecs]: (size, r + k), written in place."""
     r = idx.shape[0]

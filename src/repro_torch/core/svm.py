@@ -1,7 +1,10 @@
 """(Block) dual coordinate descent for linear SVM — paper Algorithm 3 and
 its block generalization BDCD, for hinge (SVM-L1) and squared-hinge
-(SVM-L2) losses. The port of ``repro/core/svm.py``, one process, dense or
-sparse operands.
+(SVM-L2) losses. The port of ``repro/core/svm.py``, dense or sparse
+operands, on one process or sharded by columns: with ``group`` given, A
+holds this rank's features, x is its slice of the primal vector, alpha
+and the dual are replicated, and each fused block is summed over
+``group`` by ``linalg.preduce``.
 
 Per iteration: sample a block B of mu rows, form the fused (mu, mu + 1)
 block  Y [Y^T | x]  (block Gram plus projection; for a sparse A through
@@ -49,26 +52,31 @@ def _on_operand(problem: SVMProblem, v):
             torch.as_tensor(problem.b).to(device=A.device, dtype=A.dtype))
 
 
-def primal_objective(problem: SVMProblem, x):
+def primal_objective(problem: SVMProblem, x, group=None):
     """P(x) = 1/2 ||x||^2 + lam * sum_i loss(1 - b_i A_i x), in A's dtype
-    on A's device."""
+    on A's device. Sharded by columns, the margins A x and ||x||^2 are
+    each summed over ``group``."""
     A, x, b = _on_operand(problem, x)
-    xi = torch.clamp(1.0 - b * operand_matvec(A, x), min=0.0)
+    margins = linalg.preduce(operand_matvec(A, x), group)
+    xi = torch.clamp(1.0 - b * margins, min=0.0)
     loss = torch.sum(xi) if problem.loss == "l1" else torch.sum(xi * xi)
-    return 0.5 * torch.sum(x * x) + problem.lam * loss
+    sq = linalg.preduce(torch.sum(x * x), group)
+    return 0.5 * sq + problem.lam * loss
 
 
-def dual_objective(problem: SVMProblem, alpha):
+def dual_objective(problem: SVMProblem, alpha, group=None):
     """f_D(alpha) = 1/2 alpha^T Qbar alpha - e^T alpha (direct)."""
     A, alpha, b = _on_operand(problem, alpha)
     w = operand_rmatvec(A, b * alpha)
-    return 0.5 * torch.sum(w * w) \
+    quad = linalg.preduce(torch.sum(w * w), group)
+    return 0.5 * quad \
         + 0.5 * problem.gamma * torch.sum(alpha * alpha) - torch.sum(alpha)
 
 
-def duality_gap(problem: SVMProblem, x, alpha):
+def duality_gap(problem: SVMProblem, x, alpha, group=None):
     """P(x) + f_D(alpha) >= 0, == 0 at the optimum."""
-    return primal_objective(problem, x) + dual_objective(problem, alpha)
+    return primal_objective(problem, x, group) \
+        + dual_objective(problem, alpha, group)
 
 
 def svm_operands(problem: SVMProblem, cfg: SolverConfig):
@@ -80,10 +88,11 @@ def svm_operands(problem: SVMProblem, cfg: SolverConfig):
     return A, b, device
 
 
-def svm_start(A, b, cfg, problem, alpha0, carry0, device):
+def svm_start(A, b, cfg, problem, alpha0, carry0, device, group=None):
     """The initial (alpha, x, dual): restored verbatim from a state, or
     alpha0 (zeros by default) with x = A^T (b alpha) and the dual tracked
-    from f_D(alpha0) (zero at alpha0 = 0)."""
+    from f_D(alpha0) (zero at alpha0 = 0; a warm start's ||x||^2 is one
+    reduction over ``group``)."""
     if carry0 is not None:
         return tuple(torch.as_tensor(carry0[k]).to(
             device=device, dtype=cfg.dtype, copy=True)
@@ -95,25 +104,30 @@ def svm_start(A, b, cfg, problem, alpha0, carry0, device):
     x = operand_rmatvec(A, b * alpha)                  # line 2
     dual = torch.zeros((), dtype=cfg.dtype, device=device) \
         if alpha0 is None else (
-            0.5 * torch.sum(x * x) + 0.5 * problem.gamma
+            0.5 * linalg.preduce(torch.sum(x * x), group)
+            + 0.5 * problem.gamma
             * torch.sum(alpha * alpha) - torch.sum(alpha))
     return alpha, x, dual
 
 
 def bdcd_svm(problem: SVMProblem, cfg: SolverConfig, alpha0=None,
-             state: Optional[SolveState] = None) -> SolverResult:
+             state: Optional[SolveState] = None,
+             group=None) -> SolverResult:
     """Block dual coordinate descent (BDCD) for linear SVM; mu =
     cfg.block_size = 1 is paper Algorithm 3.
 
     alpha0: optional warm start of the dual; state: optional
-    :class:`SolveState` carrying alpha, x and the running dual."""
+    :class:`SolveState` carrying alpha, x and the running dual; group:
+    the process group of a column-sharded solve (one reduction per
+    iteration)."""
     A, b, device = svm_operands(problem, cfg)
     take, gram, _, apply_t = row_block_ops(A)
     m, mu = A.shape[0], cfg.block_size
     gamma, nu = float(problem.gamma), float(problem.nu)
     carry0 = resume_carry(state, alpha0, "bdcd_svm")
     start = 0 if state is None else int(state.iteration)
-    alpha, x, dual = svm_start(A, b, cfg, problem, alpha0, carry0, device)
+    alpha, x, dual = svm_start(A, b, cfg, problem, alpha0, carry0, device,
+                               group)
     eye_mu = torch.eye(mu, dtype=cfg.dtype, device=device)
     bits = rng.bits_for(cfg.dtype)
     key = rng.key(cfg.seed, bits, device)
@@ -124,7 +138,7 @@ def bdcd_svm(problem: SVMProblem, cfg: SolverConfig, alpha0=None,
         for idx in batch:
             Y = take(idx)
             b_B = b[idx]
-            red = gram(Y, x[:, None])                   # Y [Y^T | x]
+            red = linalg.preduce(gram(Y, x[:, None]), group)  # Y [Y^T|x]
             G = red[:, :mu] + gamma * eye_mu            # line 7 (block)
             a_B = alpha[idx]
             g = b_B * red[:, mu] - 1.0 + gamma * a_B    # line 8 (block)
@@ -150,10 +164,11 @@ def bdcd_svm(problem: SVMProblem, cfg: SolverConfig, alpha0=None,
 
 
 def dcd_svm(problem: SVMProblem, cfg: SolverConfig, alpha0=None,
-            state: Optional[SolveState] = None) -> SolverResult:
+            state: Optional[SolveState] = None,
+            group=None) -> SolverResult:
     """Paper Algorithm 3: the block_size = 1 special case of bdcd_svm."""
     require_unit_block(cfg, "dcd_svm")
-    return bdcd_svm(problem, cfg, alpha0, state)
+    return bdcd_svm(problem, cfg, alpha0, state, group)
 
 
 def _cli_problem(args):
@@ -173,6 +188,10 @@ def _cli_describe(args, res, elapsed: float) -> str:
 @register_family(
     "svm",
     problem_cls=SVMProblem,
+    partition="col",
+    default_axes="model",
+    x0_layout="replicated",
+    aux_out=(("alpha", "replicated"),),
     variants={
         "classical": "repro_torch.core.svm:bdcd_svm",
         "sa": "repro_torch.core.sa_svm:sa_bdcd_svm",
@@ -185,12 +204,13 @@ def _cli_describe(args, res, elapsed: float) -> str:
                               ("dual", "replicated")),
 )
 def solve_svm(problem: SVMProblem, cfg: SolverConfig, x0=None,
-              state=None) -> SolverResult:
+              state=None, group=None) -> SolverResult:
     """Dispatch on cfg.s: s == 1 -> bdcd_svm, s > 1 -> SA-BDCD. x0 is a
-    warm start of the dual alpha. A kernel other than "linear" raises
-    (the kernel-SVM family is a later slice)."""
+    warm start of the dual alpha; ``group`` the process group of a
+    column-sharded solve. A kernel other than "linear" raises (the
+    kernel-SVM family is a later slice)."""
     require_linear(problem)
     if cfg.s > 1:
         from repro_torch.core.sa_svm import sa_bdcd_svm
-        return sa_bdcd_svm(problem, cfg, x0, state)
-    return bdcd_svm(problem, cfg, x0, state)
+        return sa_bdcd_svm(problem, cfg, x0, state, group)
+    return bdcd_svm(problem, cfg, x0, state, group)

@@ -184,6 +184,27 @@ class SparseOperand:
         return (self.row_cols[idx], self.row_vals[idx],
                 self.row_blocks[idx])
 
+    def shard(self, axis: int, lo: int, size: int) -> "SparseOperand":
+        """This operand's slice [lo, lo + size) along ``axis`` (0: rows,
+        1: columns) as an operand of its own, with shard-local indices
+        and every ELL array rebuilt at the shard's own widths, on the
+        operand's device. Positions past the end of the axis are empty
+        (the zero padding of a sharded solve: they store no entry and
+        change no sum). Stored zeros are dropped, as ``host_coo`` does."""
+        rows, slots = torch.nonzero(self.row_vals, as_tuple=True)
+        cols = self.row_cols[rows, slots].to(torch.int64)
+        vals = self.row_vals[rows, slots]
+        part = rows if axis == 0 else cols
+        keep = (part >= lo) & (part < lo + size)
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+        m, n = self.shape
+        if axis == 0:
+            rows, shape = rows - lo, (size, n)
+        else:
+            cols, shape = cols - lo, (m, size)
+        return SparseOperand.from_coo(rows, cols, vals, shape,
+                                      ell_block=self.ell_block)
+
     def host_coo(self):
         """COO triplets as host numpy arrays, from the row-major ELL
         arrays; stored zeros are dropped (they contribute nothing)."""
@@ -283,8 +304,22 @@ class ProblemFamily:
     """A registered problem family.
 
     solve:      the family's variant-dispatching entry point
-                ``fn(problem, cfg, x0=None, state=None) -> SolverResult``.
+                ``fn(problem, cfg, x0=None, state=None, group=None)
+                -> SolverResult``; ``group`` is the process group of a
+                sharded solve, whose ``problem`` is this rank's shard.
     variants:   variant name -> "module.path:function" (resolved lazily).
+    partition:  which axis of A the sharded backend partitions — "row"
+                (Lasso: data points sharded, solutions replicated) or
+                "col" (SVM: features sharded, R^m state replicated).
+    default_axes: the name of the mesh dimension the partition spans
+                ("data" for rows, "model" for columns), as ``repro``
+                names it; the sharded backend reduces over every rank of
+                the group it is given.
+    x0_layout:  how a warm start vector is laid out when sharded —
+                "replicated" (Lasso x, SVM alpha) or "partition".
+    aux_out:    ``(aux_key, layout)`` pairs of ``SolverResult.aux``
+                vectors; the sharded backend gathers and unpads the
+                "partition" ones and passes the "replicated" ones on.
     accepts:    optional tie-break predicate when several families share a
                 problem dataclass.
     objective:  direct objective evaluation ``fn(problem, x)``.
@@ -301,6 +336,10 @@ class ProblemFamily:
     problem_cls: type
     solve: Callable
     variants: Mapping[str, str]
+    partition: str = "row"
+    default_axes: str = "data"
+    x0_layout: str = "replicated"
+    aux_out: Tuple[Tuple[str, str], ...] = ()
     accepts: Optional[Callable] = None
     objective: Optional[Callable] = None
     make_problem: Optional[Callable] = None

@@ -156,7 +156,8 @@ def test_facade_refuses_unported_paths(lasso_data):
     A, b, lam = lasso_data
     prob = api.LassoProblem(A=A, b=b, lam=lam)
     cfg = _cfg(8, s=4, mu=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the sharded backend needs a torch.distributed process group
+    with pytest.raises(ValueError, match="process group"):
         api.solve(prob, cfg, backend="sharded")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.solve(prob, cfg, tune="auto")
