@@ -106,11 +106,36 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    ceil(H/s) all-reduces untracked, and that x (alpha) and the trace are
    the same bits on every rank; rank 0's traces hold to phases 2 and
    4's local solves within rel 1e-3, the f64 solve to the CPU within
-   1e-8.
+   1e-8. Part (a) also runs phase 12's three families at NCCL world
+   size 1: ceil(H/s) all-reduces untracked (tracked: the same for ksvm
+   and logreg, twice for CA-SFISTA), their launches, and the trace and
+   vectors against phase 12's local solve bit for bit (where the local
+   solve does not repeat its own bits, the atomic adds of its scatters,
+   within rel 1e-5, and the log says so);
+12. (run after phase 6) drives the other solver families at full width:
+   ``api.solve`` on the news20.binary data of phase 4 as a kernel SVM
+   (SA-K-BDCD, rbf gamma 0.1, SVM-L1; mu 1, s 64, H 4096, then mu 4,
+   s 16, H 1024) and as logistic regression (SA-BCD, lam 1e-3, mu 4,
+   s 16, H 1024), and on the epsilon data of phase 2 as CA-SFISTA
+   (mu 8, s 16, H 512). Each checks its launches (ksvm: ceil(H/s) = 64
+   each of ``spmm`` in the cross orientation A Y^T and ``svm_inner``'s
+   ``warp`` body; logreg: 64 of ``spmm``; CA-SFISTA: 32 of ``gram``'s
+   ``wgmma`` body with one vector; no other kernel), its SA trace
+   against its classical solve (rel 1e-3; the dual descends, SFISTA's
+   momentum is checked end to end), times the steady solves, the device's
+   busy share of one (torch.profiler) and where an outer iteration's
+   time goes, and holds ``spmm``, ``svm_inner``
+   (both shapes) and ``gram`` to their plain versions on the inputs the
+   path gave them, with their times, bounds and library calls. Then f64
+   on the card against the CPU within 1e-8 (ksvm rbf and logreg
+   rcv1-like, sparse CA-SFISTA news20-like through ``spmm`` with one
+   extra vector) and ksvm's tracked dual against
+   ``kernel_dual_objective`` within 1e-8.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
-``svm_inner`` and ``flash_attention``: its launches on its main path,
+``svm_inner`` and ``flash_attention``, and a row for each kernel at a
+phase 12 path's shape: its launches on its main path,
 its error against the plain version, its time through the wrapper
 (``ms``, CUDA events over back-to-back calls, host work included), its
 device time alone (``device_ms``: the summed kernel durations of a
@@ -1151,8 +1176,12 @@ def sparse_coo_on_card(m, n, f, gen):
     rows = torch.cat([rows, torch.randint(0, m, (empty.numel(),),
                                           generator=gen, device="cuda")])
     cols = torch.cat([cols, empty])
-    return rows, cols, torch.randn(rows.numel(), generator=gen,
-                                   device="cuda")
+    vals = torch.randn(rows.numel(), generator=gen, device="cuda")
+    # Every stored entry is a nonzero, as in the makers' recipe: a draw of
+    # exactly 0 would be a stored zero, which SparseOperand.shard drops,
+    # so a sharded solve's operand would not be this one.
+    vals[vals == 0] = 1.0
+    return rows, cols, vals
 
 
 def news20_problem(seed: int):
@@ -1217,17 +1246,19 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def check_trace(obj, obj_c, what, descent: bool):
+def check_trace(obj, obj_c, what, descent: bool, momentum: bool = False):
     """A finite trace that falls (by at most 1e-2 of its start at a step
     for an accelerated method; not at all beyond roundoff for dual
-    descent) and matches the classical trace within rel 1e-3."""
+    descent; end to end only for SFISTA's subspace momentum, which is
+    not a descent method at any bar) and matches the classical trace
+    within rel 1e-3."""
     import torch
     steps = obj[1:] - obj[:-1]
     scale = float(obj.abs().max())
     rise = float(steps.max()) / scale
     log(f"  {what}: objective {float(obj[0]):.6g} -> {float(obj[-1]):.6g}; "
         f"largest one-step rise {rise:.3e} of max |objective|")
-    bar = 1e-5 if descent else 1e-2
+    bar = math.inf if momentum else 1e-5 if descent else 1e-2
     if not (torch.isfinite(obj).all() and obj[-1] < obj[0] and rise < bar):
         raise AssertionError(f"{what}: trace not finite and falling")
     dev = float(((obj - obj_c).abs()
@@ -1238,9 +1269,22 @@ def check_trace(obj, obj_c, what, descent: bool):
         raise AssertionError(f"{what}: SA and classical traces differ")
 
 
-def solve_counted(problem, cfg, want):
+def bodies_now():
+    """Launches by body of K1, K2 and K3, under "<kernel> <body>" keys."""
+    out = {}
+    for name in ("gram", "sa_inner", "svm_inner"):
+        out.update({f"{name} {k}": v for k, v in
+                    counters()[name].route_launches.items()})
+    return out
+
+
+def solve_counted(problem, cfg, want, want_bodies=None):
     """The main path of a phase: one solve with every count set to 0 just
-    before and read just after; raises unless they equal ``want``."""
+    before and read just after; raises unless the launches equal
+    ``want``, the launches by body those of ``want_bodies`` (keys of
+    ``bodies_now``), and every kernel the solve reports (``inner_impl``,
+    ``spmm_impl``) ran as CUDA. Returns (result, trace on the CPU,
+    launches)."""
     import torch
     from repro_torch import api
     zero_counts()
@@ -1250,17 +1294,22 @@ def solve_counted(problem, cfg, want):
     res = api.solve(problem, cfg)
     obj = res.objective.cpu()
     wall = time.perf_counter() - t0
-    got = read_counts()
+    got, bodies = read_counts(), bodies_now()
+    impls = {k: res.aux[k] for k in ("inner_impl", "spmm_impl")
+             if k in res.aux}
     outer = cfg.outer_iterations
-    log(f"  launches in the solve: {got} (expected {want})")
+    log(f"  launches in the solve: {got} (expected {want})"
+        + (f"; by body {bodies} (expected {want_bodies})"
+           if want_bodies else ""))
     log(f"  wall {wall:.4f} s, {wall / outer * 1e3:.4f} ms per outer "
         f"iteration (first solve); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; inner_impl "
-        f"{res.aux['inner_impl']}, spmm_impl {res.aux.get('spmm_impl')}")
-    if got != want:
-        raise AssertionError(f"launches {got}, expected {want}")
-    if (res.aux["inner_impl"], res.aux.get("spmm_impl")) != ("cuda", "cuda"):
-        raise AssertionError("the solve did not report the CUDA kernels")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {impls}")
+    if got != want or any(bodies[k] != n
+                          for k, n in (want_bodies or {}).items()):
+        raise AssertionError(f"launches {got}, bodies {bodies}; expected "
+                             f"{want}, {want_bodies}")
+    if any(v != "cuda" for v in impls.values()):
+        raise AssertionError(f"a kernel ran as its plain version: {impls}")
     return res, obj, got
 
 
@@ -1277,6 +1326,7 @@ def steady(problem, cfg, n=5):
     log(f"  steady solves: ms per outer iteration "
         f"{' '.join(f'{w:.4f}' for w in walls)} (median "
         f"{sorted(walls)[n // 2]:.4f})")
+    return sorted(walls)[n // 2]
 
 
 def traced(prog, problem, cfg, patches):
@@ -1596,6 +1646,316 @@ def phase_f64_sparse():
 
 
 # ---------------------------------------------------------------------------
+# Phase 12 (run after phase 6): the kernel SVM, logistic regression and
+# SFISTA families at full width.
+# ---------------------------------------------------------------------------
+
+KSVM_GAMMA = 0.1                # rbf's width: the registry's CLI default
+MU_K, S_K, H_K = 4, 16, 1024    # ksvm run 2 and logreg: s mu = 64
+LAM_LOGREG = 1e-3               # the logreg family's CLI default
+
+
+def ksvm_problem(svm):
+    """The news20.binary SVM of phase 4 with the rbf kernel."""
+    import dataclasses
+    return dataclasses.replace(svm, kernel="rbf",
+                               kernel_params={"gamma": KSVM_GAMMA})
+
+
+def logreg_problem(svm):
+    """Logistic regression on the news20.binary data of phase 4."""
+    from repro_torch.api import LogRegProblem
+    return LogRegProblem(A=svm.A, b=svm.b, lam=LAM_LOGREG)
+
+
+def sfista_problem(lasso):
+    """CA-SFISTA on the epsilon Lasso data of phase 2 (its lam)."""
+    from repro_torch.api import SFISTAProblem
+    return SFISTAProblem(A=lasso.A, b=lasso.b, lam=lasso.lam)
+
+
+def gram_k1_row(args, kw):
+    """K1 on CA-SFISTA's call Y^T [Y | ry] (k = 1 vector): error against
+    the plain version, its time through the wrapper and on the device,
+    the plain version's, ``torch.matmul`` on the concatenated operand,
+    and the bound (Y and ry read once, the output written once; 3xTF32
+    products for G's upper half and P)."""
+    import torch
+    from repro_torch.kernels.gram import gram_fused, gram_t
+    from repro_torch.kernels.gram.ref import gram_fused_ref
+    Y, V = args
+    (m, p), k = Y.shape, V.shape[0]
+    before = dict(gram_t.route_launches)
+    out = gram_fused(Y, V)
+    took = [r for r, n in gram_t.route_launches.items() if n != before[r]]
+    err = check_close(f"gram on CA-SFISTA's inputs (m={m}, p={p}, k={k}; "
+                      f"{took})", out, gram_fused_ref(Y, V), 2e-4,
+                      2e-4 * math.sqrt(m))
+    if took != ["wgmma"]:
+        raise AssertionError(f"gram on CA-SFISTA's inputs took {took}")
+    W = torch.cat([Y, V.T], dim=1)
+    entries = p * (p + 1) // 2 + p * k
+    b, why = bound_ms((m * p + k * m + p * (p + k)) * 4,
+                      3 * 2.0 * m * entries, TF32_FLOPS)
+    row = {"name": "gram (CA-SFISTA: Y^T [Y | ry], k = 1)", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/gram.cu",
+           "replaces": "src/repro/kernels/gram/kernel.py:48",
+           "max_abs_err": err,
+           "ms": time_ms(lambda: gram_fused(Y, V), 20),
+           "device_ms": device_ms(lambda: gram_fused(Y, V), 20),
+           "plain_ms": time_ms(lambda: gram_fused_ref(Y, V), 20),
+           "library_ms": time_ms(lambda: torch.matmul(Y.T, W), 20),
+           "bound_ms": b, "bound_by": why}
+    log(f"  gram at CA-SFISTA's call: {row['ms']:.4f} ms, device "
+        f"{fmt_ms(row['device_ms'])}; plain {row['plain_ms']:.4f}; "
+        f"torch.matmul on [Y | ry] {row['library_ms']:.4f}; bound "
+        f"{b:.4f} ms by {why}")
+    return row
+
+
+def phase_families():
+    """Phase 12: SA-K-BDCD (rbf) and SA-BCD logistic regression on the
+    news20.binary shape, CA-SFISTA on the epsilon shape."""
+    import importlib
+    import dataclasses
+    import torch
+    from repro_torch import api
+    from repro_torch.core import engine, kernel_svm, linalg
+    from repro_torch.kernels import spmm, svm_inner
+    from repro_torch.kernels.spmm.ref import ell_spmm_ref
+    # (the package's names sa_logreg and sfista are the solver functions,
+    # as in repro)
+    sa_logreg = importlib.import_module("repro_torch.core.sa_logreg")
+    sfista_mod = importlib.import_module("repro_torch.core.sfista")
+    rows, launches, summary = {}, {}, {}
+
+    log(f"phase 12: the kernel SVM, logistic regression and SFISTA "
+        f"families: news20.binary {M_NEWS} x {N_NEWS} (ksvm rbf gamma "
+        f"{KSVM_GAMMA}, SVM-L1; logreg lam {LAM_LOGREG}) and epsilon "
+        f"{M_EPS} x {N_EPS} (CA-SFISTA), f32")
+    t0 = time.perf_counter()
+    svm = news20_problem(seed=0)
+    torch.cuda.synchronize()
+    A = svm.A
+    log(f"  news20.binary made on the card in {time.perf_counter() - t0:.2f}"
+        f" s: nnz {A.nnz}, row ELL {tuple(A.row_cols.shape)}")
+    none = {"gram": 0, "sa_inner": 0, "spmm": 0, "svm_inner": 0,
+            "flash_attention": 0}
+    take_patches = [(engine, "sample_all", "sample"),
+                    (type(A), "gather_rows", "take"),
+                    (spmm, "scatter_dense", "densify"),
+                    (spmm, "ell_spmm", "spmm")]
+
+    ksvm = ksvm_problem(svm)
+    for mu, s, iters in ((1, S_SVM, H_SVM), (MU_K, S_K, H_K)):
+        what = f"ksvm rbf SA-K-BDCD mu={mu} s={s} H={iters}"
+        log(f"  {what}:")
+        cfg = api.SolverConfig(block_size=mu, s=s, iterations=iters)
+        outer = cfg.outer_iterations
+        res, obj, got = solve_counted(
+            ksvm, cfg, {**none, "spmm": outer, "svm_inner": outer},
+            {"svm_inner warp": outer, "svm_inner block": 0})
+        LOCAL[("ksvm", mu)] = {"objective": obj,
+                               "alpha": res.aux["alpha"].cpu(),
+                               "f": res.aux["f"].cpu(), "x": res.x.cpu()}
+        launches[what] = got
+        classical = api.solve(ksvm, dataclasses.replace(cfg, s=1))
+        check_trace(obj, classical.objective.cpu(), "dual trace",
+                    descent=True)
+        del classical
+        wall = steady(ksvm, cfg)
+        log_profile(what, device_profile(lambda: api.solve(ksvm, cfg)),
+                    wall, outer)
+        timer, traced_wall = traced(
+            kernel_svm._SAK_PROGRAM, ksvm, cfg, take_patches + [
+                (kernel_svm, "_kernelize", "kernelize"),
+                (svm_inner, "svm_inner_loop", "svm_inner")])
+        tot = timer.totals_ms()
+        split = {
+            "sample (threefry + sort)": tot["sample"],
+            "take (gather ELL rows)": tot["take"],
+            "densify Y^T (n x s mu)": tot["densify"],
+            "spmm kernel (A Y^T)": tot["spmm"],
+            "assemble rest (norms column)": tot["assemble"] - tot["take"]
+            - tot["densify"] - tot["spmm"],
+            "kernelize (rbf)": tot["kernelize"],
+            "reduce rest (G = K[B] + gamma I)": tot["reduce"]
+            - tot["kernelize"],
+            "svm_inner kernel": tot["svm_inner"],
+            "inner rest (gather f, b, alpha)": tot["inner"]
+            - tot["svm_inner"],
+            "defer (f GEMV, alpha, x, trace)": tot["defer"],
+            "finalize": tot["finalize"],
+        }
+        log_split(split, outer, traced_wall)
+        summary[what] = wall
+        k3 = svm_inner_row(*timer.first["svm_inner"])
+        k3.update(name=f"svm_inner (ksvm kernel block, s {s}, mu {mu})",
+                  launches=outer)
+        rows[f"svm_inner ksvm mu{mu}"] = k3
+        if mu == 1:
+            k4 = spmm_row(*timer.first["spmm"])
+            k4.update(name="spmm (ksvm and logreg cross block A Y^T)",
+                      launches=outer)
+            rows["spmm cross"] = k4
+        del timer, res
+
+    logreg = logreg_problem(svm)
+    what = f"logreg SA-BCD mu={MU_K} s={S_K} H={H_K}"
+    log(f"  {what}:")
+    cfg = api.SolverConfig(block_size=MU_K, s=S_K, iterations=H_K)
+    outer = cfg.outer_iterations
+    res, obj, got = solve_counted(logreg, cfg, {**none, "spmm": outer})
+    LOCAL["logreg"] = {"objective": obj, "margins": res.aux["margins"].cpu(),
+                       "x": res.x.cpu()}
+    launches[what] = got
+    classical = api.solve(logreg, dataclasses.replace(cfg, s=1))
+    check_trace(obj, classical.objective.cpu(), "objective", descent=False)
+    del classical, res
+    wall = steady(logreg, cfg)
+    log_profile(what, device_profile(lambda: api.solve(logreg, cfg)), wall,
+                outer)
+    timer, traced_wall = traced(
+        sa_logreg._LOGREG_PROGRAM, logreg, cfg, take_patches + [
+            (linalg, "power_iteration_max_eig_batched", "power")])
+    tot = timer.totals_ms()
+    split = {
+        "sample (threefry + sort)": tot["sample"],
+        "take (gather ELL rows)": tot["take"],
+        "densify Y^T (n x s mu)": tot["densify"],
+        "spmm kernel (A Y^T)": tot["spmm"],
+        "reduce (local: none)": tot["reduce"],
+        "power iterations (s blocks, batched)": tot["power"],
+        "inner chain (s steps, plain PyTorch)": tot["inner"] - tot["power"],
+        "defer (w = rho w + Y^T U)": tot["defer"],
+        "finalize": tot["finalize"],
+    }
+    log_split(split, outer, traced_wall)
+    summary[what] = wall
+    args, kw = timer.first["spmm"]
+    check_close("spmm on logreg's inputs", spmm.ell_spmm(*args, **kw),
+                ell_spmm_ref(args[0], args[1], args[3]), 1e-4, 1e-4)
+    del timer, args, kw, svm, ksvm, logreg, A
+    torch.cuda.empty_cache()
+
+    lasso = epsilon_problem(seed=0)
+    problem = sfista_problem(lasso)
+    what = f"CA-SFISTA mu={MU} s={S} H={H}"
+    log(f"  {what} on epsilon (lam {problem.lam:.6g}):")
+    cfg = api.SolverConfig(block_size=MU, s=S, iterations=H)
+    outer = cfg.outer_iterations
+    res, obj, got = solve_counted(problem, cfg, {**none, "gram": outer},
+                                  {"gram wgmma": outer, "gram simt": 0})
+    LOCAL["sfista"] = {"objective": obj, "x": res.x.cpu(),
+                       "residual": res.aux["residual"].cpu()}
+    launches[what] = got
+    classical = api.solve(problem, dataclasses.replace(cfg, s=1))
+    check_trace(obj, classical.objective.cpu(), "objective", descent=False,
+                momentum=True)
+    del classical, res
+    wall = steady(problem, cfg)
+    log_profile(what, device_profile(lambda: api.solve(problem, cfg)), wall,
+                outer)
+    timer, traced_wall = traced(
+        sfista_mod._CA_PROGRAM, problem, cfg, [
+            (engine, "sample_all", "sample"),
+            (sfista_mod, "gram_local", "gram"),
+            (linalg, "power_iteration_max_eig_batched", "power"),
+            (sfista_mod, "deferred_steps", "deferred")])
+    tot = timer.totals_ms()
+    split = {
+        "sample (threefry + sort)": tot["sample"],
+        "gather Y = A[:, blocks]": tot["assemble"] - tot["gram"],
+        "gram kernel (Y^T [Y | ry])": tot["gram"],
+        "reduce (G, P views)": tot["reduce"],
+        "power iterations (s blocks, batched)": tot["power"],
+        "inner chain (s steps, plain PyTorch)": tot["inner"] - tot["power"],
+        "deferred GEMVs": tot["deferred"],
+        "objective stitching": tot["defer"] - tot["deferred"],
+        "finalize": tot["finalize"],
+    }
+    log_split(split, outer, traced_wall)
+    summary[what] = wall
+    k1 = gram_k1_row(*timer.first["gram"])
+    k1["launches"] = outer
+    rows["gram k1"] = k1
+    log("  phase 12 summary (steady wall, median of five, ms per outer "
+        "iteration): " + "; ".join(f"{k} {w:.4f}"
+                                   for k, w in summary.items()))
+    log("  phase 12 launches per solve: " + "; ".join(
+        f"{k} {{{', '.join(f'{n}: {c}' for n, c in v.items() if c)}}}"
+        for k, v in launches.items()))
+    return rows
+
+
+def phase_families_f64():
+    """Phase 12 (f64): the three families on the card against the CPU,
+    and ksvm's tracked dual against ``kernel_dual_objective``."""
+    import dataclasses
+    import torch
+    from repro_torch import api
+    from repro_torch.core.kernel_svm import kernel_dual_objective
+    from repro_torch.data.sparse import make_lasso_dataset, make_svm_dataset
+
+    log("phase 12 (f64): card vs CPU, ksvm rbf rcv1-like mu=4 s=8 H=256, "
+        "logreg rcv1-like mu=4 s=8 H=256, sparse CA-SFISTA news20-like "
+        "mu=8 s=16 H=128")
+    none = {"gram": 0, "sa_inner": 0, "spmm": 0, "svm_inner": 0,
+            "flash_attention": 0}
+    cfg = api.SolverConfig(block_size=4, s=8, iterations=256,
+                           dtype=torch.float64)
+    out = {}
+    for device in ("cuda", "cpu"):
+        c = dataclasses.replace(cfg, device=device)
+        A, b = make_svm_dataset("rcv1-like", 0, as_operand=True,
+                                device=device)
+        ksvm = api.SVMProblem(A=A, b=b, kernel="rbf",
+                              kernel_params={"gamma": KSVM_GAMMA})
+        logreg = api.LogRegProblem(A=A, b=b, lam=LAM_LOGREG)
+        A, b, lam_max = make_lasso_dataset("news20-like", 0, as_operand=True,
+                                           device=device)
+        sf = api.SFISTAProblem(A=A, b=b, lam=0.1 * lam_max)
+        sf_cfg = api.SolverConfig(block_size=MU, s=S, iterations=128,
+                                  dtype=torch.float64, device=device)
+        got = {}
+        for name, problem, cf, want in (
+                ("ksvm", ksvm, c, {**none, "spmm": 32, "svm_inner": 32}),
+                ("logreg", logreg, c, {**none, "spmm": 32}),
+                ("sfista", sf, sf_cfg, {**none, "spmm": 8})):
+            zero_counts()
+            got[name] = api.solve(problem, cf)
+            if device == "cuda" and read_counts() != want:
+                raise AssertionError(f"f64 {name} launches {read_counts()}, "
+                                     f"expected {want}")
+        if device == "cuda":
+            direct = float(kernel_dual_objective(dataclasses.replace(
+                ksvm, A=ksvm.A.to(dtype=torch.float64)),
+                got["ksvm"].aux["alpha"]))
+            tracked = float(got["ksvm"].aux["dual"])
+            dev = abs(tracked - direct) / abs(direct)
+            log(f"  ksvm tracked dual {tracked:.15g} against "
+                f"kernel_dual_objective {direct:.15g}: rel {dev:.3e} (bar "
+                f"1e-8)")
+            if not dev <= 1e-8:
+                raise AssertionError("ksvm tracked dual differs from the "
+                                     "direct one")
+        out[device] = got
+    for name, vecs in (("ksvm", ("alpha", "f")), ("logreg", ("margins",)),
+                       ("sfista", ("residual",))):
+        g, c = out["cuda"][name], out["cpu"][name]
+        o_g, o_c = g.objective.cpu(), c.objective
+        dev = float(((o_g - o_c).abs() / o_c.abs()).max())
+        dx = max([float((g.x.cpu() - c.x).abs().max())]
+                 + [float((g.aux[k].cpu() - c.aux[k]).abs().max())
+                    for k in vecs])
+        log(f"  {name}: max rel objective deviation {dev:.3e}, max |dv| "
+            f"over x, {', '.join(vecs)} {dx:.3e} (bar 1e-8)")
+        if not (dev <= 1e-8 and dx <= 1e-8):
+            raise AssertionError(f"f64 {name} card solve differs from the "
+                                 f"CPU solve")
+
+
+# ---------------------------------------------------------------------------
 # Phase 11 (run after phase 6): the sharded backend over torch.distributed.
 # ---------------------------------------------------------------------------
 
@@ -1624,13 +1984,7 @@ def solve_reductions(problem, cfg, backend="sharded"):
     with linalg.count_reductions() as c:
         res = api.solve(problem, cfg, backend=backend)
         torch.cuda.synchronize()
-    bodies = {f"gram {k}": v for k, v in counters()["gram"]
-              .route_launches.items()}
-    bodies.update({f"sa_inner {k}": v for k, v in counters()["sa_inner"]
-                   .route_launches.items()})
-    bodies.update({f"svm_inner {k}": v for k, v in counters()["svm_inner"]
-                   .route_launches.items()})
-    return res, c.n, read_counts(), bodies
+    return res, c.n, read_counts(), bodies_now()
 
 
 def check_path(what, reductions, got, bodies, want, want_bodies, outer,
@@ -1834,8 +2188,81 @@ def phase_sharded_nccl():
         log(f"  the same, 200 back to back: host {host:.4f} ms a call to "
             f"return, {back:.4f} ms a call to the last one's end; device "
             f"{fmt_ms(dev)} ms a call (torch.profiler kernel durations)")
+        sharded_families_nccl(problem)
     finally:
         dist.destroy_process_group()
+
+
+def sharded_families_nccl(lasso):
+    """Phase 11 (a), the families of phase 12 at NCCL world size 1: each
+    sharded solve against phase 12's local solve, bit for bit, with its
+    reductions and launches counted (objective untracked: ceil(H/s);
+    tracked: the same for ksvm and logreg, whose traces come from
+    replicated data, twice that for CA-SFISTA)."""
+    import dataclasses
+    import torch
+    from repro_torch import api
+    from repro_torch.core.sparse_exec import shard_operand
+    svm = news20_problem(seed=0)
+    A = svm.A
+    one = shard_operand(A, 1, 0, A.shape[1])
+    log(f"  news20.binary: the one-rank shard's row ELL arrays are the "
+        f"operand's: {all(torch.equal(getattr(A, k), getattr(one, k)) for k in ('row_cols', 'row_vals', 'row_blocks'))}")
+    del one, A
+    none = {"gram": 0, "sa_inner": 0, "spmm": 0, "svm_inner": 0,
+            "flash_attention": 0}
+    ksvm_outer = H_SVM // S_SVM
+    cases = (
+        ("ksvm rbf mu=1", ksvm_problem(svm),
+         api.SolverConfig(block_size=1, s=S_SVM, iterations=H_SVM),
+         LOCAL[("ksvm", 1)], ("alpha", "f"), 1,
+         {**none, "spmm": ksvm_outer, "svm_inner": ksvm_outer},
+         {"svm_inner warp": ksvm_outer}),
+        ("logreg", logreg_problem(svm),
+         api.SolverConfig(block_size=MU_K, s=S_K, iterations=H_K),
+         LOCAL["logreg"], ("margins",), 1, {**none, "spmm": H_K // S_K},
+         {}),
+        ("CA-SFISTA", sfista_problem(lasso),
+         api.SolverConfig(block_size=MU, s=S, iterations=H),
+         LOCAL["sfista"], ("residual",), 2, {**none, "gram": H // S},
+         {"gram wgmma": H // S}))
+    for what, problem, cfg, local, vecs, per_outer, want, want_bodies \
+            in cases:
+        outer = cfg.outer_iterations
+        log(f"  {what}, sharded at NCCL world size 1:")
+        res, tracked, _, _ = solve_reductions(problem, cfg)
+        if tracked != per_outer * outer:
+            raise AssertionError(f"{what}: {tracked} reductions tracked, "
+                                 f"expected {per_outer * outer}")
+        _, n, got, bodies = solve_reductions(
+            problem, dataclasses.replace(cfg, track_objective=False))
+        check_path(f"{what}, untracked", n, got, bodies, want, want_bodies,
+                   outer)
+        leaves = {"objective": res.objective.cpu(), "x": res.x.cpu(),
+                  **{k: res.aux[k].cpu() for k in vecs}}
+        same = {k: torch.equal(v, local[k]) for k, v in leaves.items()}
+        log(f"  {what}: {tracked} reductions tracked; bit-identical to "
+            f"phase 12's local solve: {same}")
+        if all(same.values()):
+            continue
+        again = api.solve(problem, cfg)
+        again = {"objective": again.objective.cpu(), "x": again.x.cpu(),
+                 **{k: again.aux[k].cpu() for k in vecs}}
+        repeat = {k: torch.equal(v, local[k]) for k, v in again.items()}
+        log(f"  {what}: a second local solve repeats phase 12's bits: "
+            f"{repeat}")
+        if all(repeat.values()):
+            raise AssertionError(f"{what}: sharded at world size 1 differs "
+                                 f"from the local solve")
+        dev = max(rel_dev(leaves["objective"], local["objective"]),
+                  *(float((leaves[k] - local[k]).abs().max()
+                          / local[k].abs().max().clamp(min=1e-30))
+                    for k in leaves if k != "objective"))
+        log(f"  {what}: the local solve does not repeat its own bits (the "
+            f"atomic adds of its scatters); sharded against local: max "
+            f"relative deviation {dev:.3e} (bar 1e-5)")
+        if not dev <= 1e-5:
+            raise AssertionError(f"{what}: sharded differs from local")
 
 
 def sharded_rank(rank, world):
@@ -2523,6 +2950,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_f64_sparse()
     torch.cuda.empty_cache()
+    family_rows = phase_families()
+    torch.cuda.empty_cache()
+    phase_families_f64()
+    torch.cuda.empty_cache()
     phase_sharded_nccl()
     torch.cuda.empty_cache()
     phase_sharded_gloo()
@@ -2535,6 +2966,7 @@ def main() -> int:
     phase_f32_lm()
 
     rows.update(svm_rows)
+    rows.update(family_rows)
     rows["flash_attention"]["launches"] = fa_launches
     for name, n in launches.items():
         rows[name]["launches"] = n

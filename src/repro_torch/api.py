@@ -11,14 +11,18 @@ rank making the same call:
 """
 from repro_torch.core.api import (BACKENDS, families, resolve_family, solve,
                                   solve_sharded)
-from repro_torch.core.types import (FAMILIES, LassoProblem, ProblemFamily,
-                                    SolveState, SolverConfig, SolverResult,
-                                    SparseOperand, SVMProblem,
-                                    register_family)
+from repro_torch.core.sfista import SFISTAProblem
+from repro_torch.core.types import (FAMILIES, KERNELS, KernelSpec,
+                                    LassoProblem, LogRegProblem,
+                                    ProblemFamily, SolveState, SolverConfig,
+                                    SolverResult, SparseOperand, SVMProblem,
+                                    register_family, register_kernel)
 
 __all__ = [
     "solve", "solve_sharded", "resolve_family", "families", "BACKENDS",
     "FAMILIES", "ProblemFamily", "register_family",
-    "LassoProblem", "SVMProblem", "SparseOperand",
+    "KERNELS", "KernelSpec", "register_kernel",
+    "LassoProblem", "SVMProblem", "LogRegProblem", "SFISTAProblem",
+    "SparseOperand",
     "SolverConfig", "SolverResult", "SolveState",
 ]

@@ -3,7 +3,8 @@
 Solvers have no weights: what a solve carries is its problem and its
 :class:`~repro_torch.core.types.SolveState` (the global iteration count
 plus the named recurrence leaves: z/y/ztil/ytil or x/residual for Lasso,
-alpha/x/dual for SVM). These helpers take and return numpy arrays, so a
+alpha/x/dual for SVM, alpha/x/f/dual for the kernel SVM, w/margins/sq
+for logistic regression, x/y/rx/ry for SFISTA). These helpers take and return numpy arrays, so a
 state saved by ``repro`` (``np.asarray`` of each leaf of its
 ``aux["state"]``) resumes here. The RNG offset and the theta schedule are
 recomputed from ``iteration``, so the resumed solve continues the
@@ -27,8 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.types import (LassoProblem, SolveState, SparseOperand,
-                                    SVMProblem, resolve_device)
+from repro_torch.core.sfista import SFISTAProblem
+from repro_torch.core.types import (LassoProblem, LogRegProblem, SolveState,
+                                    SparseOperand, SVMProblem,
+                                    resolve_device)
 from repro_torch.models import lm as _lm
 
 _ELL_FIELDS = ("row_cols", "row_vals", "row_blocks",
@@ -70,16 +73,45 @@ def problem_from_numpy(A, b, lam: float, l2: float = 0.0, groups=None,
         groups=None if groups is None else np.asarray(groups))
 
 
+def _vector(v, dev, dtype):
+    return torch.as_tensor(np.asarray(v)).to(device=dev, dtype=dtype)
+
+
 def svm_problem_from_numpy(A, b, lam: float = 1.0, loss: str = "l1",
+                           kernel: str = "linear", kernel_params=None,
                            device="cuda", dtype=torch.float32) -> SVMProblem:
-    """A linear :class:`SVMProblem` with A (a numpy matrix, or a
+    """An :class:`SVMProblem` with A (a numpy matrix, or a SparseOperand)
+    and the {-1, +1} labels b as ``dtype`` tensors on ``device``; a
+    ``kernel`` other than "linear" (with its ``kernel_params`` dict) makes
+    it a kernel-SVM problem."""
+    dev = resolve_device(device)
+    return SVMProblem(
+        A=_matrix(A, dev, dtype), b=_vector(b, dev, dtype),
+        lam=float(lam), loss=loss, kernel=kernel,
+        kernel_params=None if kernel_params is None else {
+            k: v.item() if isinstance(v, np.generic) else v
+            for k, v in dict(kernel_params).items()})
+
+
+def logreg_problem_from_numpy(A, b, lam: float = 0.0, device="cuda",
+                              dtype=torch.float32) -> LogRegProblem:
+    """A :class:`LogRegProblem` with A (a numpy matrix, or a
     SparseOperand) and the {-1, +1} labels b as ``dtype`` tensors on
     ``device``."""
     dev = resolve_device(device)
-    return SVMProblem(
-        A=_matrix(A, dev, dtype),
-        b=torch.as_tensor(np.asarray(b)).to(device=dev, dtype=dtype),
-        lam=float(lam), loss=loss)
+    return LogRegProblem(A=_matrix(A, dev, dtype), b=_vector(b, dev, dtype),
+                         lam=float(lam))
+
+
+def sfista_problem_from_numpy(A, b, lam: float, l2: float = 0.0,
+                              device="cuda",
+                              dtype=torch.float32) -> SFISTAProblem:
+    """An :class:`~repro_torch.core.sfista.SFISTAProblem` with A (a numpy
+    matrix, or a SparseOperand) and b as ``dtype`` tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    return SFISTAProblem(A=_matrix(A, dev, dtype), b=_vector(b, dev, dtype),
+                         lam=float(lam), l2=float(l2))
 
 
 def state_from_numpy(iteration: int, carry: Dict[str, np.ndarray],

@@ -23,6 +23,9 @@ from repro_torch.core.types import (FAMILIES, ProblemFamily, SolveState,
 # Importing a family module registers it in FAMILIES.
 import repro_torch.core.lasso  # noqa: F401  (registers "lasso")
 import repro_torch.core.svm  # noqa: F401  (registers "svm")
+import repro_torch.core.kernel_svm  # noqa: F401  (registers "ksvm")
+import repro_torch.core.logreg  # noqa: F401  (registers "logreg")
+import repro_torch.core.sfista  # noqa: F401  (registers "sfista")
 
 __all__ = ["solve", "solve_sharded", "resolve_family", "families",
            "BACKENDS"]
@@ -173,10 +176,10 @@ def solve(problem, cfg: Optional[SolverConfig] = None,
           callbacks: Optional[Sequence[Callable]] = None) -> SolverResult:
     """Solve a registered problem family.
 
-    problem:  a registered problem dataclass (LassoProblem, SVMProblem);
-              its type picks the family. A, dense or a SparseOperand.
-              An SVMProblem with a kernel other than "linear" raises
-              NotImplementedError (the kernel-SVM family is not ported).
+    problem:  a registered problem dataclass (LassoProblem, SVMProblem,
+              LogRegProblem, SFISTAProblem); its type picks the family,
+              and an SVMProblem's kernel picks "svm" (linear) or "ksvm"
+              (any other). A, dense or a SparseOperand.
     cfg:      SolverConfig (defaults to ``SolverConfig()``, on the card).
     backend:  "local" (one process) or "sharded" (:func:`solve_sharded`
               over ``group``; every rank calls it with the same problem).

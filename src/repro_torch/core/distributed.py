@@ -3,9 +3,10 @@ thin shims over :func:`repro_torch.core.api.solve_sharded`, and
 :func:`run_ranks`, which starts the processes of a ``torch.distributed``
 job on one host.
 
-Layout (the families' ``partition`` field): Lasso rows are sharded and x
-is replicated; SVM columns are sharded and alpha is replicated. Zero
-padding of the partitioned axis is exact for both.
+Layout (the families' ``partition`` field): Lasso and SFISTA rows are
+sharded and x is replicated; SVM, kernel SVM and logistic-regression
+columns are sharded and everything in R^m (alpha, f, the margins) is
+replicated. Zero padding of the partitioned axis is exact for all.
 
 ``repro``'s ``lower_lasso_step`` / ``lower_svm_step`` lower a JAX program
 for a device mesh and have no counterpart here.

@@ -284,6 +284,7 @@ def _cli_describe(args, res, elapsed: float) -> str:
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=8,
+    supports_symmetric_gram=True,
     state_layout=lambda cfg: (
         (("z", "replicated"), ("y", "replicated"),
          ("ztil", "partition"), ("ytil", "partition"))

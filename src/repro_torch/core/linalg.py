@@ -54,6 +54,42 @@ def theta_schedule(theta0: float, num: int, dtype, device="cpu"):
     return torch.as_tensor(out, device=device)
 
 
+def power_iteration_max_eig_batched(Gs, iters: int = 32):
+    """:func:`power_iteration_max_eig` of each block of a (B, mu, mu)
+    stack at once -> (B,): the same arithmetic per block, as the s blocks
+    of an outer iteration do not depend on its step chain."""
+    B, mu = Gs.shape[0], Gs.shape[1]
+    if mu == 1:
+        return Gs[:, 0, 0]
+    v = torch.ones((B, mu, 1), dtype=Gs.dtype, device=Gs.device) \
+        / torch.sqrt(torch.tensor(float(mu), dtype=Gs.dtype))
+    for _ in range(iters):
+        w = Gs @ v
+        v = w / torch.clamp(torch.linalg.vector_norm(w, dim=1, keepdim=True),
+                            min=1e-30)
+    return (v * (Gs @ v)).sum(dim=(1, 2))
+
+
+def fista_t_schedule(num: int, dtype, device="cpu"):
+    """The FISTA momentum scalars ts[0..num] (Beck & Teboulle; used by
+    CA-SFISTA, arXiv:1710.08883):
+
+        t_0 = 1,    t_h = (1 + sqrt(1 + 4 t_{h-1}^2)) / 2,
+
+    from which iteration h's momentum is beta_h = (t_{h-1} - 1) / t_h
+    (beta_1 = 0). A short scalar recurrence, run on the host in ``dtype``
+    as :func:`theta_schedule` is, landing on ``device`` as one tensor."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    one, two, four = npdt(1.0), npdt(2.0), npdt(4.0)
+    t = one
+    out = np.empty(num + 1, npdt)
+    out[0] = t
+    for h in range(1, num + 1):
+        t = (one + np.sqrt(one + four * t * t)) / two
+        out[h] = t
+    return torch.as_tensor(out, device=device)
+
+
 def sample_block(keys, n: int, mu: int, bits: int = 32):
     """Sample mu of n coordinates uniformly without replacement for each
     key: keys (B, 2) -> (B, mu) int64.

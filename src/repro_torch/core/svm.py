@@ -27,20 +27,22 @@ from repro_torch.core.sparse_exec import (prep_operand, row_block_ops,
                                           spmm_aux)
 from repro_torch.core.types import (SVMProblem, SolveState, SolverConfig,
                                     SolverResult, SparseOperand,
-                                    operand_matvec,
+                                    build_kernel_params, operand_matvec,
                                     operand_rmatvec, register_family,
                                     require_unit_block, resolve_device,
                                     resume_carry)
 
 
 def require_linear(problem: SVMProblem) -> None:
-    """The linear (B)DCD solvers solve only kernel="linear" problems;
-    anything else is the kernel-SVM family, which is not ported yet."""
+    """The linear (B)DCD solvers solve only kernel="linear" problems; any
+    other kernel is the ``ksvm`` family (``core.kernel_svm``), which
+    ``api.solve`` and ``solve_svm`` route it to. (``repro``'s linear
+    solvers ignore the kernel and solve the linear problem.)"""
     if problem.kernel != "linear":
-        raise NotImplementedError(
-            f"kernel={problem.kernel!r}: the kernel SVM family (K-BDCD / "
-            f"SA-K-BDCD) is not ported yet (ROADMAP.md, Queue 1, 'The "
-            f"other families': core/kernel_svm.py)")
+        raise ValueError(
+            f"kernel={problem.kernel!r}: the linear (B)DCD solvers take "
+            f"kernel='linear' only; solve a kernel SVM with the 'ksvm' "
+            f"family (api.solve, solve_ksvm, kbdcd_svm or sa_kbdcd_svm)")
 
 
 def _on_operand(problem: SVMProblem, v):
@@ -171,16 +173,24 @@ def dcd_svm(problem: SVMProblem, cfg: SolverConfig, alpha0=None,
     return bdcd_svm(problem, cfg, alpha0, state, group)
 
 
+def _cli_kernel(args) -> str:
+    """--kernel is None when unset; this family defaults to linear."""
+    return args.kernel or "linear"
+
+
 def _cli_problem(args):
     from repro_torch.data.sparse import make_svm_dataset
     A, b = make_svm_dataset(args.dataset, args.seed,
                             as_operand=args.sparse, device=args.device)
-    return SVMProblem(A=A, b=b, lam=1.0, loss=args.svm_loss)
+    kernel = _cli_kernel(args)
+    return SVMProblem(A=A, b=b, lam=1.0, loss=args.svm_loss, kernel=kernel,
+                      kernel_params=build_kernel_params(kernel, args))
 
 
 def _cli_describe(args, res, elapsed: float) -> str:
     obj = res.objective.cpu().numpy()
-    return (f"svm-{args.svm_loss} {args.dataset} s={args.s} mu={args.mu} "
+    return (f"svm-{args.svm_loss}[{_cli_kernel(args)}] {args.dataset} "
+            f"s={args.s} mu={args.mu} "
             f"device={args.device}{' sparse' if args.sparse else ''}: "
             f"dual {obj[0]:.5f} -> {obj[-1]:.5f}, {elapsed:.2f}s")
 
@@ -192,6 +202,7 @@ def _cli_describe(args, res, elapsed: float) -> str:
     default_axes="model",
     x0_layout="replicated",
     aux_out=(("alpha", "replicated"),),
+    accepts=lambda p: p.kernel == "linear",
     variants={
         "classical": "repro_torch.core.svm:bdcd_svm",
         "sa": "repro_torch.core.sa_svm:sa_bdcd_svm",
@@ -200,16 +211,19 @@ def _cli_describe(args, res, elapsed: float) -> str:
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=1,
+    supports_symmetric_gram=True,
     state_layout=lambda cfg: (("alpha", "replicated"), ("x", "partition"),
                               ("dual", "replicated")),
 )
 def solve_svm(problem: SVMProblem, cfg: SolverConfig, x0=None,
               state=None, group=None) -> SolverResult:
-    """Dispatch on cfg.s: s == 1 -> bdcd_svm, s > 1 -> SA-BDCD. x0 is a
-    warm start of the dual alpha; ``group`` the process group of a
-    column-sharded solve. A kernel other than "linear" raises (the
-    kernel-SVM family is a later slice)."""
-    require_linear(problem)
+    """Dispatch on (problem.kernel, cfg.s): a kernel other than "linear"
+    goes to the ``ksvm`` family's ``solve_ksvm``; otherwise s == 1 ->
+    bdcd_svm, s > 1 -> SA-BDCD. x0 is a warm start of the dual alpha;
+    ``group`` the process group of a column-sharded solve."""
+    if problem.kernel != "linear":
+        from repro_torch.core.kernel_svm import solve_ksvm
+        return solve_ksvm(problem, cfg, x0, state, group)
     if cfg.s > 1:
         from repro_torch.core.sa_svm import sa_bdcd_svm
         return sa_bdcd_svm(problem, cfg, x0, state, group)

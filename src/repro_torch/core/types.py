@@ -1,6 +1,9 @@
 """Problem and solver configuration types (the port of
-``repro/core/types.py``: the Lasso and linear SVM families, dense or
-sparse operands).
+``repro/core/types.py``): the problem classes of the Lasso, SVM (linear
+and kernel), logistic-regression families, the SVM kernel registry, the
+problem-family registry and the solver configuration, for dense or sparse
+operands. ``SFISTAProblem`` lives with its solvers in ``core.sfista``, as
+in ``repro``.
 
 The solvers take tensors (or anything ``torch.as_tensor`` accepts), or a
 :class:`SparseOperand`, and put them on ``SolverConfig.device``. The
@@ -255,21 +258,95 @@ class LassoProblem:
         return tuple(self.A.shape)
 
 
-# The SVM kernels ``repro`` registers. Only "linear" is ported; the others
-# belong to the kernel-SVM family, a later slice.
-SVM_KERNELS = ("linear", "poly", "rbf")
+# ---------------------------------------------------------------------------
+# Kernel registry (the kernel-SVM family, after Shao & Devarakonda,
+# arXiv:2406.18001).
+#
+# A kernel function maps the *reduced* (post-all-reduce) linear cross-product
+# block  C[i, j] = u_i . v_j  — plus the squared row norms when it needs
+# them — to the kernel block  K[i, j] = k(u_i, v_j),  as a pointwise
+# transform. Kernelizing after the reduction changes no communication: the
+# solvers still make ONE reduction per (outer) iteration and kernelize the
+# replicated copy.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """A registered SVM kernel.
+
+    fn(cross, unorms, vnorms, params) -> K, elementwise on the reduced
+    cross-product block ``cross`` (p, q); ``unorms`` (p,) / ``vnorms``
+    (q,) are the squared row norms (None unless ``needs_norms``).
+    cli_params maps each hyperparameter the launcher exposes to its
+    default (the flag's type is the default's type): the launcher makes a
+    ``--kernel-<name>`` flag per entry and :func:`build_kernel_params`
+    forwards every one.
+    """
+
+    name: str
+    fn: Callable
+    needs_norms: bool = False
+    cli_params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+
+
+KERNELS: Dict[str, KernelSpec] = {}
+
+
+def register_kernel(name: str, needs_norms: bool = False,
+                    cli_params: Optional[Mapping[str, Any]] = None):
+    """Decorator: add a kernel to the registry (``KERNELS[name]``)."""
+
+    def deco(fn):
+        KERNELS[name] = KernelSpec(name=name, fn=fn, needs_norms=needs_norms,
+                                   cli_params=dict(cli_params or {}))
+        return fn
+
+    return deco
+
+
+def build_kernel_params(kernel: str, args) -> Optional[Dict[str, Any]]:
+    """A registered kernel's hyperparameters from parsed CLI args
+    (``--kernel-gamma`` -> ``args.kernel_gamma`` -> ``{"gamma": ...}``),
+    every declared one; None for a kernel that declares none."""
+    spec = KERNELS[kernel]
+    if not spec.cli_params:
+        return None
+    return {p: getattr(args, f"kernel_{p}") for p in spec.cli_params}
+
+
+@register_kernel("linear")
+def _linear_kernel(cross, unorms, vnorms, params):
+    return cross
+
+
+@register_kernel("poly", cli_params={"degree": 3, "coef0": 1.0,
+                                     "scale": 1.0})
+def _poly_kernel(cross, unorms, vnorms, params):
+    p = params or {}
+    return (p.get("scale", 1.0) * cross + p.get("coef0", 1.0)) \
+        ** p.get("degree", 3)
+
+
+@register_kernel("rbf", needs_norms=True, cli_params={"gamma": 0.1})
+def _rbf_kernel(cross, unorms, vnorms, params):
+    width = (params or {}).get("gamma", 0.1)
+    sq = unorms[:, None] + vnorms[None, :] - 2.0 * cross
+    return torch.exp(-width * torch.clamp(sq, min=0.0))
 
 
 @dataclasses.dataclass(frozen=True)
 class SVMProblem:
-    """Dual linear SVM problem data.
+    """Dual SVM problem data.
 
     A: (m, n) data matrix, dense or a :class:`SparseOperand`.
     b: (m,) binary labels in {-1, +1}.
     lam: SVM penalty parameter (paper: lam = 1).
     loss: "l1" (hinge) or "l2" (squared hinge).
-    kernel / kernel_params: as in ``repro``; anything but "linear" is the
-       kernel-SVM family, which is not ported yet, and the solvers raise.
+    kernel: a name in :data:`KERNELS`. "linear" is the ``svm`` family
+       (``core.svm`` / ``core.sa_svm``); any other is the ``ksvm`` family
+       (``core.kernel_svm``).
+    kernel_params: optional kernel hyperparameters (``{"gamma": 0.1}``
+       for rbf, ``{"degree": 3, "coef0": 1.0}`` for poly).
     """
 
     A: Any
@@ -280,9 +357,9 @@ class SVMProblem:
     kernel_params: Optional[Dict[str, Any]] = None
 
     def __post_init__(self):
-        if self.kernel not in SVM_KERNELS:
-            raise ValueError(f"unknown kernel {self.kernel!r}; known: "
-                             f"{list(SVM_KERNELS)}")
+        if self.kernel not in KERNELS:
+            raise ValueError(f"unknown kernel {self.kernel!r}; registered: "
+                             f"{sorted(KERNELS)}")
         if self.loss not in ("l1", "l2"):
             raise ValueError(f"loss must be 'l1' or 'l2', got {self.loss!r}")
 
@@ -291,12 +368,38 @@ class SVMProblem:
         return tuple(self.A.shape)
 
     @property
+    def kernel_spec(self) -> KernelSpec:
+        return KERNELS[self.kernel]
+
+    @property
     def gamma(self) -> float:
         return 0.0 if self.loss == "l1" else 0.5 / self.lam
 
     @property
     def nu(self) -> float:
         return self.lam if self.loss == "l1" else float("inf")
+
+
+@dataclasses.dataclass(frozen=True)
+class LogRegProblem:
+    """Binary logistic-regression problem data (communication-avoiding
+    logistic regression, after Devarakonda & Demmel, arXiv:2011.08281).
+
+    A: (m, n) data matrix, dense or a :class:`SparseOperand`; sharded, a
+       rank holds its columns (w is partitioned alongside, everything in
+       R^m is replicated), as for the SVM.
+    b: (m,) binary labels in {-1, +1}.
+    lam: l2 weight: the objective is
+       (1/m) sum_i log(1 + exp(-b_i a_i^T w)) + lam/2 ||w||^2.
+    """
+
+    A: Any
+    b: Any
+    lam: float = 0.0
+
+    @property
+    def shape(self):
+        return tuple(self.A.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,6 +429,8 @@ class ProblemFamily:
     make_problem / describe: CLI hooks (build a problem from parsed
                 ``argparse`` args; format a one-line result summary).
     default_mu: CLI default block size.
+    supports_symmetric_gram: whether the family's SA solvers honour
+                ``cfg.symmetric_gram`` (the triangle-packed Gram block).
     state_layout: ``fn(cfg) -> ((leaf_name, layout), ...)`` naming the
                 recurrence leaves the variant selected by ``cfg`` carries
                 across outer-iteration boundaries, in ``aux["state"]``
@@ -345,6 +450,7 @@ class ProblemFamily:
     make_problem: Optional[Callable] = None
     describe: Optional[Callable] = None
     default_mu: int = 1
+    supports_symmetric_gram: bool = False
     state_layout: Optional[Callable] = None
 
     def variant(self, name: str) -> Callable:

@@ -1,14 +1,25 @@
-"""Solver launcher for the port: a registered family (lasso, svm) on a
-synthetic dataset.
+"""Solver launcher for the port: any registered family (lasso, svm,
+ksvm, logreg, sfista) on a synthetic dataset.
 
     PYTHONPATH=src python -m repro_torch.launch.solve --problem lasso \
         --dataset epsilon-like --mu 8 --s 16 --iterations 512 --accelerated
     PYTHONPATH=src python -m repro_torch.launch.solve --problem svm \
         --dataset w1a-like --s 8 --iterations 128 --svm-loss l1 --sparse
+    PYTHONPATH=src python -m repro_torch.launch.solve --problem ksvm \
+        --dataset w1a-like --s 8 --iterations 128 --kernel rbf \
+        --kernel-gamma 0.1
+    PYTHONPATH=src python -m repro_torch.launch.solve --problem logreg \
+        --dataset w1a-like --s 8 --iterations 128 --logreg-l2 1e-3
+    PYTHONPATH=src python -m repro_torch.launch.solve --problem sfista \
+        --dataset epsilon-like --s 16 --iterations 512
 
+``--problem`` takes every name of the family registry; each family builds
+its problem (``make_problem``) and its one-line summary (``describe``).
 Runs on the card unless ``--device cpu`` is given; ``--sparse`` passes A
-as a SparseOperand. Prints the objective (svm: the dual) at the first
-and last inner iteration.
+as a SparseOperand. ``--kernel`` picks a registered SVM kernel (the
+default is the family's: linear for svm, rbf for ksvm), and each kernel
+hyperparameter is a ``--kernel-<name>`` flag. Prints the objective (svm,
+ksvm: the dual) at the first and last inner iteration.
 """
 from __future__ import annotations
 
@@ -16,7 +27,8 @@ import argparse
 import time
 
 from repro_torch import api
-from repro_torch.api import FAMILIES, SolverConfig
+from repro_torch.api import FAMILIES, KERNELS, SolverConfig
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
@@ -28,9 +40,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--iterations", type=int, default=512)
     ap.add_argument("--accelerated", action="store_true")
     ap.add_argument("--lam-frac", type=float, default=0.1,
-                    help="lasso: lambda as a fraction of ||A^T b||_inf")
+                    help="lasso, sfista: lambda as a fraction of "
+                         "||A^T b||_inf")
     ap.add_argument("--svm-loss", choices=("l1", "l2"), default="l1",
-                    help="svm: hinge (l1) or squared hinge (l2)")
+                    help="svm, ksvm: hinge (l1) or squared hinge (l2)")
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default=None,
+                    help="svm, ksvm: the SVM kernel (default: the "
+                         "family's, linear for svm and rbf for ksvm)")
+    # Every registered kernel hyperparameter is a --kernel-<name> flag, its
+    # type and default from KernelSpec.cli_params.
+    seen = set()
+    for spec in KERNELS.values():
+        for pname, default in spec.cli_params.items():
+            if pname not in seen:
+                seen.add(pname)
+                ap.add_argument(f"--kernel-{pname}", type=type(default),
+                                default=default,
+                                help=f"{spec.name} kernel hyperparameter "
+                                     f"(default {default})")
+    ap.add_argument("--logreg-l2", type=float, default=1e-3,
+                    help="logreg: l2 regularization weight")
     ap.add_argument("--sparse", action="store_true",
                     help="pass A as a SparseOperand (blocked ELL, the "
                          "spmm kernel) instead of a dense matrix")

@@ -161,12 +161,13 @@ def test_facade_refuses_unported_paths(lasso_data):
         api.solve(prob, cfg, backend="sharded")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.solve(prob, cfg, tune="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.solve(api.SVMProblem(A=A, b=np.sign(b), kernel="poly"), cfg)
+    # a kernel SVM is no longer refused: it resolves to the ksvm family
+    assert api.resolve_family(api.SVMProblem(
+        A=A, b=np.sign(b), kernel="poly")).name == "ksvm"
     with pytest.raises(ValueError, match="x0= .* or state="):
         api.solve(prob, cfg, x0=np.zeros(A.shape[1]),
                   state=api.SolveState(0, {}))
-    assert api.families() == ("lasso", "svm")
+    assert api.families() == ("ksvm", "lasso", "logreg", "sfista", "svm")
     assert api.resolve_family(prob).name == "lasso"
     assert api.resolve_family(api.SVMProblem(A=A, b=b)).name == "svm"
 

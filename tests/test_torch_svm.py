@@ -11,7 +11,8 @@ s > 1), dense and sparse operands (sparse rows collide across the s
 blocks: m = 72 rows against up to 64 draws per group), warm starts and
 the symmetric Gram. Also: the objectives and the duality gap, a repro
 state resuming in the port, SA == classical in the port, the launcher,
-and the kernel-SVM refusal.
+and the linear solvers' refusal of a kernel problem (which ``api.solve``
+routes to the ksvm family).
 """
 import contextlib
 import io
@@ -271,13 +272,18 @@ def test_sparse_equals_dense_in_port_f64(data):
 
 
 def test_kernel_svm_is_refused(data):
+    """The linear solvers refuse a kernel problem, naming the ksvm family
+    that ``api.solve`` and ``solve_svm`` route it to."""
     prob = tcore.SVMProblem(A=data["Ad"], b=data["bd"], kernel="rbf",
                             kernel_params={"gamma": 0.1})
     cfg = tcore.SolverConfig(block_size=2, s=4, iterations=8, device="cpu")
-    for call in (lambda: api.solve(prob, cfg),
-                 lambda: tcore.bdcd_svm(prob, cfg),
+    assert api.resolve_family(prob).name == "ksvm"
+    routed = api.solve(prob, cfg)
+    assert torch.equal(routed.aux["f"], tcore.sa_kbdcd_svm(prob, cfg).aux["f"])
+    assert torch.equal(tcore.solve_svm(prob, cfg).objective, routed.objective)
+    for call in (lambda: tcore.bdcd_svm(prob, cfg),
                  lambda: tcore.sa_bdcd_svm(prob, cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="'ksvm' family"):
             call()
     with pytest.raises(ValueError, match="unknown kernel"):
         tcore.SVMProblem(A=data["Ad"], b=data["bd"], kernel="sigmoid")
