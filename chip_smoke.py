@@ -130,7 +130,30 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    on the card against the CPU within 1e-8 (ksvm rbf and logreg
    rcv1-like, sparse CA-SFISTA news20-like through ``spmm`` with one
    extra vector) and ksvm's tracked dual against
-   ``kernel_dual_objective`` within 1e-8.
+   ``kernel_dual_objective`` within 1e-8;
+13. (run after phase 11) the cost model and the calibrated autotuner
+   (``repro_torch.tune``) on the card: (a) ``measure_machine()`` (gamma
+   from ``torch.matmul`` GEMMs, alpha and beta from an elementwise pass,
+   kappa from a tiny ``bcd_lasso``), each finite and positive, beta
+   resolved (under 100 TB/s); (b)
+   ``tune.tune`` on phase 2's epsilon Lasso with its incumbent (mu 8,
+   s 16, H 512) and on phase 4's news20.binary SVM with its incumbent
+   (mu 1, s 64, H 4096), 48-iteration pilot solves, the cache in a
+   temporary directory: each pilot point, the fitted machine, the
+   selected config, the predicted times and the guard's timings, with
+   K1 and K2 (epsilon) or K4 and K3 (news20.binary), and no other
+   kernel, launched during the calibration; (c) a second ``tune.tune`` from the cache that launches
+   no kernel; (d) the tuned config (and the model's own pick where the
+   guard kept the incumbent) at full H against the incumbent: each one's
+   launches (ceil(H/s) of each kernel of the SA path; the classical
+   dense Lasso at s = 1 reaches no kernel, as in repro), its trace
+   against the classical solve at its mu within rel 1e-3, the objective
+   each reaches after H (and, for a config of another mu, its objective
+   and time at the incumbent's H mu coordinate updates), and the median
+   of five steady solves of each in turns, per solve and per outer
+   iteration (H cut, and only H, where the guard's timings predict more
+   than a minute); (f) ``python -m repro_torch.launch.solve
+   --list-families`` and ``--tune`` as subprocesses on the card.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
@@ -2406,6 +2429,258 @@ def phase_sharded_gloo():
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the cost model and the calibrated autotuner on the card.
+# ---------------------------------------------------------------------------
+
+PILOT_ITERS = 48                # repro's default pilot solve length
+# Phase 13 (d) cuts H, and only H, where the tuned and incumbent solves at
+# full H would take longer than this (seconds, by the guard's timings).
+TUNE_FULL_H_BUDGET_S = 60.0
+
+
+def fmt_machine(mach) -> str:
+    """A machine's four parameters as rates: gamma as TFLOP/s, beta as
+    GB/s (8-byte words), alpha and kappa in us; the raw seconds beside
+    them (a fitted parameter may be 0)."""
+    def rate(x, scale):
+        return f"{scale / x:.4f}" if x > 0 else "inf"
+    return (f"gamma {rate(mach.gamma, 1e-12)} TFLOP/s, beta "
+            f"{rate(mach.beta, 8e-9)} GB/s, alpha {mach.alpha * 1e6:.4f} "
+            f"us, kappa {mach.kappa * 1e6:.4f} us (gamma {mach.gamma:.6g} "
+            f"s/flop, beta {mach.beta:.6g} s/word)")
+
+
+def fmt_cfg(cfg) -> str:
+    return (f"s={cfg.s} mu={cfg.block_size} "
+            f"symmetric_gram={cfg.symmetric_gram}")
+
+
+def solves_in_turns(problem, cfgs, n=5):
+    """{name: median seconds} of ``n`` steady solves of each config, run
+    in turns, objective tracking off, host clock around each solve ended
+    by a device sync."""
+    import dataclasses
+    import torch
+    from repro_torch import api
+    walls = {k: [] for k in cfgs}
+    for _ in range(n):
+        for k, cfg in cfgs.items():
+            cfg = dataclasses.replace(cfg, track_objective=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.solve(problem, cfg)
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    for k, w in walls.items():
+        log(f"    {k}: s per solve {' '.join(f'{x:.6f}' for x in w)}")
+    return {k: sorted(w)[n // 2] for k, w in walls.items()}
+
+
+def tune_path(what, problem, base, calib_kernels, tmp, smi, descent,
+              want_launches):
+    """Phase 13 (b)-(d) on one path: calibrate and select with counted
+    launches, the cache hit, then the tuned config at full H against the
+    incumbent ``base``. ``want_launches(cfg)`` gives the launches by kernel
+    one solve of ``cfg`` must make. Returns the record PERF.md reads."""
+    import dataclasses
+    import torch
+    from repro_torch import api, tune
+
+    log(f"  {what}: incumbent {fmt_cfg(base)} H={base.iterations}; "
+        f"tune.tune(pilot_iters={PILOT_ITERS})")
+    zero_counts()
+    t0 = time.perf_counter()
+    tr = tune.tune(problem, base, pilot_iters=PILOT_ITERS, cache_dir=tmp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, bodies = read_counts(), bodies_now()
+    rep = tr.calibration
+    log(f"  (b) calibrated in {wall:.2f} s; launches during the tune "
+        f"{counts}; by body {bodies}")
+    for p in rep.points:
+        log(f"    pilot s={p['s']} mu={p['mu']}: measured "
+            f"{p['measured_s']:.6f} s, predicted {p['predicted_s']:.6f} s, "
+            f"ratio {p['ratio']:.4f}")
+    log(f"    max_ratio {rep.max_ratio:.4f}")
+    log(f"    fitted machine: {fmt_machine(tr.machine)}; {smi}")
+    log(f"    selected {fmt_cfg(tr.config)}; predicted tuned "
+        f"{tr.predicted_s:.6f} s, incumbent {tr.predicted_default_s:.6f} s "
+        f"at H={base.iterations}; guard_times {tr.guard_times}")
+    missing = [k for k in calib_kernels if counts[k] == 0]
+    other = [k for k in counts if k not in calib_kernels and counts[k]]
+    if missing or other:
+        raise AssertionError(f"{what}: launches during the calibration "
+                             f"{counts}; expected {calib_kernels} and no "
+                             f"other kernel")
+    if not (math.isfinite(rep.max_ratio)
+            and all(math.isfinite(v) and v >= 0 for v in
+                    (tr.machine.alpha, tr.machine.beta, tr.machine.gamma,
+                     tr.machine.kappa))):
+        raise AssertionError(f"{what}: fitted machine {tr.machine}")
+
+    zero_counts()
+    hit = tune.tune(problem, base, pilot_iters=PILOT_ITERS, cache_dir=tmp)
+    counts = read_counts()
+    log(f"  (c) cache hit: from_cache {hit.from_cache}, launches {counts}, "
+        f"selected {fmt_cfg(hit.config)} (the model's pick, no guard)")
+    if not hit.from_cache or any(counts.values()):
+        raise AssertionError(f"{what}: the cached tune measured again")
+
+    # (d): the tuned config, and the model's own pick where the guard
+    # kept the incumbent over it, each against the incumbent at full H.
+    cfgs = {"tuned": tr.config, "incumbent": base}
+    if (hit.config.s, hit.config.block_size, hit.config.symmetric_gram) != \
+            (tr.config.s, tr.config.block_size, tr.config.symmetric_gram):
+        cfgs["model"] = hit.config
+    H = base.iterations
+    if tr.guard_times is not None:
+        per_iter = max(tr.guard_times["selected_s"],
+                       tr.guard_times["incumbent_s"]) / PILOT_ITERS
+        est = per_iter * H * 7 * len(cfgs)    # 5 steady, counted, classical
+        if est > TUNE_FULL_H_BUDGET_S:
+            cut = max(base.s, int(H * TUNE_FULL_H_BUDGET_S / est)
+                      // base.s * base.s)
+            log(f"  H cut from {H} to {cut}: the guard's timings predict "
+                f"{est:.1f} s for (d) at full H")
+            H = cut
+    cfgs = {k: dataclasses.replace(c, iterations=H) for k, c in cfgs.items()}
+    out = {"H": H, "max_ratio": rep.max_ratio,
+           "machine": dataclasses.asdict(tr.machine)}
+    for k, cfg in cfgs.items():
+        out[k] = fmt_cfg(cfg)
+        log(f"  (d) {k} {fmt_cfg(cfg)} at H={H}")
+        res, obj, out[k + "_launches"] = solve_counted(problem, cfg,
+                                                       want_launches(cfg))
+        log(f"    {k} solve's bodies {bodies_now()}")
+        classical = api.solve(problem, dataclasses.replace(cfg, s=1))
+        check_trace(obj, classical.objective.cpu(), f"{k} (s={cfg.s}, "
+                    f"mu={cfg.block_size})", descent=descent)
+        out[k + "_objective"] = float(obj[-1])
+    log(f"    objective after H={H}: " + ", ".join(
+        f"{k} {out[k + '_objective']:.6g}" for k in cfgs))
+    med = solves_in_turns(problem, cfgs)
+    for k, cfg in cfgs.items():
+        outer = cfg.outer_iterations
+        out[k + "_ms"] = med[k] * 1e3
+        log(f"    {k} {fmt_cfg(cfg)}: median {med[k] * 1e3:.4f} ms per "
+            f"solve, {med[k] * 1e3 / outer:.4f} ms per outer iteration "
+            f"({outer} outer)")
+    log(f"    fastest per solve at H={H}: {min(med, key=med.get)} "
+        f"(recorded, not a check)")
+    # The model prices an iteration, not its progress: a config with
+    # another mu runs again at the incumbent's coordinate updates, H mu.
+    for k, cfg in cfgs.items():
+        if k == "incumbent" or cfg.block_size == base.block_size:
+            continue
+        h_eq = H * base.block_size // cfg.block_size
+        if med[k] / H * h_eq * 6 > TUNE_FULL_H_BUDGET_S:
+            log(f"    {k} at H={h_eq} skipped: over the phase's budget")
+            continue
+        eq = dataclasses.replace(cfg, iterations=h_eq)
+        log(f"  (d) {k} {fmt_cfg(eq)} at H={h_eq}, the incumbent's "
+            f"{H} x {base.block_size} coordinate updates")
+        res, obj, _ = solve_counted(problem, eq, want_launches(eq))
+        ms = solves_in_turns(problem, {k: eq})[k] * 1e3
+        # the first iteration at or below the incumbent's final objective,
+        # and its share of the solve's time (time taken as linear in H)
+        below = torch.nonzero(obj <= out["incumbent_objective"]).flatten()
+        reach = int(below[0]) + 1 if below.numel() else None
+        out[k + "_equal_updates"] = {
+            "H": h_eq, "objective": float(obj[-1]), "ms": ms,
+            "reaches_incumbent_at": reach,
+            "ms_to_reach": None if reach is None else ms * reach / h_eq}
+        log(f"    {k} at H={h_eq}: objective {float(obj[-1]):.6g} (the "
+            f"incumbent's {out['incumbent_objective']:.6g}), median "
+            f"{ms:.4f} ms per solve (the incumbent's "
+            f"{med['incumbent'] * 1e3:.4f}); reaches the incumbent's "
+            f"objective at iteration {reach}, ~"
+            + ("never" if reach is None else f"{ms * reach / h_eq:.4f} ms")
+            + " by the solve's time per iteration")
+    return out
+
+
+def phase_tuner(smi):
+    """Phase 13: the cost model and the calibrated autotuner on the card."""
+    import dataclasses
+    import subprocess as sp
+    import tempfile
+    import torch
+    from repro_torch import api, tune
+
+    log("phase 13: the cost model and the calibrated autotuner on the card")
+    t0 = time.perf_counter()
+    mach = tune.measure_machine()
+    log(f"  (a) measure_machine() in {time.perf_counter() - t0:.2f} s: "
+        f"{mach.name}: {fmt_machine(mach)}; {smi}")
+    # beta must be resolved: a marginal cost under the launches' noise
+    # leaves measure_alpha_beta's floor, a rate beyond any memory.
+    if not (all(math.isfinite(v) and v > 0 for v in
+                (mach.alpha, mach.beta, mach.gamma, mach.kappa))
+            and 8 / mach.beta < 100e12):
+        raise AssertionError(f"microbench machine {mach}")
+    record = {"microbench": dataclasses.asdict(mach)}
+    none = {k: 0 for k in counters()}
+
+    with tempfile.TemporaryDirectory(prefix="repro_tune_") as tmp:
+        problem = epsilon_problem(seed=0)
+
+        def eps_launches(cfg):
+            outer = cfg.outer_iterations if cfg.s > 1 else 0
+            return dict(none, gram=outer, sa_inner=outer)
+
+        record["epsilon"] = tune_path(
+            f"epsilon Lasso {M_EPS} x {N_EPS} f32", problem,
+            api.SolverConfig(block_size=MU, s=S, iterations=H),
+            ("gram", "sa_inner"), tmp, smi, descent=False,
+            want_launches=eps_launches)
+        del problem
+        torch.cuda.empty_cache()
+
+        problem = news20_problem(seed=0)
+
+        def svm_launches(cfg):
+            return dict(none, spmm=cfg.outer_iterations,
+                        svm_inner=cfg.outer_iterations if cfg.s > 1 else 0)
+
+        record["news20"] = tune_path(
+            f"news20.binary SVM-L1 {M_NEWS} x {N_NEWS} f32", problem,
+            api.SolverConfig(block_size=1, s=S_SVM, iterations=H_SVM),
+            ("spmm", "svm_inner"), tmp, smi, descent=True,
+            want_launches=svm_launches)
+        del problem
+        torch.cuda.empty_cache()
+
+        log("  (f) the launcher on the card, as subprocesses")
+        env = dict(os.environ, PYTHONPATH=SRC, REPRO_TUNE_CACHE=tmp)
+        cmd = [sys.executable, "-m", "repro_torch.launch.solve"]
+        out = sp.run(cmd + ["--list-families"], cwd=ROOT, env=env,
+                     capture_output=True, text=True, timeout=300)
+        text = out.stdout
+        log("    " + text.replace("\n", "\n    ").rstrip())
+        if out.returncode or text.count("tune_space:") != 5 or any(
+                f"{f}  (" not in text for f in api.families()):
+            raise AssertionError(f"--list-families: {out.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        out = sp.run(cmd + ["--problem", "lasso", "--dataset",
+                            "epsilon-like", "--mu", "8", "--s", "16",
+                            "--iterations", "512", "--accelerated",
+                            "--tune"], cwd=ROOT, env=env,
+                     capture_output=True, text=True, timeout=600)
+        text = out.stdout
+        log(f"    --tune in {time.perf_counter() - t0:.1f} s:")
+        log("    " + text.replace("\n", "\n    ").rstrip())
+        if out.returncode or "tuned[lasso]: s=" not in text \
+                or " -> " not in text:
+            raise AssertionError(f"--tune: {out.stderr[-2000:]}")
+        first, last = (float(v) for v in
+                       text.split("obj ")[1].split(",")[0].split(" -> "))
+        if not (math.isfinite(last) and last < first):
+            raise AssertionError(f"--tune solve did not descend: {text}")
+    log(f"  phase 13 record: {json.dumps(record)}")
+    return record
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-10: the LM serving path.
 # ---------------------------------------------------------------------------
 
@@ -2957,6 +3232,9 @@ def main() -> int:
     phase_sharded_nccl()
     torch.cuda.empty_cache()
     phase_sharded_gloo()
+    torch.cuda.empty_cache()
+    phase_tuner(smi)
+    torch.cuda.empty_cache()
     phase_attention_kernel()
     arch, model = llama_model()
     rows["flash_attention"], fa_launches = phase_prefill(arch, model)

@@ -195,9 +195,17 @@ def solve(problem, cfg: Optional[SolverConfig] = None,
     mesh, axes: ``repro``'s JAX mesh arguments, which have no counterpart
               here: passing either raises ValueError (a group spans all
               the ranks it reduces over).
-    tune:     the autotuner is not ported yet: anything but None/"off"
-              raises (ValueError on the sharded backend, as in ``repro``,
-              NotImplementedError on the local one).
+    tune:     ``"auto"`` replaces cfg's tunables (s, block_size,
+              symmetric_gram) with ``repro_torch.tune.autotune``'s
+              calibrated-model selection before solving — iterations,
+              dtype, device, seed etc. are preserved. The pilot solves
+              run on ``cfg.device`` through the same kernels, and the
+              calibrated machine is cached per host, device and regime
+              under ``results/tuned/`` (``torch-`` keys), so only the
+              first solve of a regime pays them. The config actually
+              used lands in ``result.aux["tuned_config"]``. Local
+              backend only (ValueError on the sharded one: the pilot
+              solves run unsharded); None/"off" solves cfg as given.
     callbacks: callables invoked as ``cb(result)`` after the solve.
     """
     fam = resolve_family(problem, family)
@@ -211,14 +219,27 @@ def solve(problem, cfg: Optional[SolverConfig] = None,
             "mesh=/axes= name a JAX mesh, which the port does not have: "
             "the sharded backend reduces over a torch.distributed process "
             "group (group=)")
+    tuned = False
     if tune not in (None, False, "off"):
+        if tune not in ("auto", True):
+            raise ValueError(
+                f"unknown tune mode {tune!r}; expected 'auto' (or "
+                f"None/'off' to solve cfg as given)")
         if backend != "local":
-            raise ValueError("tune= only supports backend='local'")
-        raise NotImplementedError(
-            "tune= is not ported yet (ROADMAP.md, Queue 1, 'Cost model, "
-            "tuner, CLI and benchmarks')")
+            # the pilot solves run unsharded at P=1: applying that to a
+            # sharded solve would tune for the wrong topology.
+            raise ValueError(
+                "tune='auto' only supports backend='local' (pilot "
+                "solves run unsharded at P=1); for a sharded solve, "
+                "call repro_torch.tune.select_config with a calibrated "
+                "Machine and P = the world size")
+        from repro_torch import tune as tune_mod
+        cfg = tune_mod.autotune(problem, cfg, family=fam)
+        tuned = True
     result = BACKENDS[backend](fam, problem, cfg, group=group, x0=x0,
                                state=state)
+    if tuned:
+        result.aux["tuned_config"] = cfg
     for cb in callbacks or ():
         cb(result)
     return result

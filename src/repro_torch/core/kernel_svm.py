@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import linalg, rng
+from repro_torch.core import cost_model, linalg, rng
 from repro_torch.core.engine import (Ctx, FamilyProgram, block_draws,
                                      run_program)
 from repro_torch.core.sparse_exec import (cross_block, prep_operand,
@@ -350,9 +350,16 @@ def _cli_describe(args, res, elapsed: float) -> str:
         "sa": "repro_torch.core.kernel_svm:sa_kbdcd_svm",
     },
     objective=kernel_dual_objective,
+    # the caller passes problem.kernel; the default is this family's CLI
+    # default, rbf.
+    costs=lambda dims, H, mu, s, P, kernel="rbf": cost_model.svm_costs(
+        dims, H, s, P, mu=mu, kernel=kernel),
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=1,
+    # the kernelized message is the (m, s*mu) cross block — replicated
+    # memory grows with s*mu, so the candidate grid stays smaller.
+    tune_space={"s": (1, 2, 4, 8, 16, 32), "mu": (1, 2, 4, 8)},
     state_layout=lambda cfg: (("alpha", "replicated"), ("x", "partition"),
                               ("f", "replicated"), ("dual", "replicated")),
 )

@@ -24,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import linalg, prox as prox_lib, rng
+from repro_torch.core import cost_model, linalg, prox as prox_lib, rng
 from repro_torch.core.engine import block_draws
 from repro_torch.core.sparse_exec import (col_block_ops, prep_operand,
                                           spmm_aux)
@@ -281,6 +281,8 @@ def _cli_describe(args, res, elapsed: float) -> str:
         "sa_accelerated": "repro_torch.core.sa_lasso:sa_acc_bcd_lasso",
     },
     objective=lasso_objective,
+    costs=lambda dims, H, mu, s, P, kernel="linear": cost_model.lasso_costs(
+        dims, H, mu, s, P),
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=8,

@@ -132,19 +132,23 @@ def count_reductions():
         _OPEN_COUNTS.remove(c)
 
 
-def preduce(x, group=None):
+def preduce(x, group=None, counted: bool = True):
     """The all-reduce seam: the sum of ``x`` over the ranks of ``group``
     (a ``torch.distributed`` process group), or ``x`` itself when
     ``group`` is None. The one ``all_reduce`` call site of the port.
 
     A contiguous ``x`` is reduced in place and returned; any other view
-    (``all_reduce`` takes only dense tensors) is copied first."""
+    (``all_reduce`` takes only dense tensors) is copied first.
+    ``counted=False`` leaves the open :func:`count_reductions` blocks
+    alone: the tuner's microbenchmark (``tune.microbench``) times
+    reductions that belong to no solve."""
     if group is None:
         return x
     x = x.contiguous()
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    for c in _OPEN_COUNTS:
-        c.n += 1
+    if counted:
+        for c in _OPEN_COUNTS:
+            c.n += 1
     return x
 
 

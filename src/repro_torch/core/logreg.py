@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import linalg, rng
+from repro_torch.core import cost_model, linalg, rng
 from repro_torch.core.engine import block_draws
 from repro_torch.core.sparse_exec import (cross_block, prep_operand,
                                           row_block_ops, spmm_aux)
@@ -171,9 +171,13 @@ def _cli_describe(args, res, elapsed: float) -> str:
         "sa": "repro_torch.core.sa_logreg:sa_bcd_logreg",
     },
     objective=logreg_objective,
+    costs=lambda dims, H, mu, s, P, kernel="linear": cost_model.logreg_costs(
+        dims, H, mu, s, P),
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=4,
+    # same (m, s*mu) cross-block message shape as the kernel SVM.
+    tune_space={"s": (1, 2, 4, 8, 16, 32), "mu": (1, 2, 4, 8)},
     state_layout=lambda cfg: (("w", "partition"), ("margins", "replicated"),
                               ("sq", "replicated")),
 )

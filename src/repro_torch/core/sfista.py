@@ -37,7 +37,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core import linalg, prox as prox_lib, rng
+from repro_torch.core import cost_model, linalg, prox as prox_lib, rng
 from repro_torch.core.engine import (Ctx, FamilyProgram, block_draws,
                                      deferred_steps, gram_local,
                                      reduce_gram_proj, run_program)
@@ -317,9 +317,16 @@ def _cli_describe(args, res, elapsed: float) -> str:
         "sa": "repro_torch.core.sfista:ca_sfista",
     },
     objective=sfista_objective,
+    # same operand layout and fused-payload shapes as Lasso, so
+    # Table I's Lasso entries model it.
+    costs=lambda dims, H, mu, s, P, kernel="linear": cost_model.lasso_costs(
+        dims, H, mu, s, P),
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=8,
+    # the fused payload replicates (s mu)^2 + s mu entries — same growth
+    # as Lasso, so the same candidate grid applies.
+    tune_space={"s": (1, 2, 4, 8, 16, 32), "mu": (1, 2, 4, 8, 16)},
     supports_symmetric_gram=True,
     state_layout=lambda cfg: (("x", "replicated"), ("y", "replicated"),
                               ("rx", "partition"), ("ry", "partition")),

@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import linalg, rng
+from repro_torch.core import cost_model, linalg, rng
 from repro_torch.core.engine import block_draws
 from repro_torch.core.sparse_exec import (prep_operand, row_block_ops,
                                           spmm_aux)
@@ -208,6 +208,10 @@ def _cli_describe(args, res, elapsed: float) -> str:
         "sa": "repro_torch.core.sa_svm:sa_bdcd_svm",
     },
     objective=dual_objective,
+    # this family only accepts kernel="linear" problems; the hook still
+    # takes the registry-wide kernel argument and ignores it.
+    costs=lambda dims, H, mu, s, P, kernel="linear": cost_model.svm_costs(
+        dims, H, s, P, mu=mu),
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=1,

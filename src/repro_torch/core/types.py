@@ -426,9 +426,17 @@ class ProblemFamily:
     accepts:    optional tie-break predicate when several families share a
                 problem dataclass.
     objective:  direct objective evaluation ``fn(problem, x)``.
+    costs:      cost-model entry
+                ``fn(dims, H, mu, s, P, kernel="linear") -> dict`` (the
+                paper's Table I analogue, ``core.cost_model``); callers
+                with a problem in hand pass its ``problem.kernel``, and
+                families without a kernel axis ignore it.
     make_problem / describe: CLI hooks (build a problem from parsed
                 ``argparse`` args; format a one-line result summary).
     default_mu: CLI default block size.
+    tune_space: the autotuner's candidate grid, ``{"s": (...), "mu":
+                (...)}``; ``repro_torch.tune.select`` sweeps it through
+                ``costs`` (a group lasso keeps its group size as mu).
     supports_symmetric_gram: whether the family's SA solvers honour
                 ``cfg.symmetric_gram`` (the triangle-packed Gram block).
     state_layout: ``fn(cfg) -> ((leaf_name, layout), ...)`` naming the
@@ -447,9 +455,13 @@ class ProblemFamily:
     aux_out: Tuple[Tuple[str, str], ...] = ()
     accepts: Optional[Callable] = None
     objective: Optional[Callable] = None
+    costs: Optional[Callable] = None
     make_problem: Optional[Callable] = None
     describe: Optional[Callable] = None
     default_mu: int = 1
+    tune_space: Mapping[str, Any] = dataclasses.field(
+        default_factory=lambda: {"s": (1, 2, 4, 8, 16, 32, 64),
+                                 "mu": (1, 2, 4, 8, 16)})
     supports_symmetric_gram: bool = False
     state_layout: Optional[Callable] = None
 

@@ -14,9 +14,13 @@ ksvm, logreg, sfista) on a synthetic dataset.
         --dataset epsilon-like --s 16 --iterations 512
 
 ``--problem`` takes every name of the family registry; each family builds
-its problem (``make_problem``) and its one-line summary (``describe``).
-Runs on the card unless ``--device cpu`` is given; ``--sparse`` passes A
-as a SparseOperand. ``--kernel`` picks a registered SVM kernel (the
+its problem (``make_problem``) and its one-line summary (``describe``);
+``--list-families`` prints the registry (variants, partition axis, the
+autotuner's grid) and exits. Runs on the card unless ``--device cpu`` is
+given; ``--sparse`` passes A as a SparseOperand. ``--tune`` runs the
+calibrated autotuner (``repro_torch.tune``) on the solve's device first,
+with ``--s``/``--mu`` as the incumbent it must beat, and prints its
+choice as ``tuned[family]: ...``. ``--kernel`` picks a registered SVM kernel (the
 default is the family's: linear for svm, rbf for ksvm), and each kernel
 hyperparameter is a ``--kernel-<name>`` flag. Prints the objective (svm,
 ksvm: the dual) at the first and last inner iteration.
@@ -32,6 +36,9 @@ from repro_torch.api import FAMILIES, KERNELS, SolverConfig
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--list-families", action="store_true",
+                    help="print every registered problem family (variants, "
+                         "sharded partition axis, autotuner grid) and exit")
     ap.add_argument("--problem", choices=sorted(FAMILIES), default="lasso")
     ap.add_argument("--dataset", default="news20-like")
     ap.add_argument("--mu", type=int, default=None,
@@ -71,14 +78,38 @@ def build_parser() -> argparse.ArgumentParser:
                     help="skip the per-iteration objective trace")
     ap.add_argument("--power-iters", type=int, default=32,
                     help="power-method iterations for the block step size")
+    ap.add_argument("--tune", action="store_true",
+                    help="autotune s/mu/symmetric_gram with the calibrated "
+                         "cost model (repro_torch.tune) before solving; "
+                         "--s/--mu become the incumbent the tuner must "
+                         "beat")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
     return ap
 
 
+def list_families() -> str:
+    """One block per registered family, straight from the registry."""
+    lines = []
+    for name in sorted(FAMILIES):
+        fam = FAMILIES[name]
+        variants = ", ".join(f"{k} -> {v}"
+                             for k, v in sorted(fam.variants.items()))
+        grid = ", ".join(f"{k}={list(v)}"
+                         for k, v in sorted(fam.tune_space.items()))
+        lines += [f"{name}  ({fam.problem_cls.__name__}, "
+                  f"partition={fam.partition}, default_mu={fam.default_mu})",
+                  f"    variants:   {variants}",
+                  f"    tune_space: {grid}"]
+    return "\n".join(lines)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.list_families:
+        print(list_families())
+        return
     family = FAMILIES[args.problem]
     if args.mu is None:
         args.mu = family.default_mu
@@ -91,6 +122,16 @@ def main(argv=None):
                        seed=args.seed, device=args.device)
     t0 = time.perf_counter()
     problem = family.make_problem(args)
+    if args.tune:
+        from repro_torch import tune
+        tr = tune.tune(problem, cfg, family=family.name)
+        cfg = tr.config
+        print(f"tuned[{family.name}]: s={cfg.s} mu={cfg.block_size} "
+              f"symmetric_gram={cfg.symmetric_gram} "
+              f"(model {tr.predicted_s:.3g}s vs incumbent "
+              f"{tr.predicted_default_s:.3g}s"
+              f"{', cached machine' if tr.from_cache else ''})")
+        args.s, args.mu = cfg.s, cfg.block_size   # describe() reads these
     res = api.solve(problem, cfg, family=family.name)
     print(family.describe(args, res, time.perf_counter() - t0))
 

@@ -152,15 +152,24 @@ def test_api_solve_matches_repro_epsilon_like(ref):
     _assert_matches(res, ref, "epsilon")
 
 
-def test_facade_refuses_unported_paths(lasso_data):
+def test_facade_refuses_unported_paths(lasso_data, tmp_path, monkeypatch):
     A, b, lam = lasso_data
     prob = api.LassoProblem(A=A, b=b, lam=lam)
     cfg = _cfg(8, s=4, mu=4)
     # the sharded backend needs a torch.distributed process group
     with pytest.raises(ValueError, match="process group"):
         api.solve(prob, cfg, backend="sharded")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.solve(prob, cfg, tune="auto")
+    # tune="auto" is ported: it calibrates on the CPU, solves with the
+    # tuned config and reports it; the sharded backend refuses it
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path))
+    res = api.solve(prob, cfg, tune="auto")
+    used = res.aux["tuned_config"]
+    assert (used.iterations, used.dtype, used.device) == \
+        (8, torch.float64, "cpu")
+    assert res.x.shape == (A.shape[1],) and torch.isfinite(res.x).all()
+    assert [p.name for p in tmp_path.iterdir()][0].startswith("torch-")
+    with pytest.raises(ValueError, match="backend='local'"):
+        api.solve(prob, cfg, backend="sharded", tune="auto")
     # a kernel SVM is no longer refused: it resolves to the ksvm family
     assert api.resolve_family(api.SVMProblem(
         A=A, b=np.sign(b), kernel="poly")).name == "ksvm"
