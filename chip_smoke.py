@@ -153,7 +153,25 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    of five steady solves of each in turns, per solve and per outer
    iteration (H cut, and only H, where the guard's timings predict more
    than a minute); (f) ``python -m repro_torch.launch.solve
-   --list-families`` and ``--tune`` as subprocesses on the card.
+   --list-families`` and ``--tune`` as subprocesses on the card;
+14. (run after phase 13) the static contracts of ``repro_torch.analysis``
+   on the card: (a) ``check_all(device="cuda")`` over every pass, family
+   and variant at the certification shapes, with its subject counts and
+   info rows (payload bytes per outer iteration, counted/modeled F and W
+   per family x variant x s), failing on any error diagnostic, and K1-K4
+   each launched during it; (b) every family x variant x s of the
+   certification grid, dense and sparse, counted on the card and on the
+   CPU (flops, words, messages, payload bytes per outer iteration): all
+   equal; (c) on phase 2's epsilon and phase 4's news20.binary data, one
+   sharded solve each at NCCL world size 1 under the recorder: exactly
+   one all-reduce in each of the 32 / 64 outer iterations, of the fused
+   block's (s mu)(s mu + 2) / (s mu)(s mu + 1) f32 words (66,560 /
+   16,640 bytes), the counted F and W against Table I at the true dims
+   beside the declared bands, and the recorder's overhead (ms per outer
+   iteration with and without it, median of three); (d)
+   ``tune.select_config(..., certified=True)`` on the epsilon problem
+   with phase 13's fitted machine; (e) ``python -m repro_torch.analysis
+   --json`` as a subprocess on the card, exit 0 and ``ok: true``.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
@@ -1199,11 +1217,9 @@ def sparse_coo_on_card(m, n, f, gen):
     rows = torch.cat([rows, torch.randint(0, m, (empty.numel(),),
                                           generator=gen, device="cuda")])
     cols = torch.cat([cols, empty])
+    # A draw of exactly 0 is a stored zero, which SparseOperand.shard
+    # keeps: the one-rank shard is this operand (phase 11 checks it).
     vals = torch.randn(rows.numel(), generator=gen, device="cuda")
-    # Every stored entry is a nonzero, as in the makers' recipe: a draw of
-    # exactly 0 would be a stored zero, which SparseOperand.shard drops,
-    # so a sharded solve's operand would not be this one.
-    vals[vals == 0] = 1.0
     return rows, cols, vals
 
 
@@ -2681,6 +2697,228 @@ def phase_tuner(smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the static contracts (repro_torch.analysis) on the card.
+# ---------------------------------------------------------------------------
+
+def contract_counts(device):
+    """{(family, variant, s, "dense" | "sparse"): (flops, words, messages,
+    payload bytes per outer iteration, each outer iteration's collectives
+    by kind)} of every family x variant x s of the certification grid:
+    what ``solver_cost_count`` and ``solver_collective_budget`` give,
+    both from one recorded sharded solve on ``device`` over a one-rank
+    group."""
+    from repro_torch.analysis import costs
+    from repro_torch.analysis.collectives import (collective_budget,
+                                                  recorded_solve)
+    from repro_torch.analysis.common import (certification_problem,
+                                             family_variants,
+                                             one_rank_group, variant_config)
+    from repro_torch.core.api import FAMILIES
+    out = {}
+    with one_rank_group(device):
+        for name in sorted(FAMILIES):
+            fam = FAMILIES[name]
+            mu = costs.cost_tolerance(name).mu or fam.bench_block_size
+            m, n = costs.CERT_SHAPES[fam.partition]
+            operand = costs.certification_operand(fam)
+            for v in family_variants(fam):
+                for s in (costs.CERT_S_GRID if v.startswith(("sa", "ca"))
+                          else (1,)):
+                    cfg = variant_config(fam, v, device=device, s=s,
+                                         block_size=mu,
+                                         iterations=costs.CERT_ITERATIONS)
+                    for kind, op in (("dense", None), ("sparse", operand)):
+                        rec = recorded_solve(fam, cfg, certification_problem(
+                            fam, m, n, cfg.dtype, device, op))
+                        c = costs.cost_count(rec)
+                        b = collective_budget(rec)
+                        out[name, v, s, kind] = (
+                            c.flops, c.words, c.messages,
+                            b.per_iteration_bytes, b.outer)
+    return out
+
+
+def full_width_contract(what, problem, cfg, fam, dims, want_bytes):
+    """Phase 14 (c) on one path: one sharded solve at NCCL world size 1
+    under the recorder; every outer iteration must hold exactly one
+    all-reduce of ``want_bytes`` and nothing else; the counted F and W
+    against the family's Table I hook at the true dims; the recorder's
+    overhead (ms per outer iteration with and without it, median of 3)."""
+    import statistics
+    import torch
+    from repro_torch.analysis import costs
+    from repro_torch.analysis.collectives import (budget_diags,
+                                                  collective_budget)
+    from repro_torch.analysis.common import one_rank_group
+    from repro_torch.analysis.record import Recorder
+    from repro_torch.core import linalg
+    from repro_torch.core.api import solve_sharded
+    outer = cfg.outer_iterations
+    with one_rank_group("cuda") as group:
+        zero_counts()
+        rec = Recorder()
+        with linalg.count_reductions() as red, rec:
+            solve_sharded(problem, cfg, group)
+        torch.cuda.synchronize()
+        budget = collective_budget(rec)
+        count = costs.cost_count(rec)
+        others = sum(n for it in budget.outer for k, n in it.items()
+                     if k != "all-reduce")
+        log(f"  {what}: {len(budget.outer)} outer iterations marked "
+            f"(expected {outer}); all-reduces by iteration "
+            f"{[it['all-reduce'] for it in budget.outer]}; other "
+            f"collectives in them {others}; "
+            f"setup {budget.amortized}; end gathers {budget.end_gathers} "
+            f"({budget.end_gather_bytes:.0f} B); linalg.count_reductions "
+            f"{red.n}; launches {read_counts()}")
+        errs = budget_diags(what, cfg, budget)
+        sizes = sorted({t.allreduce_bytes for t in rec.outer})
+        log(f"  {what}: all-reduce payload per outer iteration, counted "
+            f"{sizes} B, expected {want_bytes} B")
+        if errs or red.n != outer or sizes != [want_bytes]:
+            raise AssertionError(f"{what}: {[d.message for d in errs]}, "
+                                 f"{red.n} reductions, payload {sizes}")
+        model = fam.costs(dims, cfg.iterations, cfg.block_size, cfg.s, 1)
+        tol = costs.cost_tolerance(fam.name)
+        f_ratio = count.flops / model["F"]
+        w_ratio = count.words / model["W"]
+        log(f"  {what}: counted F {count.flops:.6g} flops (in the outer "
+            f"iterations {count.flops_in_loop:.6g}; by kernel "
+            f"{ {k: float(v) for k, v in count.kernel_flops.items()} }), "
+            f"W {count.words:.6g} words, L {count.messages:.0f} messages; "
+            f"Table I at m={dims.m} n={dims.n} f={dims.f:.6g}: F "
+            f"{model['F']:.6g}, W {model['W']:.6g}, L {model['L']:.6g}; "
+            f"ratios F {f_ratio:.4f} (band {tol.f_band}), W {w_ratio:.4f} "
+            f"(band {tol.w_band}): "
+            + ("inside" if tol.f_band[0] <= f_ratio <= tol.f_band[1]
+               and tol.w_band[0] <= w_ratio <= tol.w_band[1]
+               else "OUTSIDE") + " the bands")
+        walls = {"recorder": [], "plain": []}
+        for _ in range(3):
+            for k in ("plain", "recorder"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if k == "recorder":
+                    with Recorder():
+                        solve_sharded(problem, cfg, group)
+                else:
+                    solve_sharded(problem, cfg, group)
+                torch.cuda.synchronize()
+                walls[k].append((time.perf_counter() - t0) / outer * 1e3)
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        log(f"  {what}: ms per outer iteration, solve alone "
+            f"{' '.join(f'{v:.4f}' for v in walls['plain'])} (median "
+            f"{med['plain']:.4f}), under the recorder "
+            f"{' '.join(f'{v:.4f}' for v in walls['recorder'])} (median "
+            f"{med['recorder']:.4f}): overhead "
+            f"{med['recorder'] - med['plain']:.4f} ms per outer iteration")
+    return {"payload_bytes": sizes[0], "f_ratio": f_ratio,
+            "w_ratio": w_ratio, "ms": med["plain"],
+            "ms_recorded": med["recorder"]}
+
+
+def phase_contracts(smi, tuner):
+    """Phase 14: the static contracts of repro_torch.analysis on the
+    card."""
+    import subprocess as sp
+    import torch
+    from repro_torch import analysis, api, tune
+    from repro_torch.core.cost_model import Machine, ProblemDims
+    from repro_torch.core.types import FAMILIES
+    from repro_torch.kernels import sa_inner, svm_inner
+    from repro_torch.kernels.gram import gram_t
+
+    log(f"phase 14: the static contracts (repro_torch.analysis) on the "
+        f"card; {smi}")
+    t_phase = time.perf_counter()
+    zero_counts()
+    t0 = time.perf_counter()
+    report = analysis.check_all(device="cuda")
+    log(f"  (a) check_all(device='cuda') in {time.perf_counter() - t0:.1f} "
+        f"s: {len(report.checked)} subjects, {len(report.errors)} "
+        f"error(s); by pass " + ", ".join(
+            f"{c} {sum(x.startswith(c + ':') for x in report.checked)}"
+            for c in analysis.CHECKS))
+    for d in report.diagnostics:
+        if d.check in ("collectives", "costs") or d.severity != "info":
+            log(f"    {d.format()}")
+    launched = dict(read_counts(), **{f"gram {k}": v for k, v in
+                                       gram_t.route_launches.items()},
+                    **{f"sa_inner {k}": v for k, v in
+                       sa_inner.sa_inner_loop.route_launches.items()},
+                    **{f"svm_inner {k}": v for k, v in
+                       svm_inner.svm_inner_loop.route_launches.items()})
+    log(f"  (a) kernel launches during check_all, by body: {launched}")
+    if not report.ok:
+        raise AssertionError(f"check_all on the card: "
+                             f"{[d.format() for d in report.errors]}")
+    missing = [k for k in ("gram", "sa_inner", "spmm", "svm_inner")
+               if launched[k] == 0]
+    if missing:
+        raise AssertionError(f"check_all launched none of {missing}")
+
+    t0 = time.perf_counter()
+    card = contract_counts("cuda")
+    cpu = contract_counts("cpu")
+    diff = [k for k in card if card[k] != cpu[k]]
+    log(f"  (b) {len(card)} family x variant x s x operand points counted "
+        f"on the card and on the CPU in {time.perf_counter() - t0:.1f} s: "
+        f"flops, words, messages and payload bytes per outer iteration "
+        f"equal at {len(card) - len(diff)}")
+    for k in diff[:8]:
+        log(f"    differs at {k}: card {card[k][:3]}, CPU {cpu[k][:3]}")
+    if diff or set(card) != set(cpu):
+        raise AssertionError(f"card and CPU counts differ at {diff}")
+
+    record = {}
+    problem = epsilon_problem(seed=0)
+    cfg = api.SolverConfig(block_size=MU, s=S, iterations=H,
+                           track_objective=False)
+    record["epsilon"] = full_width_contract(
+        f"(c) epsilon Lasso {M_EPS} x {N_EPS}, mu={MU} s={S} H={H}",
+        problem, cfg, FAMILIES["lasso"], ProblemDims(m=M_EPS, n=N_EPS, f=1.0),
+        4 * (S * MU) * (S * MU + 2))
+    base = api.SolverConfig(block_size=MU, s=S, iterations=H)
+    machine = Machine(**tuner["epsilon"]["machine"])
+    t0 = time.perf_counter()
+    picked = tune.select_config(problem, machine, base, certified=True)
+    log(f"  (d) select_config(certified=True) on the epsilon Lasso with "
+        f"phase 13's fitted machine in {time.perf_counter() - t0:.1f} s: "
+        f"{fmt_cfg(picked)}")
+    if picked.s < 1 or picked.block_size < 1:
+        raise AssertionError(f"certified selection {picked}")
+    del problem
+    torch.cuda.empty_cache()
+    svm = news20_problem(seed=0)
+    cfg = api.SolverConfig(block_size=1, s=S_SVM, iterations=H_SVM,
+                           track_objective=False)
+    nnz = svm.A.nnz
+    record["news20"] = full_width_contract(
+        f"(c) news20.binary SVM {M_NEWS} x {N_NEWS}, {nnz} nonzeros, mu=1 "
+        f"s={S_SVM} H={H_SVM}", svm, cfg, FAMILIES["svm"],
+        ProblemDims(m=M_NEWS, n=N_NEWS, f=nnz / (M_NEWS * N_NEWS)),
+        4 * S_SVM * (S_SVM + 1))
+    del svm
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out = sp.run([sys.executable, "-m", "repro_torch.analysis", "--json"],
+                 cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
+                 capture_output=True, text=True, timeout=600)
+    cli = json.loads(out.stdout) if out.returncode == 0 else {}
+    log(f"  (e) python -m repro_torch.analysis --json on the card in "
+        f"{time.perf_counter() - t0:.1f} s: exit {out.returncode}, ok "
+        f"{cli.get('ok')}, {len(cli.get('checked', ()))} subjects, "
+        f"{cli.get('errors')} error(s)")
+    if out.returncode or not cli.get("ok"):
+        raise AssertionError(f"the analysis CLI: {out.stdout[-2000:]} "
+                             f"{out.stderr[-2000:]}")
+    log(f"  phase 14 in {time.perf_counter() - t_phase:.1f} s; record: "
+        f"{json.dumps(record)}")
+    return record
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-10: the LM serving path.
 # ---------------------------------------------------------------------------
 
@@ -3233,7 +3471,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_sharded_gloo()
     torch.cuda.empty_cache()
-    phase_tuner(smi)
+    tuner = phase_tuner(smi)
+    torch.cuda.empty_cache()
+    phase_contracts(smi, tuner)
     torch.cuda.empty_cache()
     phase_attention_kernel()
     arch, model = llama_model()

@@ -16,12 +16,13 @@ from repro_torch.core.types import (FAMILIES, KERNELS, KernelSpec,
                                     LassoProblem, LogRegProblem,
                                     ProblemFamily, SolveState, SolverConfig,
                                     SolverResult, SparseOperand, SVMProblem,
-                                    register_family, register_kernel)
+                                    build_kernel_params, register_family,
+                                    register_kernel)
 
 __all__ = [
     "solve", "solve_sharded", "resolve_family", "families", "BACKENDS",
     "FAMILIES", "ProblemFamily", "register_family",
-    "KERNELS", "KernelSpec", "register_kernel",
+    "KERNELS", "KernelSpec", "register_kernel", "build_kernel_params",
     "LassoProblem", "SVMProblem", "LogRegProblem", "SFISTAProblem",
     "SparseOperand",
     "SolverConfig", "SolverResult", "SolveState",

@@ -16,6 +16,8 @@
     logreg_objective                  — logistic regression
     SFISTAProblem, solve_sfista, sfista, ca_sfista, sfista_objective
                                       — sampled FISTA and CA-SFISTA
+    solve_lasso_sharded, solve_svm_sharded
+                                      — the sharded Lasso and SVM shims
 """
 from repro_torch.core.types import (FAMILIES, KERNELS, KernelSpec,
                                     LassoProblem, LogRegProblem,
@@ -40,6 +42,8 @@ from repro_torch.core.sa_logreg import sa_bcd_logreg
 from repro_torch.core.sfista import (SFISTAProblem, ca_sfista, sfista,
                                      sfista_objective, solve_sfista)
 from repro_torch.core.engine import FamilyProgram, run_program
+from repro_torch.core.distributed import (solve_lasso_sharded,
+                                          solve_svm_sharded)
 
 __all__ = [
     "FAMILIES", "ProblemFamily", "register_family", "require_unit_block",
@@ -57,4 +61,5 @@ __all__ = [
     "solve_logreg", "bcd_logreg", "sa_bcd_logreg", "logreg_objective",
     "solve_sfista", "sfista", "ca_sfista", "sfista_objective",
     "FamilyProgram", "run_program",
+    "solve_lasso_sharded", "solve_svm_sharded",
 ]

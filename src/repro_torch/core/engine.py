@@ -24,6 +24,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import seams
 from repro_torch.core import linalg, rng
 from repro_torch.core.sparse_exec import spmm_aux
 from repro_torch.core.types import SolveState, SolverResult, resume_carry
@@ -41,14 +42,13 @@ def run_grouped(group, carry, H: int, s: int, start: int = 0):
     """Run ``group(carry, start, s_grp) -> (carry, objs (s_grp,))`` over
     floor(H/s) full s-step groups, then ONE remainder tail group of
     H mod s iterations; returns (carry, objs (H,)). ``start`` offsets the
-    global iteration ids of a resumed solve."""
+    global iteration ids of a resumed solve. Each group is one outer
+    iteration to an open recorder (``seams.outer_loop``)."""
     K, rem = divmod(H, s)
+    sizes = [s] * K + ([rem] if rem else [])
     objs = []
-    for k in range(K):
-        carry, o = group(carry, start + k * s, s)
-        objs.append(o)
-    if rem:
-        carry, o = group(carry, start + K * s, rem)
+    for i, s_grp in enumerate(seams.outer_loop(sizes)):
+        carry, o = group(carry, start + i * s, s_grp)
         objs.append(o)
     return carry, torch.cat(objs)
 

@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import seams
 from repro_torch.core import cost_model, linalg, rng
 from repro_torch.core.engine import (Ctx, FamilyProgram, block_draws,
                                      run_program)
@@ -187,7 +188,7 @@ def kbdcd_svm(problem: SVMProblem, cfg: SolverConfig, alpha0=None,
     for batch in block_draws(key,
                              lambda k: linalg.sample_block(k, m, mu, bits),
                              start, cfg.iterations, m):
-        for idx in batch:
+        for idx in seams.outer_loop(batch):
             Y = take(idx)
             b_B = b[idx]
             cross, anorms = _reduce_cross(cross_block(A, densify(Y)), group,
@@ -357,6 +358,9 @@ def _cli_describe(args, res, elapsed: float) -> str:
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=1,
+    bench_block_size=2,
+    bench_problem_kwargs={"lam": 1.0, "kernel": "rbf",
+                          "kernel_params": {"gamma": 0.1}},
     # the kernelized message is the (m, s*mu) cross block — replicated
     # memory grows with s*mu, so the candidate grid stays smaller.
     tune_space={"s": (1, 2, 4, 8, 16, 32), "mu": (1, 2, 4, 8)},

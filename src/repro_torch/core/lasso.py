@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import seams
 from repro_torch.core import cost_model, linalg, prox as prox_lib, rng
 from repro_torch.core.engine import block_draws
 from repro_torch.core.sparse_exec import (col_block_ops, prep_operand,
@@ -102,10 +103,11 @@ def _objective(residual, x, problem, group=None):
 
 def _draws(cfg, sampler, device, start: int, n: int):
     """The blocks of global iterations start+1 .. start+H, one (mu,) block
-    at a time, drawn in batches."""
+    at a time, drawn in batches; each is one outer iteration to an open
+    recorder."""
     key = rng.key(cfg.seed, rng.bits_for(cfg.dtype), device)
     for batch in block_draws(key, sampler, start, cfg.iterations, n):
-        yield from batch
+        yield from seams.outer_loop(batch)
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +288,8 @@ def _cli_describe(args, res, elapsed: float) -> str:
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=8,
+    bench_block_size=4,
+    bench_problem_kwargs={"lam": 0.1},
     supports_symmetric_gram=True,
     state_layout=lambda cfg: (
         (("z", "replicated"), ("y", "replicated"),

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import seams
 from repro_torch.core import rng
 
 
@@ -157,10 +158,12 @@ def pgather(x, group=None):
     each) concatenated along the first axis in rank order, or ``x``
     itself when ``group`` is None. The sharded backend calls it once per
     output at the end of a solve; it is not a reduction and is not
-    counted."""
+    counted. An open recorder sees its all-gather as an end gather
+    (``seams.gathering``), outside the outer iterations' budget."""
     if group is None:
         return x
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
+    with seams.gathering():
+        dist.all_gather(parts, x, group=group)
     return torch.cat(parts)

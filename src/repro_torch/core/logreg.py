@@ -34,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import seams
 from repro_torch.core import cost_model, linalg, rng
 from repro_torch.core.engine import block_draws
 from repro_torch.core.sparse_exec import (cross_block, prep_operand,
@@ -121,7 +122,7 @@ def bcd_logreg(problem: LogRegProblem, cfg: SolverConfig, x0=None,
     for batch in block_draws(key,
                              lambda k: linalg.sample_block(k, m, mu, bits),
                              start, cfg.iterations, m):
-        for idx in batch:
+        for idx in seams.outer_loop(batch):
             Y = take(idx)
             cross = linalg.preduce(cross_block(A, densify(Y)), group)
             G = cross[idx]                               # (mu, mu) = Y Y^T
@@ -176,6 +177,8 @@ def _cli_describe(args, res, elapsed: float) -> str:
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=4,
+    bench_block_size=2,
+    bench_problem_kwargs={"lam": 1e-3},
     # same (m, s*mu) cross-block message shape as the kernel SVM.
     tune_space={"s": (1, 2, 4, 8, 16, 32), "mu": (1, 2, 4, 8)},
     state_layout=lambda cfg: (("w", "partition"), ("margins", "replicated"),

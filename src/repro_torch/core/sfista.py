@@ -37,6 +37,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch import seams
 from repro_torch.core import cost_model, linalg, prox as prox_lib, rng
 from repro_torch.core.engine import (Ctx, FamilyProgram, block_draws,
                                      deferred_steps, gram_local,
@@ -135,7 +136,7 @@ def sfista(problem: SFISTAProblem, cfg: SolverConfig, x0=None,
     for batch in block_draws(key,
                              lambda k: linalg.sample_block(k, n, mu, bits),
                              start, H, n):
-        for idx in batch:
+        for idx in seams.outer_loop(batch):
             h += 1
             Ah, local = block_gram(idx, ry[:, None])     # (mu, mu+1) local
             GR = linalg.preduce(local, group)
@@ -324,6 +325,8 @@ def _cli_describe(args, res, elapsed: float) -> str:
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=8,
+    bench_block_size=4,
+    bench_problem_kwargs={"lam": 0.1},
     # the fused payload replicates (s mu)^2 + s mu entries — same growth
     # as Lasso, so the same candidate grid applies.
     tune_space={"s": (1, 2, 4, 8, 16, 32), "mu": (1, 2, 4, 8, 16)},

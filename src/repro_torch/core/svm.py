@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import seams
 from repro_torch.core import cost_model, linalg, rng
 from repro_torch.core.engine import block_draws
 from repro_torch.core.sparse_exec import (prep_operand, row_block_ops,
@@ -137,7 +138,7 @@ def bdcd_svm(problem: SVMProblem, cfg: SolverConfig, alpha0=None,
     for batch in block_draws(key,
                              lambda k: linalg.sample_block(k, m, mu, bits),
                              start, cfg.iterations, m):
-        for idx in batch:
+        for idx in seams.outer_loop(batch):
             Y = take(idx)
             b_B = b[idx]
             red = linalg.preduce(gram(Y, x[:, None]), group)  # Y [Y^T|x]
@@ -215,6 +216,8 @@ def _cli_describe(args, res, elapsed: float) -> str:
     make_problem=_cli_problem,
     describe=_cli_describe,
     default_mu=1,
+    bench_block_size=1,
+    bench_problem_kwargs={"lam": 1.0},
     supports_symmetric_gram=True,
     state_layout=lambda cfg: (("alpha", "replicated"), ("x", "partition"),
                               ("dual", "replicated")),

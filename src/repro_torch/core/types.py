@@ -193,8 +193,16 @@ class SparseOperand:
         and every ELL array rebuilt at the shard's own widths, on the
         operand's device. Positions past the end of the axis are empty
         (the zero padding of a sharded solve: they store no entry and
-        change no sum). Stored zeros are dropped, as ``host_coo`` does."""
-        rows, slots = torch.nonzero(self.row_vals, as_tuple=True)
+        change no sum). Stored entries are kept, stored zeros included, so
+        the one-rank shard holds this operand's own ELL arrays: a stored
+        slot lies in a row's active blocks and is its first slot or holds
+        a column above 0 (a row's columns ascend; padding holds 0)."""
+        K = self.row_cols.shape[1]
+        slot = torch.arange(K, device=self.device)
+        stored = (slot < (self.row_blocks.to(torch.int64)
+                          * self.ell_block)[:, None]) \
+            & ((slot == 0) | (self.row_cols != 0))
+        rows, slots = torch.nonzero(stored, as_tuple=True)
         cols = self.row_cols[rows, slots].to(torch.int64)
         vals = self.row_vals[rows, slots]
         part = rows if axis == 0 else cols
@@ -434,6 +442,10 @@ class ProblemFamily:
     make_problem / describe: CLI hooks (build a problem from parsed
                 ``argparse`` args; format a one-line result summary).
     default_mu: CLI default block size.
+    bench_block_size / bench_problem_kwargs: how the static contracts
+                (``repro_torch.analysis``) instantiate a representative
+                problem of the family: its block size and the problem
+                dataclass's keyword arguments besides A and b.
     tune_space: the autotuner's candidate grid, ``{"s": (...), "mu":
                 (...)}``; ``repro_torch.tune.select`` sweeps it through
                 ``costs`` (a group lasso keeps its group size as mu).
@@ -459,6 +471,9 @@ class ProblemFamily:
     make_problem: Optional[Callable] = None
     describe: Optional[Callable] = None
     default_mu: int = 1
+    bench_block_size: int = 1
+    bench_problem_kwargs: Mapping[str, Any] = dataclasses.field(
+        default_factory=dict)
     tune_space: Mapping[str, Any] = dataclasses.field(
         default_factory=lambda: {"s": (1, 2, 4, 8, 16, 32, 64),
                                  "mu": (1, 2, 4, 8, 16)})

@@ -14,7 +14,9 @@ device, dtype and shape, copy a non-contiguous view into fresh storage,
 allocate the output and the split-K partials with ``torch.empty``,
 launch on the current stream and do not synchronise. ``gram_t.launches``
 counts launches through either entry and ``gram_t.route_launches`` the
-launches of each body.
+launches of each body. Each entry is a recording seam
+(``repro_torch.seams``): an open recorder sees one event per call, with
+the body the call takes and its 2 p q m flops.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import ctypes
 
 import torch
 
+from repro_torch import seams
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.gram import ref as _ref
 
@@ -135,6 +138,28 @@ def _launch(x, y, v=None, route: str | None = None):
     return out
 
 
+def _readable(t):
+    """(strides, data_ptr) of a matrix ``t`` as ``_launch`` reads it: a
+    view that is not contiguous is read from a fresh (aligned, row-major)
+    copy."""
+    if t.is_contiguous():
+        return t.stride(), t.data_ptr()
+    return (t.shape[1], 1), 0
+
+
+def _event(entry, x, y, k, *operands):
+    """The seam event of x^T [y | v^T] with k vectors: 2 p (q + k) m flops
+    and, on a card, the body ``dispatch.gram_route`` picks."""
+    (m, p), q = x.shape, y.shape[1] + k
+    route = "plain" if x.device.type == "cpu" else dispatch.gram_route(
+        x.dtype, m, p, q, y_cols=y.shape[1],
+        operands=[_readable(x), _readable(y)])
+    return seams.KernelEvent("gram", entry,
+                             tuple(tuple(t.shape) for t in operands),
+                             x.dtype, x.dtype, route, 2.0 * p * q * m)
+
+
+@seams.kernel_seam(lambda x, y: _event("gram_t", x, y, 0, x, y))
 def gram_t(x, y):
     """x^T @ y for x (m, p), y (m, q) -> (p, q) in x's dtype."""
     _check(x, y)
@@ -147,6 +172,7 @@ gram_t.launches = 0
 gram_t.route_launches = {"wgmma": 0, "simt": 0}
 
 
+@seams.kernel_seam(lambda Y, V: _event("gram_fused", Y, Y, V.shape[0], Y, V))
 def gram_fused(Y, V):
     """Y^T [Y | V^T] for Y (m, p) and k vectors V (k, m) -> (p, p + k):
     the fused Gram + projection block of paper Alg. 2 lines 11-12. The
@@ -163,6 +189,8 @@ def gram_fused(Y, V):
     return _launch(Y, Y, V)
 
 
+@seams.kernel_seam(
+    lambda Y, V: _event("gram_and_proj", Y, Y, V.shape[1], Y, V))
 def gram_and_proj(Y, V):
     """Fused  Y^T [Y | V]  ->  (G, P)  — paper Alg. 2 lines 11-12: one
     pass over Y per outer iteration gives the (c, c) Gram matrix and the

@@ -10,6 +10,9 @@ shared memory is its template parameter, chosen from the Hopper budget
 table (``dispatch.sa_inner_g_in_smem``), not a fallback; neither body
 stands in for the other. ``sa_inner_loop.launches`` counts launches and
 ``sa_inner_loop.route_launches`` the launches of each body.
+``sa_inner_loop`` is a recording seam (``repro_torch.seams``): an open
+recorder sees one event per call, with the body it takes and the flops of
+the plain version's products (``inner_flops``).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import ctypes
 
 import torch
 
+from repro_torch import seams
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.sa_inner import ref as _ref
 
@@ -145,6 +149,27 @@ def _launch(G, y_proj, z_proj, z_vals, idx, th_prev, coefU, q: float,
     return dz, eta
 
 
+def inner_flops(s: int, mu: int, power_iters: int) -> float:
+    """Flops of the s steps of ``ref.sa_inner_ref``, 2 x output x
+    contraction for each product: per step the cross terms G_jt dz_t
+    (2 s mu^2), their masked sum (2 s mu), the collision correction
+    eq @ w (2 s mu^2) and the power iterations."""
+    return s * (4.0 * s * mu * mu + 2.0 * s * mu
+                + seams.power_flops(mu, power_iters))
+
+
+def _event(G, y_proj, z_proj, z_vals, idx, th_prev, coefU, q, lam1,
+           lam2=0.0, power_iters=32):
+    s, mu = y_proj.shape
+    route = "plain" if G.device.type == "cpu" else \
+        dispatch.sa_inner_route(s, mu, G.element_size())
+    return seams.KernelEvent("sa_inner", "sa_inner_loop",
+                             (tuple(G.shape), tuple(y_proj.shape)),
+                             G.dtype, G.dtype, route,
+                             inner_flops(s, mu, power_iters))
+
+
+@seams.kernel_seam(_event)
 def sa_inner_loop(G, y_proj, z_proj, z_vals, idx, th_prev, coefU,
                   q: float, lam1: float, lam2: float = 0.0,
                   power_iters: int = 32):

@@ -12,6 +12,10 @@ with no masking. That is also why every scatter here ADDS
 padded slot's 0 overwrite a real value stored at index 0. On a card the
 adds are atomics, so sums of several values at one index may round
 differently from run to run.
+
+Each public function is a recording seam (``repro_torch.seams``): an open
+recorder sees one event per call, ``ell_spmm`` with 2 R K Q flops (every
+padded slot), the scatters with their update elements.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch import seams
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.spmm import ref as _ref
 
@@ -89,6 +94,24 @@ def _plan(R: int, K: int, Q: int, device) -> tuple:
     return plan
 
 
+def _spmm_event(vals, idx, blocks, D, ell_block: int = 8):
+    (R, K), Q = vals.shape, D.shape[1]
+    return seams.KernelEvent(
+        "spmm", "ell_spmm", (tuple(vals.shape), tuple(D.shape)), vals.dtype,
+        torch.promote_types(vals.dtype, D.dtype),
+        "plain" if vals.device.type == "cpu" else "cuda", 2.0 * R * K * Q)
+
+
+def _scatter_event(entry, idx, vals, out_dtype):
+    """A scatter companion: plain PyTorch on either device, counted as
+    its update elements."""
+    return seams.KernelEvent(
+        "spmm", entry, (tuple(idx.shape),), vals.dtype, out_dtype,
+        "plain" if vals.device.type == "cpu" else "torch",
+        float(idx.numel()))
+
+
+@seams.kernel_seam(_spmm_event)
 def ell_spmm(vals, idx, blocks, D, ell_block: int = 8):
     """out[r, q] = sum_k vals[r, k] * D[idx[r, k], q] -> (R, Q) in D's
     dtype. vals/idx (R, K) padded ELL rows, K a multiple of
@@ -120,6 +143,8 @@ def ell_spmm(vals, idx, blocks, D, ell_block: int = 8):
 ell_spmm.launches = 0
 
 
+@seams.kernel_seam(lambda idx, vals, size: _scatter_event(
+    "scatter_dense", idx, vals, vals.dtype))
 def scatter_dense(idx, vals, size: int):
     """Densify gathered ELL rows: idx/vals (r, K) -> (size, r) whose
     column j is the j-th gathered sparse row scattered into R^size."""
@@ -128,6 +153,8 @@ def scatter_dense(idx, vals, size: int):
                     device=vals.device), idx, vals)
 
 
+@seams.kernel_seam(lambda out, idx, vals: _scatter_event(
+    "scatter_dense_into", idx, vals, out.dtype))
 def scatter_dense_into(out, idx, vals):
     """Add gathered ELL rows into the first r columns of ``out`` (size,
     >= r) in place: column j += the j-th gathered sparse row. The sparse
@@ -137,12 +164,17 @@ def scatter_dense_into(out, idx, vals):
     return out.index_put_((idx, cols.expand_as(idx)), vals, accumulate=True)
 
 
+@seams.kernel_seam(lambda vec, idx, vals, coef: _scatter_event(
+    "scatter_add", idx, vals, torch.promote_types(
+        vec.dtype, torch.promote_types(vals.dtype, coef.dtype))))
 def scatter_add(vec, idx, vals, coef):
     """vec + sum_j coef[j] * (j-th gathered sparse row), as a new tensor:
     the ELL form of the deferred updates r += A_B dx / x += Y^T (b theta)."""
     return vec.index_put((idx,), vals * coef[:, None], accumulate=True)
 
 
+@seams.kernel_seam(lambda idx, vals, coef, size: _scatter_event(
+    "scatter_steps", idx, vals, vals.dtype))
 def scatter_steps(idx, vals, coef, size: int):
     """Per-step deferred vectors for the SA solvers: idx/vals (s, mu, K),
     coef (s, mu) -> (s, size) whose row t is block t's update

@@ -10,6 +10,9 @@ template parameter, chosen from the Hopper budget table
 (``dispatch.svm_inner_g_in_smem``), not a fallback; neither body stands
 in for the other. ``svm_inner_loop.launches`` counts launches and
 ``svm_inner_loop.route_launches`` the launches of each body.
+``svm_inner_loop`` is a recording seam (``repro_torch.seams``): an open
+recorder sees one event per call, with the body it takes and the flops of
+the plain version's products (``inner_flops``).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import ctypes
 
 import torch
 
+from repro_torch import seams
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.svm_inner import ref as _ref
 
@@ -128,6 +132,27 @@ def _launch(G, proj, b_sel, a_vals, idx, gamma: float, nu: float,
     return theta, deltas
 
 
+def inner_flops(s: int, mu: int, power_iters: int) -> float:
+    """Flops of the s steps of ``ref.svm_inner_ref``, 2 x output x
+    contraction for each product: per step the cross terms (2 s mu^2),
+    their masked sum (2 s mu), the collision correction (2 s mu^2), the
+    power iterations and the increment's (b theta)^T G_jj (b theta)."""
+    return s * (4.0 * s * mu * mu + 2.0 * s * mu
+                + seams.power_flops(mu, power_iters) + 2.0 * mu * mu
+                + 2.0 * mu)
+
+
+def _event(G, proj, b_sel, a_vals, idx, gamma, nu, power_iters=32):
+    s, mu = proj.shape
+    route = "plain" if G.device.type == "cpu" else \
+        dispatch.svm_inner_route(s, mu, G.element_size())
+    return seams.KernelEvent("svm_inner", "svm_inner_loop",
+                             (tuple(G.shape), tuple(proj.shape)),
+                             G.dtype, G.dtype, route,
+                             inner_flops(s, mu, power_iters))
+
+
+@seams.kernel_seam(_event)
 def svm_inner_loop(G, proj, b_sel, a_vals, idx, gamma: float, nu: float,
                    power_iters: int = 32):
     """Run the s-step SVM inner loop (see ``ref.py`` for semantics) ->

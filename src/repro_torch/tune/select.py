@@ -81,17 +81,26 @@ def select_config(problem, machine: Machine, base_cfg: SolverConfig,
     candidate grid, preserving everything the tuner does not own
     (iterations, dtype, device, seed, accelerated, track_objective, ...).
 
-    certified=True asks for ``repro``'s static cost certifier
-    (``repro.analysis.check_costs``), which is not ported (ROADMAP.md,
-    Queue 1, item 4, "Static contracts"): it raises NotImplementedError.
+    certified=True first runs the static cost certifier
+    (``repro_torch.analysis.check_costs``) on the family, solving its
+    certification problems on ``base_cfg.device``, and refuses to fit the
+    machine model against a cost hook the certifier rejects — a hook
+    whose counted flops/words/messages disagree with the solves would
+    make every "tuned" recommendation a fit to fiction.
     """
     from repro_torch.core.api import resolve_family
 
-    if certified:
-        raise NotImplementedError(
-            "certified=True needs the static cost certifier, which is not "
-            "ported yet (ROADMAP.md, Queue 1, item 4, 'Static contracts')")
     fam = resolve_family(problem, family)
+    if certified:
+        from repro_torch.analysis.costs import check_costs
+        diags, _ = check_costs(fam, device=base_cfg.device)
+        errors = [d for d in diags if d.severity == "error"]
+        if errors:
+            detail = "; ".join(f"{d.where}: {d.message}" for d in errors)
+            raise ValueError(
+                f"refusing to tune against an uncertified cost model "
+                f"for family {fam.name!r}: the static cost certifier "
+                f"reports {len(errors)} error(s) — {detail}")
     dims = problem_dims(problem)
     kernel = getattr(problem, "kernel", "linear")
     if grid is not None:
