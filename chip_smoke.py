@@ -171,7 +171,38 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    iteration with and without it, median of three); (d)
    ``tune.select_config(..., certified=True)`` on the epsilon problem
    with phase 13's fitted machine; (e) ``python -m repro_torch.analysis
-   --json`` as a subprocess on the card, exit 0 and ``ok: true``.
+   --json`` as a subprocess on the card, exit 0 and ``ok: true``;
+15. (run last, after the LM phases 7-10, so that nothing it might leave
+   behind, an NCCL group, ranks or save threads, is there while another
+   phase is timed) the elastic runtime (``api.solve_elastic``):
+   (a) at NCCL world size 1 in this process, phase 2's epsilon Lasso in
+   segments of checkpoint_every 1 and 8 outer iterations (async save)
+   and 1 (sync save): x and the trace bit-identical to phase 2's local
+   solve, 32 launches each of ``gram``'s ``wgmma`` body and
+   ``sa_inner``'s ``warp`` body and no other kernel, the 3 checkpoints
+   kept, each with the state's four leaves and their specs; the bytes of
+   a checkpoint, its host copy, save and restore ms; the ms per outer
+   iteration segmented against the monolithic sharded solve (medians of
+   three, in turns), and a segment's split (the family's solve and each
+   callback of its program, shard setup, end gathers, the checkpoint's
+   host copy); (b) four gloo ranks on the one card, each making the full
+   data from the seed: epsilon with host 2 killed at inner iteration 200
+   (8 steps into the s-group at 192) and news20.binary with host 0, the
+   checkpoint writer, killed at 2,000 (16 into the s-group at 1,984),
+   checkpoint_every 1: each must resume at 192 / 1,984 on three
+   survivors, with a trace of H entries, x (alpha) within rel 1e-3 of the
+   undisturbed P = 4 elastic solve, the same bits on every survivor, and
+   as many launches of K1 and K2 (K4 and K3) on each survivor as on a
+   rank of the undisturbed run; restore and group-build ms, the
+   rolled-back iterations and the disturbed minus undisturbed wall are
+   printed; (c) on the same ranks, ``repro``'s f64 chaos schedules
+   (tests/test_chaos.py's problem) on the card and on the CPU: x within
+   1e-8, the recoveries equal; (d) ``python -m torch.distributed.run
+   --standalone --nproc-per-node 4 -m -- repro_torch.launch.solve ...
+   --checkpoint-every 1 --inject-failure 10:2 --device cuda`` as a
+   subprocess (its rendezvous on a free port): exit 0, gloo
+   at world size 4, a failure and a restore event, the final objective
+   within rel 1e-3 of the same command without the elastic flags.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
@@ -2919,6 +2950,542 @@ def phase_contracts(smi, tuner):
 
 
 # ---------------------------------------------------------------------------
+# Phase 15 (run last): the elastic runtime on the card.
+# ---------------------------------------------------------------------------
+
+# Where phase 15 (b) kills a host: 8 steps into the epsilon s-group at
+# 192 (host 2), 16 into the news20.binary s-group at 1,984 (host 0, the
+# checkpoint writer).
+KILL_EPS = (200, 2)
+KILL_NEWS = (2000, 0)
+# Phase 15 (c): repro's chaos schedules (tests/test_chaos.py) at f64:
+# name -> (family, s, accelerated, H, failures, straggler).
+CHAOS_F64 = {
+    "lasso s4 acc": ("lasso", 4, True, 14, {6: [3]}, False),
+    "svm s3": ("svm", 3, False, 13, {7: [0]}, False),
+    "ksvm s3": ("ksvm", 3, False, 13, {8: [2]}, False),
+    "straggler eviction": ("lasso", 2, True, 12, {}, True),
+}
+CLI_RECIPE = ["--problem", "lasso", "--dataset", "w1a-like", "--s", "4",
+              "--iterations", "24", "--device", "cuda"]
+
+
+def strip_seconds(recoveries):
+    return [{k: v for k, v in r.items() if not k.endswith("_seconds")}
+            for r in recoveries]
+
+
+def elastic_layout_ok(directory, keep, last, step_len):
+    """The checkpoints left under ``directory``: the newest ``keep``
+    boundaries up to ``last``, each with the accelerated Lasso state's
+    four leaves and their specs. Returns the bytes of the newest."""
+    steps = sorted(os.listdir(directory))
+    want = [f"step_{last - i * step_len:08d}" for i in range(keep)][::-1]
+    if steps != want:
+        raise AssertionError(f"checkpoints {steps}, expected {want}")
+    for step in steps:
+        with open(os.path.join(directory, step, "manifest.json")) as f:
+            leaves = {leaf["path"]: (leaf["shape"], leaf["dtype"],
+                                     leaf["spec"])
+                      for leaf in json.load(f)["leaves"]}
+        if leaves != {"y": ([N_EPS], "float32", []),
+                      "z": ([N_EPS], "float32", []),
+                      "ytil": ([M_EPS], "float32", ["data"]),
+                      "ztil": ([M_EPS], "float32", ["data"])}:
+            raise AssertionError(f"{step}: leaves {leaves}")
+    path = os.path.join(directory, steps[-1])
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def median_ms(fn, n=5):
+    import statistics
+    import torch
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def segment_split(problem, cfg, tmp):
+    """One more elastic solve at checkpoint_every 1 with the card
+    synchronised around each segment's ``solve_sharded`` call, the
+    family's solve inside it, each callback of the SA-accBCD program
+    (``sa_lasso._ACC_PROGRAM``: setup, the theta schedule, the block
+    draws, assemble, reduce, inner, defer, finalize), the end gathers
+    and the writer's ``CheckpointManager.save`` (the host copy; the
+    write runs in its thread): ms per segment of each, and of the rest."""
+    import dataclasses
+    import torch
+    from repro_torch import api
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import api as core_api
+    from repro_torch.core import linalg, sa_lasso
+    from repro_torch.core.types import FAMILIES
+    spent = {}
+
+    def timed(label, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    fam = FAMILIES["lasso"]
+    fam_t = dataclasses.replace(fam, solve=timed("family solve", fam.solve))
+    prog = sa_lasso._ACC_PROGRAM
+    steps = ("setup", "schedule", "sample", "assemble", "reduce", "inner",
+             "defer", "finalize")
+    saved = [(core_api, "solve_sharded"), (linalg, "pgather"),
+             (ckpt.CheckpointManager, "save"), (sa_lasso, "_ACC_PROGRAM")]
+    originals = [getattr(o, a) for o, a in saved]
+    for (o, a), fn, label in zip(saved[:3], originals, (
+            "solve_sharded", "end gathers", "checkpoint host copy")):
+        setattr(o, a, timed(label, fn))
+    sa_lasso._ACC_PROGRAM = dataclasses.replace(
+        prog, **{k: timed(k, getattr(prog, k)) for k in steps})
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.solve_elastic(problem, cfg, family=fam_t,
+                          elastic=api.ElasticConfig(checkpoint_dir=tmp))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for (o, a), fn in zip(saved, originals):
+            setattr(o, a, fn)
+    segs = cfg.outer_iterations
+    ms = {k: v / segs * 1e3 for k, v in spent.items()}
+    split = {"segment wall": wall / segs * 1e3,
+             "family solve": ms["family solve"]}
+    split.update({f"  {k}": ms[k] for k in steps})
+    split["  engine rest"] = ms["family solve"] - sum(ms[k] for k in steps)
+    split.update({
+        "shard setup and the rest of solve_sharded":
+            ms["solve_sharded"] - ms["family solve"] - ms["end gathers"],
+        "end gathers (pgather of ztil, ytil)": ms["end gathers"],
+        "checkpoint host copy (writer, D2H)": ms["checkpoint host copy"],
+        "driver rest": wall / segs * 1e3 - ms["solve_sharded"]
+        - ms["checkpoint host copy"]})
+    return split
+
+
+def phase_elastic_nccl():
+    """Phase 15 (a): the segmented epsilon Lasso at NCCL world size 1 in
+    this process, undisturbed."""
+    import statistics
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import distributed
+
+    log(f"phase 15 (a): elastic runtime, NCCL at world size 1, dense Lasso "
+        f"{M_EPS} x {N_EPS} f32, SA-accBCD mu={MU} s={S} H={H}, "
+        f"undisturbed, segments of checkpoint_every outer iterations")
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{distributed.free_port()}",
+        world_size=1, rank=0)
+    rec = {}
+    try:
+        problem = epsilon_problem(seed=0)
+        cfg = api.SolverConfig(block_size=MU, s=S, iterations=H)
+        outer = cfg.outer_iterations
+        x_l, obj_l = LOCAL["epsilon"]
+        want = {"gram": outer, "sa_inner": outer, "spmm": 0,
+                "svm_inner": 0, "flash_attention": 0}
+        want_bodies = {"gram wgmma": outer, "gram simt": 0,
+                       "sa_inner warp": outer, "sa_inner block": 0,
+                       "svm_inner warp": 0, "svm_inner block": 0}
+        with tempfile.TemporaryDirectory(prefix="phase15_") as tmp:
+            for every, async_save in ((1, True), (8, True), (1, False)):
+                what = (f"checkpoint_every {every}, "
+                        f"{'async' if async_save else 'sync'} save")
+                d = os.path.join(tmp, f"{every}-{async_save}")
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = api.solve_elastic(
+                    problem, cfg, elastic=api.ElasticConfig(
+                        checkpoint_dir=d, checkpoint_every=every,
+                        async_save=async_save))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got, bodies = read_counts(), bodies_now()
+                same = (torch.equal(res.x.cpu(), x_l),
+                        torch.equal(res.objective.cpu(), obj_l))
+                nbytes = elastic_layout_ok(d, 3, H, every * S)
+                log(f"  {what}: wall {wall:.3f} s ({wall / outer * 1e3:.4f} "
+                    f"ms per outer iteration, first); x and trace "
+                    f"bit-identical to phase 2's local solve: {same}; "
+                    f"launches {got}; by body {bodies}; 3 checkpoints "
+                    f"left, {nbytes} bytes each")
+                if not all(same):
+                    raise AssertionError(f"{what}: the segmented solve "
+                                         f"differs from the local solve")
+                if got != want or any(bodies[k] != n
+                                      for k, n in want_bodies.items()):
+                    raise AssertionError(f"{what}: launches {got}, bodies "
+                                         f"{bodies}")
+            carry = dict(res.aux["state"].carry)
+            host = ckpt._host_tree(carry)
+            specs = {"z": [], "y": [], "ztil": ["data"], "ytil": ["data"]}
+            d2 = os.path.join(tmp, "timing")
+            rec["host_copy_ms"] = median_ms(lambda: ckpt._host_tree(carry))
+            rec["save_ms"] = median_ms(lambda: ckpt.save_checkpoint(
+                d2, H, host, specs, {"iteration": H}))
+            rec["restore_ms"] = median_ms(lambda: ckpt.restore_checkpoint(
+                d2, device="cuda"))
+            rec["bytes"] = nbytes
+            log(f"  one checkpoint of the state ({nbytes} bytes on disk, "
+                f"{sum(v.array.nbytes for v in host.values())} of leaves): "
+                f"host copy {rec['host_copy_ms']:.4f} ms, save (npz, "
+                f"fsync, rename) {rec['save_ms']:.4f} ms, restore onto "
+                f"the card {rec['restore_ms']:.4f} ms (medians of 5)")
+
+            walls = {}
+            runs = [("monolithic sharded", None), ("elastic every 1", 1),
+                    ("elastic every 8", 8)]
+            for i in range(3):
+                for label, every in runs[i:] + runs[:i]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if every is None:
+                        api.solve(problem, cfg, backend="sharded")
+                    else:
+                        api.solve_elastic(
+                            problem, cfg, elastic=api.ElasticConfig(
+                                checkpoint_dir=os.path.join(
+                                    tmp, f"turn{i}-{every}"),
+                                checkpoint_every=every))
+                    torch.cuda.synchronize()
+                    walls.setdefault(label, []).append(
+                        (time.perf_counter() - t0) / outer * 1e3)
+            base = statistics.median(walls["monolithic sharded"])
+            for label, w in walls.items():
+                med = statistics.median(w)
+                rec[label] = med
+                log(f"  {label}: ms per outer iteration "
+                    f"{' '.join(f'{v:.4f}' for v in w)} (median {med:.4f}; "
+                    f"{med - base:+.4f} against the monolithic solve)")
+            split = segment_split(problem, cfg, os.path.join(tmp, "split"))
+            log("  a segment at checkpoint_every 1, the card synchronised "
+                "around each part (ms per segment):")
+            for k, v in split.items():
+                log(f"    {k:58s} {v:.4f}")
+            rec["split"] = split
+        # survivor_group under NCCL: twice in a row over the same rank
+        # (torch names both alike), each all-reducing on the card.
+        sums = []
+        for _ in range(2):
+            g = distributed.survivor_group([0])
+            t = torch.ones(1, device="cuda")
+            dist.all_reduce(t, group=g)
+            sums.append(float(t))
+            dist.destroy_process_group(g)
+        log(f"  survivor_group([0]) under NCCL twice in a row: all-reduce "
+            f"of ones gives {sums}")
+        if sums != [1.0, 1.0]:
+            raise AssertionError(f"NCCL survivor groups gave {sums}")
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def chaos_problem(family, device):
+    """tests/test_chaos.py's problem (numpy seed 5, 30 x 44) at f64."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    rng = np.random.default_rng(5)
+    m, n = 30, 44
+    A = torch.as_tensor(rng.standard_normal((m, n)), device=device)
+    b = torch.as_tensor(rng.standard_normal(m), device=device)
+    signs = torch.as_tensor(np.sign(rng.standard_normal(m)), device=device)
+    lam = 0.1 * float((A.T @ b).abs().max())
+    if family == "lasso":
+        return api.LassoProblem(A=A, b=b, lam=lam)
+    if family == "svm":
+        return api.SVMProblem(A=A, b=signs, lam=0.5)
+    return api.SVMProblem(A=A, b=signs, lam=0.5, kernel="rbf",
+                          kernel_params={"gamma": 0.3})
+
+
+def elastic_rank(rank, world, tmp):
+    """Phase 15 (b) and (c), one rank: the elastic solves at full width
+    over ``world`` gloo ranks on one card, and the f64 chaos schedules on
+    the card and on the CPU. Every rank writes what it saw to its own
+    file under ``tmp`` (a rank that dies returns no solution)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.runtime import FailureInjector, StragglerMonitor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+
+    def timed_solve(fn):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, read_counts(), bodies_now()
+
+    def run(key, problem, cfg, kill, vec):
+        step, host = kill
+        _, first, _, _ = timed_solve(
+            lambda: api.solve(problem, cfg, backend="sharded"))
+        _, mono, _, _ = timed_solve(
+            lambda: api.solve(problem, cfg, backend="sharded"))
+        for label, injector in (
+                ("undisturbed", None),
+                ("disturbed", FailureInjector(failures={step: [host]}))):
+            res, wall, counts, bodies = timed_solve(
+                lambda: api.solve_elastic(
+                    problem, cfg, elastic=api.ElasticConfig(
+                        checkpoint_dir=os.path.join(tmp, key, label)),
+                    injector=injector))
+            lost = res.x is None
+            out[(key, label)] = {
+                "vec": None if lost else vec(res).cpu(),
+                "objective": None if lost else res.objective.cpu(),
+                "wall": wall, "counts": counts, "bodies": bodies,
+                "report": res.aux["elastic"]}
+        out[(key, "monolithic")] = {"first": first, "wall": mono}
+
+    problem = epsilon_problem(seed=0)
+    run("epsilon", problem, api.SolverConfig(block_size=MU, s=S,
+                                             iterations=H),
+        KILL_EPS, lambda r: r.x)
+    del problem
+    torch.cuda.empty_cache()
+    problem = news20_problem(seed=0)
+    run("news20", problem, api.SolverConfig(block_size=1, s=S_SVM,
+                                            iterations=H_SVM),
+        KILL_NEWS, lambda r: r.aux["alpha"])
+    del problem
+    torch.cuda.empty_cache()
+
+    for name, (family, s, acc, H_c, failures, straggler) in \
+            CHAOS_F64.items():
+        for device in ("cuda", "cpu"):
+            kw = {"injector": FailureInjector(
+                failures={k: list(v) for k, v in failures.items()})}
+            if straggler:
+                kw["monitor"] = StragglerMonitor(
+                    n_hosts=world, threshold=1.5, patience=1, evict_after=2)
+                kw["host_times"] = lambda seg, live: {
+                    h: (6.0 if h == 2 else 1.0) for h in live}
+            res = api.solve_elastic(
+                chaos_problem(family, device),
+                api.SolverConfig(block_size=4, s=s, iterations=H_c,
+                                 accelerated=acc, dtype=torch.float64,
+                                 device=device),
+                family=family, elastic=api.ElasticConfig(
+                    checkpoint_dir=os.path.join(tmp, "chaos", name, device)),
+                **kw)
+            out[("chaos", name, device)] = {
+                "x": None if res.x is None else res.x.cpu(),
+                "report": res.aux["elastic"]}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def check_recovery(what, ranks, key, kill, resumed, survivors, kernels,
+                   rec):
+    """Phase 15 (b)'s checks of one path over the ranks' files."""
+    import torch
+    step, host = kill
+    want_rec = [{"kind": "failure", "hosts": [host],
+                 "resumed_iteration": resumed, "n_hosts": len(survivors)}]
+    und = {r: ranks[r][(key, "undisturbed")] for r in ranks}
+    dis = {r: ranks[r][(key, "disturbed")] for r in ranks}
+    first = dis[survivors[0]]
+    report = first["report"]
+    log(f"  {what}: host {host} killed at inner iteration {step}: events "
+        f"{report['events']}")
+    log(f"  {what}: recoveries {report['recoveries']}; live hosts "
+        f"{report['live_hosts']}")
+    if strip_seconds(report["recoveries"]) != want_rec \
+            or report["live_hosts"] != survivors:
+        raise AssertionError(f"{what}: recovered as {report}, expected "
+                             f"{want_rec} on {survivors}")
+    for r in ranks:
+        if r in survivors:
+            if strip_seconds(dis[r]["report"]["recoveries"]) != want_rec:
+                raise AssertionError(f"{what}: rank {r} decided otherwise")
+        elif not dis[r]["report"]["lost"] or dis[r]["vec"] is not None:
+            raise AssertionError(f"{what}: rank {r} did not leave the job")
+    if first["objective"].shape[0] != H_OF[key]:
+        raise AssertionError(f"{what}: trace of {first['objective'].shape}")
+    for r in survivors[1:]:
+        if not (torch.equal(dis[r]["vec"], first["vec"])
+                and torch.equal(dis[r]["objective"], first["objective"])):
+            raise AssertionError(f"{what}: survivors {survivors[0]} and {r} "
+                                 f"hold different bits")
+    ref = und[survivors[0]]
+    dev = float((first["vec"] - ref["vec"]).abs().max()
+                / ref["vec"].abs().max())
+    tdev = rel_dev(first["objective"], ref["objective"])
+    log(f"  {what}: trace of {first['objective'].shape[0]} entries; the "
+        f"survivors hold the same bits; against the undisturbed P = 4 "
+        f"solve: max |dv| / max |v| {dev:.3e} (bar 1e-3), trace max rel "
+        f"deviation {tdev:.3e} (bar 1e-5)")
+    if not dev <= 1e-3:
+        raise AssertionError(f"{what}: recovered solution differs")
+    # On an H100 80GB HBM3 at 700 W the recovered traces read 1.6e-7
+    # (epsilon) and 1.2e-7 (news20.binary): a restore of a slightly wrong
+    # state passes the bar on x but shows here.
+    if not tdev <= 1e-5:
+        raise AssertionError(f"{what}: recovered trace differs")
+    for r in survivors:
+        got = {k: dis[r]["counts"][k] for k in kernels}
+        base = {k: und[r]["counts"][k] for k in kernels}
+        log(f"  {what}: rank {r} launched {got} (undisturbed {base}); by "
+            f"body {dis[r]['bodies']}")
+        if got != base or dis[r]["counts"] != und[r]["counts"]:
+            raise AssertionError(f"{what}: rank {r} launched "
+                                 f"{dis[r]['counts']}, the undisturbed run "
+                                 f"{und[r]['counts']}")
+    lost = {r: dis[r]["counts"] for r in ranks if r not in survivors}
+    log(f"  {what}: the lost rank's launches before it left: {lost}")
+    mono = ranks[survivors[0]][(key, "monolithic")]
+    outer = H_OF[key] // S_OF[key]
+    r0 = report["recoveries"][0]
+    extra = {r: dis[r]["wall"] - und[r]["wall"] for r in survivors}
+    out = {"restore_ms": r0["restore_seconds"] * 1e3,
+           "group_ms": r0["group_seconds"] * 1e3,
+           "rolled_back": step - resumed,
+           "extra_wall_s": max(extra.values()),
+           "undisturbed_ms_per_outer": ref["wall"] / outer * 1e3,
+           "monolithic_ms_per_outer": mono["wall"] / outer * 1e3}
+    log(f"  {what}: restore {out['restore_ms']:.3f} ms, survivors' group "
+        f"built in {out['group_ms']:.3f} ms, rolled back {step} - "
+        f"{resumed} = {out['rolled_back']} iterations; wall disturbed "
+        f"minus undisturbed by survivor "
+        f"{ {r: round(v, 4) for r, v in extra.items()} } s")
+    log(f"  {what}: ms per outer iteration at P = 4: monolithic sharded "
+        f"{out['monolithic_ms_per_outer']:.4f} (first solve "
+        f"{mono['first'] / outer * 1e3:.4f}), elastic every 1 "
+        f"{out['undisturbed_ms_per_outer']:.4f}")
+    rec[key] = out
+
+
+H_OF = {"epsilon": H, "news20": H_SVM}
+S_OF = {"epsilon": S, "news20": S_SVM}
+
+
+def phase_elastic_gloo():
+    """Phase 15 (b) and (c): four gloo ranks on the one card."""
+    import tempfile
+    import torch
+    from repro_torch.core import distributed
+
+    log(f"phase 15 (b): elastic runtime, {P_GLOO} gloo ranks on one card, "
+        f"checkpoint_every 1: epsilon (host {KILL_EPS[1]} killed at "
+        f"{KILL_EPS[0]}), news20.binary (host {KILL_NEWS[1]}, the writer, "
+        f"killed at {KILL_NEWS[0]}); (c) repro's f64 chaos schedules, card "
+        f"against CPU")
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="phase15_") as tmp:
+        t0 = time.perf_counter()
+        distributed.run_ranks(elastic_rank, P_GLOO, "gloo", device="cuda",
+                              args=(tmp,))
+        log(f"  {P_GLOO} ranks done in {time.perf_counter() - t0:.1f} s")
+        ranks = {r: torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                               weights_only=False) for r in range(P_GLOO)}
+    check_recovery("epsilon", ranks, "epsilon", KILL_EPS, 192, [0, 1, 3],
+                   ("gram", "sa_inner"), rec)
+    log(f"  epsilon: the three survivors shard {M_EPS} rows as "
+        f"{-(-M_EPS // 3)} a rank, the last padded")
+    check_recovery("news20.binary", ranks, "news20", KILL_NEWS, 1984,
+                   [1, 2, 3], ("spmm", "svm_inner"), rec)
+    for name in CHAOS_F64:
+        card = {r: ranks[r][("chaos", name, "cuda")] for r in ranks}
+        cpu = {r: ranks[r][("chaos", name, "cpu")] for r in ranks}
+        live = card[0]["report"]["live_hosts"] if not \
+            card[0]["report"]["lost"] else \
+            card[min(r for r in ranks if not card[r]["report"]["lost"])][
+                "report"]["live_hosts"]
+        rc = strip_seconds(card[live[0]]["report"]["recoveries"])
+        rcpu = strip_seconds(cpu[live[0]]["report"]["recoveries"])
+        dx = max(float((card[r]["x"] - cpu[r]["x"]).abs().max())
+                 for r in live)
+        log(f"  (c) {name}: recoveries {rc}; live hosts {live}; card "
+            f"against CPU max |dx| {dx:.3e} (bar 1e-8)")
+        if rc != rcpu or not rc or not dx <= 1e-8:
+            raise AssertionError(f"(c) {name}: card {rc}, CPU {rcpu}, "
+                                 f"|dx| {dx:.3e}")
+    return rec
+
+
+def phase_elastic_cli():
+    """Phase 15 (d): repro's verify recipe through torchrun on the card."""
+    import re
+    import subprocess as sp
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    # "--" ends torchrun's options: the argparse of some Python 3.12
+    # releases reads the launcher's --s as an abbreviation of torchrun's.
+    # --standalone: each job's rendezvous takes a free port, not
+    # torchrun's default 29500, which another job may hold.
+    torchrun = [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc-per-node", str(P_GLOO), "-m", "--",
+                "repro_torch.launch.solve"] + CLI_RECIPE
+    outs = {}
+    for k, cmd in (("elastic", torchrun + ["--checkpoint-every", "1",
+                                           "--inject-failure", "10:2"]),
+                   ("plain", torchrun)):
+        out = sp.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                     timeout=600)
+        outs[k] = (out.stdout, out.stderr, out.returncode)
+    summary = re.compile(r"obj ([^,\s]+) -> ([^,\s]+)")
+    lines = outs["elastic"][0].strip().splitlines()
+    log(f"  (d) torchrun --standalone --nproc-per-node {P_GLOO} -m -- "
+        f"repro_torch.launch.solve {' '.join(CLI_RECIPE)} "
+        f"--checkpoint-every 1 --inject-failure 10:2, exit {outs['elastic'][2]}, in "
+        f"{time.perf_counter() - t0:.1f} s (with the plain run after it):")
+    for ln in lines:
+        log(f"    {ln}")
+    plain = summary.search(outs["plain"][0])
+    got = summary.search(lines[-1]) if lines else None
+    ok = (outs["elastic"][2] == 0 and outs["plain"][2] == 0
+          and lines[0].startswith(f"elastic: backend gloo, world size "
+                                  f"{P_GLOO}")
+          and any("failed in segment" in ln for ln in lines)
+          and any("restored iteration" in ln for ln in lines)
+          and got is not None and plain is not None)
+    if not ok:
+        raise AssertionError(f"(d) the CLI: {outs['elastic'][0][-2000:]} "
+                             f"{outs['elastic'][1][-2000:]} "
+                             f"{outs['plain'][1][-2000:]}")
+    dev = max(abs(float(g) - float(w)) / abs(float(w))
+              for g, w in zip(got.groups(), plain.groups()))
+    log(f"    the plain run: {plain.group(0)}; max rel deviation {dev:.3e} "
+        f"(bar 1e-3)")
+    if not dev <= 1e-3:
+        raise AssertionError("(d) the recovered objective differs")
+
+
+def phase_elastic():
+    """Phase 15: (a), then (b) and (c), then (d)."""
+    t0 = time.perf_counter()
+    rec = {"nccl": phase_elastic_nccl()}
+    rec["gloo"] = phase_elastic_gloo()
+    phase_elastic_cli()
+    log(f"  phase 15 in {time.perf_counter() - t0:.1f} s; record: "
+        f"{json.dumps(rec)}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-10: the LM serving path.
 # ---------------------------------------------------------------------------
 
@@ -3482,6 +4049,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_f32_lm()
+    torch.cuda.empty_cache()
+    phase_elastic()
 
     rows.update(svm_rows)
     rows.update(family_rows)

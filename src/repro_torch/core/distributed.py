@@ -9,7 +9,9 @@ columns are sharded and everything in R^m (alpha, f, the margins) is
 replicated. Zero padding of the partitioned axis is exact for all.
 
 ``repro``'s ``lower_lasso_step`` / ``lower_svm_step`` lower a JAX program
-for a device mesh and have no counterpart here.
+for a device mesh and have no counterpart here. :func:`survivor_group`
+takes the place of ``repro.runtime.elastic.build_1d_mesh``: after a
+failure the elastic driver re-groups the surviving ranks.
 """
 from __future__ import annotations
 
@@ -58,6 +60,63 @@ def check_placement(backend: str, world_size: int, device: str,
                 f"backend='nccl' with {world_size} ranks on {device_count} "
                 f"card(s): NCCL cannot put two ranks on one card. Use "
                 f"world_size <= {device_count}, or backend='gloo'")
+
+
+def placement_backend(device: str, world_size: int,
+                      device_count: int) -> str:
+    """The backend :func:`check_placement` admits for a job: NCCL on the
+    card when each rank has a card of its own, gloo otherwise (on the
+    CPU, or host-staged on the card when ranks outnumber cards)."""
+    if device == "cuda" and 1 <= world_size <= device_count:
+        return "nccl"
+    return "gloo"
+
+
+def survivor_group(hosts, group=None):
+    """A process group over the ranks ``hosts`` of ``group`` (the default
+    group when None), renumbered in rank order: rank i of the new group
+    is ``sorted(hosts)[i]``. Only those ranks call it
+    (``use_local_synchronization=True``), so ranks that left the job take
+    no part.
+
+    It ends at the survivors' synchronisation point, a barrier over the
+    new group: every survivor has joined it before any rank goes on.
+    Then the group's rank 0 deletes the group's rendezvous keys from the
+    default store. torch names a group by its ranks and the number of
+    groups the process holds, so a later group over the same ranks, made
+    once this one is destroyed, gets the same name and would read this
+    one's stale addresses and hang.
+
+    That naming, and the private ``_get_default_store``, are torch
+    internals: this function is the only code that depends on them.
+    tests/test_torch_elastic.py pins it (two groups in a row over the
+    same ranks, and one beside a held group). Checked on torch 2.13.0
+    (CPU, gloo, four ranks) and 2.11.0+cu128 (H100: gloo over four
+    ranks on CUDA tensors, NCCL over one rank); an NCCL group of more
+    than one rank is untried."""
+    base = group if group is not None else dist.group.WORLD
+    ranks = sorted(dist.get_global_rank(base, h) for h in hosts)
+    new = dist.new_group(ranks, use_local_synchronization=True)
+    dist.barrier(group=new)
+    if dist.get_rank(new) == 0:
+        store = dist.distributed_c10d._get_default_store()
+        prefix = new.group_name + "/"
+        for key in store.list_keys():
+            if key.startswith(prefix):
+                store.delete_key(key)
+    return new
+
+
+def shared_tempdir(prefix: str) -> str:
+    """A new temporary directory that every rank of the default group
+    names: rank 0 makes it and sends its path to the others (without a
+    group, or at world size 1, simply a new temporary directory)."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return tempfile.mkdtemp(prefix=prefix)
+    path = [tempfile.mkdtemp(prefix=prefix) if dist.get_rank() == 0
+            else None]
+    dist.broadcast_object_list(path, src=0)
+    return path[0]
 
 
 def free_port() -> int:

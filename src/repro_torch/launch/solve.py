@@ -24,11 +24,38 @@ choice as ``tuned[family]: ...``. ``--kernel`` picks a registered SVM kernel (th
 default is the family's: linear for svm, rbf for ksvm), and each kernel
 hyperparameter is a ``--kernel-<name>`` flag. Prints the objective (svm,
 ksvm: the dual) at the first and last inner iteration.
+
+``--checkpoint-every N`` / ``--checkpoint-dir D`` run the solve through
+the elastic driver (``repro_torch.runtime.solve_elastic``), checkpointing
+every N outer iterations (1 when only ``--checkpoint-dir`` is given; a
+fresh temporary directory when only ``--checkpoint-every`` is), and
+``--inject-failure STEP:HOST`` (repeatable) kills a host at an inner
+iteration. The hosts are the ranks of the default process group: under
+``python -m torch.distributed.run --standalone --nproc-per-node P`` the
+launcher joins it from the environment, otherwise it makes a group of
+one rank. The
+backend follows ``core.distributed.placement_backend`` (NCCL on the card
+when each rank has a card, else gloo) and is printed, with the world
+size, on the first line; the lowest surviving rank then prints each
+event as ``elastic: <event>`` and the summary. (``--standalone`` puts
+the rendezvous on a free port instead of torchrun's fixed default; the
+``--`` below ends torchrun's options: the argparse of some Python 3.12
+releases reads ``--s`` as an abbreviation of one of them.)
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m -- repro_torch.launch.solve --problem lasso --dataset w1a-like \
+        --s 4 --iterations 24 --checkpoint-every 1 --inject-failure 10:2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
+import tempfile
 import time
+
+import torch
+import torch.distributed as dist
 
 from repro_torch import api
 from repro_torch.api import FAMILIES, KERNELS, SolverConfig
@@ -83,10 +110,79 @@ def build_parser() -> argparse.ArgumentParser:
                          "cost model (repro_torch.tune) before solving; "
                          "--s/--mu become the incumbent the tuner must "
                          "beat")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="checkpoint directory for the elastic sharded "
+                         "driver (implies --checkpoint-every 1 if that "
+                         "flag is unset)")
+    ap.add_argument("--checkpoint-every", type=int, default=None,
+                    help="checkpoint every N OUTER iterations and run "
+                         "through the elastic sharded driver (survives "
+                         "injected host failures)")
+    ap.add_argument("--inject-failure", action="append", default=[],
+                    metavar="STEP:HOST",
+                    help="kill HOST at inner iteration STEP (repeatable); "
+                         "requires the elastic driver "
+                         "(--checkpoint-every/--checkpoint-dir)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
     return ap
+
+
+def _elastic_requested(args) -> bool:
+    """Whether an elastic flag was given: the elastic driver runs, else
+    the plain local path (``repro``'s ``_elastic_kwargs`` is None)."""
+    return (args.checkpoint_dir is not None
+            or args.checkpoint_every is not None
+            or bool(args.inject_failure))
+
+
+def _elastic_kwargs(args):
+    """Parse the elastic CLI flags into solve_elastic kwargs. A missing
+    directory is made now, shared by every rank of the default group, so
+    it is called once the group is joined."""
+    from repro_torch.core import distributed
+    from repro_torch.runtime import ElasticConfig, FailureInjector
+    if args.checkpoint_dir is None:
+        args.checkpoint_dir = distributed.shared_tempdir("repro_elastic_")
+    failures = {}
+    for spec in args.inject_failure:
+        step_s, host_s = spec.split(":")
+        failures.setdefault(int(step_s), []).append(int(host_s))
+    return {
+        "elastic": ElasticConfig(
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every or 1),
+        "injector": FailureInjector(failures=failures) if failures else None,
+    }
+
+
+@contextlib.contextmanager
+def _hosts(device: str):
+    """The default process group, whose ranks are the elastic solve's
+    hosts: joined from torchrun's environment (``WORLD_SIZE`` and the
+    rest), or made here for one rank through a ``FileStore`` in a
+    temporary directory. Yields (backend, world size); a group made here
+    is destroyed after the block."""
+    from repro_torch.core import distributed
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    count = torch.cuda.device_count() if device == "cuda" else 0
+    backend = distributed.placement_backend(device, world, count)
+    distributed.check_placement(backend, world, device, count)
+    with contextlib.ExitStack() as stack:
+        if "WORLD_SIZE" in os.environ:
+            if device == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                                      % count)
+            dist.init_process_group(backend)
+        else:
+            tmp = stack.enter_context(tempfile.TemporaryDirectory(
+                prefix="repro_torch_solve_"))
+            dist.init_process_group(
+                backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                rank=0, world_size=1)
+        stack.callback(dist.destroy_process_group)
+        yield backend, world
 
 
 def list_families() -> str:
@@ -120,6 +216,19 @@ def main(argv=None):
                        track_objective=args.track_objective,
                        symmetric_gram=args.symmetric_gram,
                        seed=args.seed, device=args.device)
+    ekw = None
+    with contextlib.ExitStack() as stack:
+        if _elastic_requested(args):
+            backend, world = stack.enter_context(_hosts(args.device))
+            ekw = _elastic_kwargs(args)
+            if dist.get_rank() == 0:
+                print(f"elastic: backend {backend}, world size {world}, "
+                      f"device {args.device}, checkpoints in "
+                      f"{args.checkpoint_dir}", flush=True)
+        _solve(args, family, cfg, ekw)
+
+
+def _solve(args, family, cfg, ekw):
     t0 = time.perf_counter()
     problem = family.make_problem(args)
     if args.tune:
@@ -132,7 +241,16 @@ def main(argv=None):
               f"{tr.predicted_default_s:.3g}s"
               f"{', cached machine' if tr.from_cache else ''})")
         args.s, args.mu = cfg.s, cfg.block_size   # describe() reads these
-    res = api.solve(problem, cfg, family=family.name)
+    if ekw is None:
+        res = api.solve(problem, cfg, family=family.name)
+    else:
+        from repro_torch.runtime import solve_elastic
+        res = solve_elastic(problem, cfg, family=family.name, **ekw)
+        report = res.aux["elastic"]
+        if dist.get_rank() != report["live_hosts"][0]:
+            return          # a lost host, or not the lowest survivor
+        for ev in report["events"]:
+            print(f"elastic: {ev}")
     print(family.describe(args, res, time.perf_counter() - t0))
 
 

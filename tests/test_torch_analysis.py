@@ -668,7 +668,8 @@ def test_sharded_solve_with_stored_zero_bit_identical_at_one_rank():
 # ---------------------------------------------------------------------------
 
 IN_SCOPE = ("repro.core", "repro.core.engine", "repro.api",
-            "repro.kernels.spmm", "repro.tune", "repro.analysis")
+            "repro.kernels.spmm", "repro.tune", "repro.analysis",
+            "repro.runtime.elastic")
 OUT_OF_SCOPE = {
     # the TPU VMEM guards: the port's kernels have no fallback to guard
     "vmem_ok", "spmm_vmem_ok", "kernel_vmem_model", "KernelVmemEntry",
@@ -676,8 +677,9 @@ OUT_OF_SCOPE = {
     "grouped_spmm_label", "pallas_guards_ok",
     # the JAX lowering entry (ROADMAP Queue 1, item 7)
     "lower_solve",
-    # the elastic runtime (Queue 1, item 2)
-    "ElasticConfig", "solve_elastic",
+    # a JAX mesh over the survivors: the port's elastic runtime forms a
+    # process group over them instead (core.distributed.survivor_group)
+    "build_1d_mesh",
     # jaxpr and Pallas machinery of repro.analysis
     "taint_jaxpr", "shard_map_out_taints", "KernelCapture", "SpecView",
     "capture_pallas_calls", "capture_footprint",
