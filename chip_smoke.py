@@ -202,12 +202,42 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    --checkpoint-every 1 --inject-failure 10:2 --device cuda`` as a
    subprocess (its rendezvous on a free port): exit 0, gloo
    at world size 4, a failure and a restore event, the final objective
-   within rel 1e-3 of the same command without the elastic flags.
+   within rel 1e-3 of the same command without the elastic flags;
+16. (run after phase 10, before phase 15) LM training
+   (``repro_torch.runtime.Trainer``, one gradient reduction per step):
+   (a) tinyllama-1.1b at full width and depth (22 layers, bf16, random
+   from a seed) at train_4k's S = 4096, global batch 8 (cut from 256) in
+   8 microbatches of 1, 8 steps of ``cosine_schedule(3e-4, 2, 8)``, NCCL
+   at world size 1: every loss finite and the last below the first,
+   exactly 22 x 8 K5 launches a step, all ``wgmma``, no other kernel, one
+   counted reduction a step; ms per step, tokens/s, peak memory, the
+   final checkpoint's bytes and times, the step's split by CUDA events
+   (forward: K5 and the rest; backward: K5's plain VJP and the rest; the
+   reduction; AdamW), and K5 against its plain version on the first
+   microbatch's layer-0 q/k/v (the prefill's bar); (b) f32, tinyllama
+   widths at 2 layers, B 2, S 512: one step on the card against the CPU
+   from the same weights (loss rel 1e-4; the reduced gradients, and the
+   card's AdamW against the CPU's on the card's gradients, within 1e-4 of
+   each leaf's max; the updated parameters too, where the gradient is
+   not zero within the two devices' rounding: Adam's first step is ~lr
+   sign(g)), then ``remat`` "full" and
+   "dots" against "none" on the card (the loss bit for bit, gradients
+   within 1e-6 of each leaf's max, K5 launched twice a layer); (c)
+   microbatches 1 against 4 on the card, 3 steps, losses within rel
+   1e-5; (d) four gloo ranks on the one card at tinyllama widths, 2
+   layers, f32, a checkpoint every 4 steps: undisturbed 12 steps, then
+   ranks 2 and 3 killed at step 6, resumed at step 4 on [0, 1] to 12
+   with losses within rel 1e-5 of the undisturbed run; the checkpoint's
+   bytes, write and restore times; (e) ``python -m
+   repro_torch.launch.train --arch tinyllama-1.1b --smoke --steps 20
+   --ckpt-dir <tmp>`` exits 0.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
 ``svm_inner`` and ``flash_attention``, and a row for each kernel at a
-phase 12 path's shape: its launches on its main path,
+phase 12 path's shape: its launches on its main path (``flash_attention``
+also its launches per training step and its error and times at the
+training shape, phase 16),
 its error against the plain version, its time through the wrapper
 (``ms``, CUDA events over back-to-back calls, host work included), its
 device time alone (``device_ms``: the summed kernel durations of a
@@ -270,8 +300,9 @@ SERVE_B, SERVE_P, SERVE_G = 8, 128, 32
 TINY, TINY_LAYERS, TINY_B, TINY_S = "tinyllama-1.1b", 2, 2, 512
 # (B, Hq, Hkv, Sq, Sk, D, causal, window): tests/test_kernels.py
 # ATTN_CASES, then ragged keys, a ragged window, 4:1 GQA at D = 128 over a
-# partial last tile, a bidirectional Sq < Sk, and stablelm-12b's heads
-# (32 over 8 of D = 160) over a partial last tile.
+# partial last tile, a bidirectional Sq < Sk, stablelm-12b's heads
+# (32 over 8 of D = 160) over a partial last tile, and the smoke configs'
+# D = 16 at the training launcher's default batch and length.
 ATTN_CASES = [
     (2, 4, 2, 128, 128, 64, True, 0),
     (1, 8, 2, 256, 256, 64, True, 64),
@@ -284,6 +315,7 @@ ATTN_CASES = [
     (1, 32, 8, 1000, 1000, 128, True, 0),
     (1, 4, 1, 128, 256, 64, False, 0),
     (1, 32, 8, 520, 520, 160, True, 0),
+    (8, 4, 2, 128, 128, 16, True, 0),
 ]
 
 
@@ -1041,17 +1073,19 @@ def epsilon_problem(seed: int):
 
 class PhaseTimer:
     """CUDA event pairs around named callables: device time per phase.
-    The first call's arguments of each are kept in ``first``."""
+    The first call's arguments of each are kept in ``first`` (unless
+    ``keep_first=False``: a training step's would hold its buffers)."""
 
     def __init__(self):
         self.events = {}
         self.first = {}
 
-    def wrap(self, name, fn):
+    def wrap(self, name, fn, keep_first: bool = True):
         import torch
 
         def timed(*args, **kw):
-            self.first.setdefault(name, (args, kw))
+            if keep_first:
+                self.first.setdefault(name, (args, kw))
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -3999,6 +4033,552 @@ def phase_f32_lm():
         raise AssertionError("f32 card and CPU generate different tokens")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: LM training.
+# ---------------------------------------------------------------------------
+
+# (a) tinyllama-1.1b at full width and depth, bf16, at train_4k's sequence
+# length; the global batch cut from train_4k's 256 to 8, in 8 microbatches
+# of one sequence (a second sequence would double the plain-VJP backward's
+# f32 score tensors).
+TRAIN_ARCH, TRAIN_GB, TRAIN_K, TRAIN_STEPS = "tinyllama-1.1b", 8, 8, 8
+# (b)-(d): tinyllama-1.1b widths cut to 2 layers at f32 (~219 M
+# parameters): (b) B x S for the card against the CPU; (c) microbatches 1
+# against 4; (d) four gloo ranks, a checkpoint every 4 steps, ranks 2 and 3
+# killed at step 6.
+TT_B, TT_S = 2, 512
+TT_MB = (8, 256, 3)                     # global batch, length, steps
+TT_GLOO = (8, 256, 12, 4)               # global batch, length, steps, every
+TT_KILL = (6, [2, 3])
+
+
+class CallTimes:
+    """Host seconds of each call of ``owner.attr``, while installed."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr, self.seconds = owner, attr, []
+        self.fn = getattr(owner, attr)
+
+    def __enter__(self):
+        fn, seconds = self.fn, self.seconds
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            seconds.append(time.perf_counter() - t0)
+            return out
+        setattr(self.owner, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+        return False
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def train_step_split(timer, k: int, layers: int, n: int):
+    """Device ms of each part of a step, means over the last ``n`` steps
+    of the CUDA event pairs ``timer`` holds (``k`` microbatches, ``layers``
+    K5 launches a microbatch)."""
+    def last(name, per_step):
+        pairs = timer.events.get(name, [])[-per_step * n:]
+        return sum(a.elapsed_time(b) for a, b in pairs) / n
+    total = last("step", 1)
+    fwd, k5f = last("forward", k), last("k5_forward", k * layers)
+    bwd, k5b = last("backward", k), last("k5_backward", k * layers)
+    red, opt = last("reduction", 1), last("optimizer", 1)
+    return total, {
+        "forward: K5 (wgmma)": k5f,
+        "forward: the rest (GEMMs, rope, norms, f32 logits, loss)":
+            fwd - k5f,
+        "backward: K5's plain-VJP (attention_ref recomputed, f32)": k5b,
+        "backward: the rest (GEMM grads, norms, embedding)": bwd - k5b,
+        "gradient reduction (one preduce, NCCL world 1)": red,
+        "AdamW (clip, moments, update)": opt,
+        "rest (f32 accumulation of the grads, buffer, host)":
+            total - fwd - bwd - red - opt,
+    }
+
+
+def phase_train_full():
+    """Phase 16 (a): full-width, full-depth tinyllama-1.1b training."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import distributed, linalg
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import driver
+    from repro_torch.runtime.driver import Trainer, TrainerConfig
+
+    arch = get_config(TRAIN_ARCH)
+    full = SHAPES["train_4k"]
+    S, B, k, n = full.seq_len, TRAIN_GB, TRAIN_K, TRAIN_STEPS
+    log(f"phase 16 (a): training {arch.name} at full width and depth "
+        f"({arch.n_layers} layers, {arch.dtype}), S={S}, global batch {B} "
+        f"(cut from repro's {full.name}: B={full.global_batch} "
+        f"S={full.seq_len}) in {k} microbatches of {B // k}, {n} steps, "
+        f"cosine_schedule(3e-4, 2, {n}), NCCL at world size 1")
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{distributed.free_port()}",
+        world_size=1, rank=0)
+    tmp = tempfile.mkdtemp(prefix="phase16_")
+    try:
+        log(f"  free space where the checkpoint goes: "
+            f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB")
+        t0 = time.perf_counter()
+        model = lm.init_params(arch, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"  {n_params / 1e9:.3f} B parameters, made on the card in "
+            f"{time.perf_counter() - t0:.2f} s")
+        tr = Trainer(arch, AdamW(learning_rate=cosine_schedule(3e-4, 2, n)),
+                     TokenPipeline(arch.vocab_size, B, S, seed=0),
+                     TrainerConfig(steps=n, ckpt_dir=tmp, ckpt_every=n,
+                                   microbatches=k),
+                     group=dist.group.WORLD, device="cuda", model=model)
+        timer = PhaseTimer()
+        walls = []
+        inner = tr.step_fn
+
+        def step(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = timer.wrap("step", inner, False)(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+        tr.step_fn = step
+        real_grad = torch.autograd.grad
+        timed_grad = timer.wrap("backward", real_grad, False)
+        depth = [0]
+
+        def outer_grad(*args, **kw):      # K5's VJP calls grad inside
+            if depth[0]:
+                return real_grad(*args, **kw)
+            depth[0] += 1
+            try:
+                return timed_grad(*args, **kw)
+            finally:
+                depth[0] -= 1
+        k5_bwd = fa_ops._Flash.backward
+        patches = [
+            (lm, "train_loss", timer.wrap("forward", lm.train_loss, False)),
+            (L, "flash_attention", timer.wrap("k5_forward",
+                                              L.flash_attention)),
+            (torch.autograd, "grad", outer_grad),
+            (fa_ops._Flash, "backward",
+             staticmethod(timer.wrap("k5_backward", k5_bwd, False))),
+            (linalg, "preduce", timer.wrap("reduction", linalg.preduce,
+                                           False)),
+            (AdamW, "update", timer.wrap("optimizer", AdamW.update, False))]
+        saved = [(o, a, o.__dict__[a]) for o, a, _ in patches]
+        for o, a, fn in patches:
+            setattr(o, a, fn)
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with linalg.count_reductions() as red, \
+                    CallTimes(ckpt, "save_checkpoint") as save, \
+                    CallTimes(driver.Trainer, "_save") as host_copy:
+                t0 = time.perf_counter()
+                out = tr.run()
+                run_s = time.perf_counter() - t0
+        finally:
+            for o, a, fn in saved:
+                setattr(o, a, fn)
+        got, routes = read_counts(), dict(flash_attention.route_launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_step = arch.n_layers * k
+        want = dict.fromkeys(got, 0)
+        want["flash_attention"] = per_step * n
+        losses = out["losses"]
+        log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+        log(f"  launches: {got} (expected {want}); K5 by body {routes} "
+            f"(expected wgmma {per_step} x {n}); counted reductions "
+            f"{red.n} (expected 1 per step, {n})")
+        if got != want or routes != {"wgmma": per_step * n, "simt": 0}:
+            raise AssertionError(f"(a) launches {got} {routes}")
+        if red.n != n or red.max != 0:
+            raise AssertionError(f"(a) {red.n} reductions in {n} steps")
+        if len(losses) != n or not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"(a) losses {losses}")
+        steady = sorted(walls[1:])[len(walls[1:]) // 2]
+        tokens = B * S
+        log(f"  step walls (s): {' '.join(f'{w:.4f}' for w in walls)}; "
+            f"steady (median after the first) {steady:.4f} s, "
+            f"{tokens / steady:.1f} tokens/s; peak device memory "
+            f"{peak:.3f} GiB")
+        ckpt_dir = os.path.join(tmp, f"step_{n:08d}")
+        log(f"  the checkpoint at step {n}: {dir_bytes(ckpt_dir) / 1e9:.3f} "
+            f"GB on disk; host copy {host_copy.seconds[-1]:.3f} s, write "
+            f"(npz, fsync, rename; async) {save.seconds[-1]:.3f} s; "
+            f"run() {run_s:.1f} s")
+        total, split = train_step_split(timer, k, arch.n_layers, n - 1)
+        log(f"  where a step's time goes (device time by CUDA events, ms, "
+            f"mean of steps 2-{n}; the step {total:.1f} ms):")
+        for name, ms in split.items():
+            log(f"    {name:60s} {ms:10.2f}  {100 * ms / total:5.1f}%")
+        # K5 against its plain version on the q/k/v that the first
+        # microbatch's layer 0 gave it (the prefill's bar, phase 8).
+        (q, kk, v), kw = timer.first["k5_forward"]
+        q, kk, v = (t.detach() for t in (q, kk, v))
+        with torch.no_grad():
+            got_o = flash_attention(q, kk, v, **kw)
+            want_o = attention_ref(q, kk, v, **kw).float()
+        err = check_close(f"K5 on layer 0's q/k/v of training step 1 "
+                          f"{tuple(q.shape)} / {tuple(kk.shape)} {q.dtype}",
+                          got_o.float(), want_o, 2.0 ** -7, 4e-3)
+        k5_ms = time_ms(lambda: flash_attention(q, kk, v, **kw), 10, 1)
+        plain_ms = time_ms(lambda: attention_ref(q, kk, v, **kw), 3, 1)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, kk, v, is_causal=True, enable_gqa=True), 10, 1)
+        flops = 4.0 * q.shape[1] * q.shape[3] * live_pairs(S, S, True, 0)
+        nbytes = (2 * q.numel() + kk.numel() + v.numel()) * q.element_size()
+        bound, why = bound_ms(nbytes, flops, BF16_FLOPS)
+        log(f"  K5 at this shape {k5_ms:.4f} ms ({flops / k5_ms / 1e9:.1f} "
+            f"TFLOP/s), its plain version {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {sdpa_ms:.4f} ms; bound "
+            f"{bound:.4f} ms by {why}")
+        del tr, model, q, kk, v, got_o, want_o, timer
+        return {"train_launches_per_step": per_step,
+                "train_max_abs_err": err, "train_ms": k5_ms,
+                "train_plain_ms": plain_ms, "train_bound_ms": bound,
+                "train_library_ms": sdpa_ms}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def tiny_train_arch():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TINY), n_layers=TINY_LAYERS,
+                               dtype="float32")
+
+
+def train_optimizer():
+    from repro_torch.optim import AdamW, cosine_schedule
+    return AdamW(learning_rate=cosine_schedule(3e-4, 2, 8))
+
+
+def one_step(model, batch, k=1):
+    """(loss, {name: reduced f32 grad on the host}) of one optimizer step
+    of ``model`` (updated in place) through ``make_train_step``."""
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.driver import TrainerConfig, make_train_step
+    opt = train_optimizer()
+    model.requires_grad_(True)
+    state = opt.init(dict(model.named_parameters()))
+    grads = {}
+    real = AdamW.update
+
+    def keep(self, g, st, params):
+        grads.update({n: t.detach().cpu().clone() for n, t in g.items()})
+        return real(self, g, st, params)
+    AdamW.update = keep
+    try:
+        loss = float(make_train_step(model.arch, opt, TrainerConfig(
+            microbatches=k))(model, state, batch))
+    finally:
+        AdamW.update = real
+    return loss, grads
+
+
+def leaf_err(got, want):
+    """max |got - want| / max |want| of one leaf."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_train_card_vs_cpu():
+    """Phase 16 (b): one f32 step on the card against the CPU, and the
+    checkpointing policies against each other on the card.
+
+    Adam's first step moves each entry by about lr sign(g), so an entry
+    whose gradient is zero within the f32 rounding of the two devices may
+    move the other way: end to end, the updated parameters are held to
+    1e-4 of their leaf's max where the CPU's gradient exceeds 100 times
+    the leaf's largest card-CPU gradient difference, and each part alone
+    everywhere: the reduced gradients, and the card's AdamW against the
+    CPU's on the card's gradients."""
+    import torch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm
+
+    arch = tiny_train_arch()
+    log(f"phase 16 (b): one f32 training step of {TINY} widths at "
+        f"{TINY_LAYERS} layers, B={TT_B} S={TT_S}, the card (K5) against "
+        f"the CPU (plain); then remat none / full / dots on the card")
+    gpu = lm.init_params(arch, seed=0, device="cuda")
+    cpu = lm.LM(arch, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    p0 = {n: p.detach().cpu().clone() for n, p in cpu.named_parameters()}
+    toks, tgts = TokenPipeline(arch.vocab_size, TT_B, TT_S, seed=0).batch_at(0)
+    batch = {"tokens": toks, "targets": tgts}
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    lg, gg = one_step(gpu, batch)
+    t1 = time.perf_counter()
+    launched = flash_attention.launches
+    lc, gc = one_step(cpu, batch)
+    rel = abs(lg - lc) / abs(lc)
+    log(f"  loss card {lg:.7f} cpu {lc:.7f}: rel {rel:.3e} (bar 1e-4); K5 "
+        f"launched {launched} times (expected {TINY_LAYERS}); the step "
+        f"{t1 - t0:.2f} s on the card, {time.perf_counter() - t1:.2f} s on "
+        f"the CPU")
+    if not rel <= 1e-4 or launched != TINY_LAYERS:
+        raise AssertionError("(b) the card's loss differs from the CPU's")
+    # the CPU's AdamW on the card's reduced gradients, from the same weights
+    ref = lm.LM(arch, "cpu")
+    ref.load_state_dict(p0)
+    opt = train_optimizer()
+    params = dict(ref.named_parameters())
+    opt.update(gg, opt.init(params), params)
+    card = {n: p.detach().cpu() for n, p in gpu.named_parameters()}
+    g_err = {n: leaf_err(gg[n], gc[n]) for n in gc}
+    opt_err = max(leaf_err(card[n], params[n].detach()) for n in card)
+    worst = max(g_err, key=g_err.get)
+    over = flips = over_cond = 0
+    e2e = e2e_cond = 0.0
+    for name, pc in cpu.named_parameters():
+        pc = pc.detach()
+        err, scale = (card[name] - pc).abs(), pc.abs().max()
+        cond = gc[name].abs() > 100 * (gg[name] - gc[name]).abs().max()
+        bad = err > 1e-4 * scale
+        over += int(bad.sum())
+        flips += int((bad & (gg[name].sign() != gc[name].sign())).sum())
+        over_cond += int((bad & cond).sum())
+        e2e = max(e2e, float(err.max() / scale))
+        if cond.any():
+            e2e_cond = max(e2e_cond, float(err[cond].max() / scale))
+    log(f"  reduced gradients: max |card - cpu| / max |cpu| per leaf "
+        f"{g_err[worst]:.3e} ({worst}; bar 1e-4); the card's AdamW against "
+        f"the CPU's on the card's gradients {opt_err:.3e} (bar 1e-4)")
+    log(f"  updated parameters, card step against CPU step: max |card - cpu|"
+        f" / max |cpu| per leaf {e2e:.3e}, {over} entries over 1e-4 ({flips}"
+        f" where the two gradients differ in sign); where the gradient "
+        f"exceeds 100x the leaf's gradient difference {e2e_cond:.3e}, "
+        f"{over_cond} entries over 1e-4 (bar: none)")
+    if not g_err[worst] <= 1e-4 or not opt_err <= 1e-4 or over_cond:
+        raise AssertionError("(b) the card's step differs from the CPU's")
+    del cpu, ref, params, gg, gc, card
+    # remat on the card: the same loss bits; the embedding's backward adds
+    # with atomics, so the gradients' bits may differ.
+    gpu.load_state_dict(p0)
+    named = list(gpu.named_parameters())
+    ref = None
+    for remat in ("none", "full", "dots"):
+        flash_attention.launches = 0
+        loss = lm.train_loss(gpu, batch, remat=remat)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        n_k5 = flash_attention.launches
+        if ref is None:
+            ref = (loss.detach(), grads)
+            log(f"  remat none: loss {float(ref[0]):.7f}, K5 launched {n_k5}")
+            continue
+        dg = max(leaf_err(g, r) for g, r in zip(grads, ref[1]))
+        same = bool(torch.equal(loss.detach(), ref[0]))
+        log(f"  remat {remat}: loss bit-equal to none {same}; grads max "
+            f"|diff| / max per leaf {dg:.3e} (bar 1e-6); K5 launched {n_k5} "
+            f"(expected {2 * TINY_LAYERS})")
+        if not same or not dg <= 1e-6 or n_k5 != 2 * TINY_LAYERS:
+            raise AssertionError(f"(b) remat {remat} differs from none")
+    del gpu, ref, grads
+    torch.cuda.empty_cache()
+
+
+def phase_train_microbatches():
+    """Phase 16 (c): microbatches 1 against 4 on the card, f32."""
+    import torch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime.driver import TrainerConfig, make_train_step
+
+    arch = tiny_train_arch()
+    B, S, n = TT_MB
+    log(f"phase 16 (c): {TINY} widths at {TINY_LAYERS} layers, f32, global "
+        f"batch {B}, S={S}, {n} steps: microbatches 1 against 4 on the card")
+    pipe = TokenPipeline(arch.vocab_size, B, S, seed=0)
+    losses = {}
+    for k in (1, 4):
+        model = lm.init_params(arch, seed=0, device="cuda")
+        model.requires_grad_(True)
+        opt = AdamW(learning_rate=cosine_schedule(3e-4, 2, n))
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(arch, opt, TrainerConfig(microbatches=k))
+        losses[k] = []
+        for i in range(n):
+            toks, tgts = pipe.batch_at(i)
+            losses[k].append(float(step(model, state, {"tokens": toks,
+                                                        "targets": tgts})))
+        del model, state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[4], losses[1]))
+    log(f"  losses k=1 {losses[1]}, k=4 {losses[4]}: max rel {rel:.3e} "
+        f"(bar 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError("(c) microbatches change the losses")
+    torch.cuda.empty_cache()
+
+
+def train_rank(rank, world, tmp):
+    """Phase 16 (d) on one of four gloo ranks sharing the card: the
+    undisturbed run, then ranks 2 and 3 killed at step 6."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import linalg
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.runtime.driver import Trainer, TrainerConfig
+
+    arch = tiny_train_arch()
+    B, S, n, every = TT_GLOO
+    out = {}
+    for name in ("undisturbed", "failure"):
+        kw = {} if name == "undisturbed" else {
+            "failure_injector": FailureInjector({TT_KILL[0]: TT_KILL[1]})}
+        tr = Trainer(arch, AdamW(learning_rate=cosine_schedule(3e-4, 2, n)),
+                     TokenPipeline(arch.vocab_size, B, S, seed=0),
+                     TrainerConfig(steps=n, ckpt_dir=os.path.join(tmp, name),
+                                   ckpt_every=every),
+                     group=dist.group.WORLD, device="cuda",
+                     model=lm.init_params(arch, seed=0, device="cuda"), **kw)
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        with linalg.count_reductions() as red, \
+                CallTimes(ckpt, "save_checkpoint") as save, \
+                CallTimes(Trainer, "_restore") as restore:
+            res = tr.run()
+        res.update(wall=time.perf_counter() - t0, reductions=red.n,
+                   live=list(tr.live), launches=flash_attention.launches,
+                   save_s=save.seconds, restore_s=restore.seconds)
+        if rank == 0 and name == "undisturbed":
+            res["ckpt_bytes"] = dir_bytes(os.path.join(tmp, name,
+                                                       f"step_{n:08d}"))
+        out[name] = res
+        del tr
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def phase_train_gloo():
+    """Phase 16 (d): a checkpoint and an injected failure at tinyllama
+    widths, four gloo ranks on the one card."""
+    import tempfile
+    import torch
+    from repro_torch.core import distributed
+
+    B, S, n, every = TT_GLOO
+    step, dead = TT_KILL
+    log(f"phase 16 (d): {TINY} widths at {TINY_LAYERS} layers, f32, {P_GLOO} "
+        f"gloo ranks on the one card, global batch {B}, S={S}, {n} steps, a "
+        f"checkpoint every {every}: undisturbed, then ranks {dead} killed at "
+        f"step {step}")
+    with tempfile.TemporaryDirectory(prefix="phase16_") as tmp:
+        t0 = time.perf_counter()
+        distributed.run_ranks(train_rank, P_GLOO, "gloo", device="cuda",
+                              args=(tmp,))
+        log(f"  {P_GLOO} ranks done in {time.perf_counter() - t0:.1f} s")
+        ranks = {r: torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                               weights_only=False) for r in range(P_GLOO)}
+    und = ranks[0]["undisturbed"]
+    for r in range(P_GLOO):
+        u = ranks[r]["undisturbed"]
+        if u["final_step"] != n or u["reductions"] != n or u["lost"] \
+                or u["losses"] != und["losses"]:
+            raise AssertionError(f"(d) undisturbed rank {r}: {u}")
+    log(f"  undisturbed: losses {' '.join(f'{x:.5f}' for x in und['losses'])}"
+        f"; {und['reductions']} reductions and {und['launches']} K5 launches "
+        f"a rank; wall {und['wall']:.1f} s")
+    log(f"  a checkpoint: {und['ckpt_bytes'] / 1e9:.3f} GB on disk; writes "
+        f"(rank 0, async) {' '.join(f'{s:.2f}' for s in und['save_s'])} s")
+    for r in dead:
+        f = ranks[r]["failure"]
+        if not f["lost"] or f["final_step"] != step:
+            raise AssertionError(f"(d) rank {r} did not leave at {step}: {f}")
+    worst = 0.0
+    for r in range(P_GLOO):
+        if r in dead:
+            continue
+        f = ranks[r]["failure"]
+        resumed = [e for e in f["events"] if "re-meshed" in e]
+        ok = (not f["lost"] and f["final_step"] == n and f["live"] == [0, 1]
+              and resumed and resumed[0].endswith("resumed at step 4")
+              and f["losses"][:step] == und["losses"][:step]
+              and len(f["losses"]) == step + n - 4)
+        if not ok:
+            raise AssertionError(f"(d) survivor {r}: {f}")
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(f["losses"][step:], und["losses"][4:]))
+        worst = max(worst, rel)
+        log(f"  survivor {r}: events {f['events']}; losses from step 4 "
+            f"{' '.join(f'{x:.5f}' for x in f['losses'][step:])}; max rel "
+            f"to the undisturbed run {rel:.3e} (bar 1e-5); restore "
+            f"{' '.join(f'{s:.3f}' for s in f['restore_s'])} s; wall "
+            f"{f['wall']:.1f} s")
+    if not worst <= 1e-5:
+        raise AssertionError("(d) the recovered losses differ")
+
+
+def phase_train_cli():
+    """Phase 16 (e): the training launcher on the card."""
+    import re
+    import subprocess as sp
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="phase16_cli_") as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               TRAIN_ARCH, "--smoke", "--steps", "20", "--ckpt-dir", tmp]
+        t0 = time.perf_counter()
+        out = sp.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
+                     capture_output=True, text=True, timeout=600)
+        ckpts = sorted(os.listdir(tmp))
+    log(f"phase 16 (e): python -m repro_torch.launch.train --arch "
+        f"{TRAIN_ARCH} --smoke --steps 20 --ckpt-dir <tmp>: exit "
+        f"{out.returncode} in {time.perf_counter() - t0:.1f} s; checkpoints "
+        f"{ckpts}")
+    for ln in out.stdout.strip().splitlines():
+        log(f"    {ln}")
+    m = re.search(r"arch=tinyllama-smoke steps=20 loss (\S+) -> (\S+)",
+                  out.stdout)
+    if out.returncode != 0 or m is None or ckpts != ["step_00000020"]:
+        raise AssertionError(f"(e) the CLI: {out.stdout[-2000:]} "
+                             f"{out.stderr[-3000:]}")
+
+
+def phase_training():
+    """Phase 16: (a) full width, (b) card against CPU, (c) microbatches,
+    (d) the checkpoint and a failure over gloo ranks, (e) the CLI. Returns
+    what K5's row gains."""
+    t0 = time.perf_counter()
+    row = phase_train_full()
+    phase_train_card_vs_cpu()
+    phase_train_microbatches()
+    phase_train_gloo()
+    phase_train_cli()
+    log(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
+    return row
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: run it from the root of a checkout "
@@ -4050,11 +4630,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_f32_lm()
     torch.cuda.empty_cache()
+    train_row = phase_training()
+    torch.cuda.empty_cache()
     phase_elastic()
 
     rows.update(svm_rows)
     rows.update(family_rows)
     rows["flash_attention"]["launches"] = fa_launches
+    rows["flash_attention"].update(train_row)
     for name, n in launches.items():
         rows[name]["launches"] = n
     for name in svm_rows:
@@ -4062,7 +4645,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+    extra = tuple(train_row)             # K5's row: the training step
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,11 @@ the same way; the port keeps one module per layer and one
 (n_layers, ...) tensor per cache leaf. ``lm_params_from_numpy`` /
 ``lm_params_to_numpy`` and ``cache_from_numpy`` / ``cache_to_numpy`` move
 them across as numpy arrays (``np.asarray`` of each ``repro`` leaf; bf16
-leaves travel as float32, which holds them exactly).
+leaves travel as float32, which holds them exactly), and
+``adamw_state_from_numpy`` / ``adamw_state_to_numpy`` the optimizer state
+(its moments are shaped like the params). ``lm_flat`` / ``lm_tree`` are
+the layout change itself, for numpy arrays or tensors: the trainer's
+checkpoints hold ``repro``'s tree.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from repro_torch.core.types import (LassoProblem, LogRegProblem, SolveState,
                                     SparseOperand, SVMProblem,
                                     resolve_device)
 from repro_torch.models import lm as _lm
+from repro_torch.optim.adamw import AdamWState
 
 _ELL_FIELDS = ("row_cols", "row_vals", "row_blocks",
                "col_rows", "col_vals", "col_blocks")
@@ -149,10 +154,10 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def _nest(flat):
+def _nest(flat, sep="."):
     tree = {}
     for path, v in flat.items():
-        *dirs, leaf = path.split(".")
+        *dirs, leaf = path.split(sep)
         node = tree
         for d in dirs:
             node = node.setdefault(d, {})
@@ -164,38 +169,80 @@ def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def lm_params_from_numpy(arch: ArchConfig, tree, device="cuda") -> _lm.LM:
-    """An :class:`~repro_torch.models.lm.LM` holding ``repro``'s weights:
-    ``tree`` is ``repro``'s param tree (``lm.init_params``) with every leaf
-    as a numpy array. Raises on a missing, extra or misshapen leaf."""
-    model = _lm.LM(arch, resolve_device(device))
-    state = {k: _f32(v) for k, v in _flatten(
+def lm_flat(arch: ArchConfig, tree, leaf=lambda a: a) -> Dict:
+    """``repro``'s param-shaped tree (the params, or a moment of their
+    optimizer state) as {port parameter name: ``leaf(layer's slice)``}:
+    the stacked leaves of ``layers["slot{i}_{kind}"]`` split into layers
+    g * period + i. Leaves are numpy arrays or tensors."""
+    flat = {k: leaf(v) for k, v in _flatten(
         {k: v for k, v in tree.items() if k != "layers"})}
     for i, slot, period in _slots(arch):
         for path, stacked in _flatten(tree["layers"][slot]):
-            for g, leaf in enumerate(np.asarray(stacked, dtype=np.float32)):
-                state[f"layers.{g * period + i}.{path}"] = _f32(leaf)
-    model.load_state_dict(state, strict=True)
-    return model
+            if not isinstance(stacked, torch.Tensor):
+                stacked = np.asarray(stacked)
+            for g in range(stacked.shape[0]):
+                flat[f"layers.{g * period + i}.{path}"] = leaf(stacked[g])
+    return flat
 
 
-def lm_params_to_numpy(model: _lm.LM):
-    """``repro``'s param tree of ``model``'s weights, float32 numpy
-    leaves (cast them to the config dtype on the JAX side)."""
-    arch = model.arch
-    flat = {k: v.detach().float().cpu().numpy()
-            for k, v in model.state_dict().items()}
+def lm_tree(arch: ArchConfig, flat, stack=np.stack):
+    """The inverse of :func:`lm_flat`: {port parameter name: leaf} as
+    ``repro``'s tree, each slot's layers joined by ``stack``
+    (``np.stack`` or ``torch.stack``)."""
     tree = _nest({k: v for k, v in flat.items()
                   if not k.startswith("layers.")})
     tree["layers"] = {}
     for i, slot, period in _slots(arch):
         prefix = f"layers.{i}."
         tree["layers"][slot] = _nest({
-            path[len(prefix):]: np.stack([
+            path[len(prefix):]: stack([
                 flat[f"layers.{g}.{path[len(prefix):]}"]
                 for g in range(i, arch.n_layers, period)])
             for path in flat if path.startswith(prefix)})
     return tree
+
+
+def lm_params_from_numpy(arch: ArchConfig, tree, device="cuda") -> _lm.LM:
+    """An :class:`~repro_torch.models.lm.LM` holding ``repro``'s weights:
+    ``tree`` is ``repro``'s param tree (``lm.init_params``) with every leaf
+    as a numpy array. Raises on a missing, extra or misshapen leaf."""
+    model = _lm.LM(arch, resolve_device(device))
+    model.load_state_dict(lm_flat(arch, tree, _f32), strict=True)
+    return model
+
+
+def lm_params_to_numpy(model: _lm.LM):
+    """``repro``'s param tree of ``model``'s weights, float32 numpy
+    leaves (cast them to the config dtype on the JAX side)."""
+    return lm_tree(model.arch, {k: v.detach().float().cpu().numpy()
+                                for k, v in model.state_dict().items()})
+
+
+def adamw_state_from_numpy(arch: ArchConfig, state,
+                           device="cuda") -> AdamWState:
+    """The port's :class:`~repro_torch.optim.AdamWState` (moments keyed
+    by parameter name, as the trainer's ``named_parameters``) from
+    ``repro``'s ``AdamWState`` (``step``, ``mu``, ``nu``; numpy leaves in
+    the stacked per-slot layout)."""
+    dev = resolve_device(device)
+    moment = lambda a: _f32(a).to(dev)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        mu=lm_flat(arch, state.mu, moment),
+        nu=lm_flat(arch, state.nu, moment))
+
+
+def adamw_state_to_numpy(arch: ArchConfig, state: AdamWState) -> AdamWState:
+    """``repro``'s optimizer state of the port's: an ``AdamWState`` of
+    an int32 numpy step and float32 numpy moment trees in ``repro``'s
+    stacked layout (``repro.optim.adamw.AdamWState(*it)`` on the JAX
+    side)."""
+    host = lambda t: t.detach().float().cpu().numpy()
+    return AdamWState(
+        step=np.asarray(int(state.step), dtype=np.int32),
+        mu=lm_tree(arch, {k: host(v) for k, v in state.mu.items()}),
+        nu=lm_tree(arch, {k: host(v) for k, v in state.nu.items()}))
 
 
 def cache_from_numpy(arch: ArchConfig, tree, device="cuda"):

@@ -8,6 +8,7 @@ sharded and x is replicated; SVM, kernel SVM and logistic-regression
 columns are sharded and everything in R^m (alpha, f, the margins) is
 replicated. Zero padding of the partitioned axis is exact for all.
 
+The launchers join (or make) their group through :func:`join_hosts`.
 ``repro``'s ``lower_lasso_step`` / ``lower_svm_step`` lower a JAX program
 for a device mesh and have no counterpart here. :func:`survivor_group`
 takes the place of ``repro.runtime.elastic.build_1d_mesh``: after a
@@ -15,6 +16,7 @@ failure the elastic driver re-groups the surviving ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import tempfile
@@ -117,6 +119,34 @@ def shared_tempdir(prefix: str) -> str:
             else None]
     dist.broadcast_object_list(path, src=0)
     return path[0]
+
+
+@contextlib.contextmanager
+def join_hosts(device: str):
+    """The default process group of a launcher, whose ranks are its
+    hosts: joined from torchrun's environment (``WORLD_SIZE`` and the
+    rest), or made here for one rank through a ``FileStore`` in a
+    temporary directory. The backend is :func:`placement_backend`'s.
+    Yields (backend, world size); a group made here is destroyed after
+    the block."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    count = torch.cuda.device_count() if device == "cuda" else 0
+    backend = placement_backend(device, world, count)
+    check_placement(backend, world, device, count)
+    with contextlib.ExitStack() as stack:
+        if "WORLD_SIZE" in os.environ:
+            if device == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                                      % count)
+            dist.init_process_group(backend)
+        else:
+            tmp = stack.enter_context(tempfile.TemporaryDirectory(
+                prefix="repro_torch_group_"))
+            dist.init_process_group(
+                backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                rank=0, world_size=1)
+        stack.callback(dist.destroy_process_group)
+        yield backend, world
 
 
 def free_port() -> int:

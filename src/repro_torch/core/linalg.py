@@ -123,9 +123,10 @@ def count_reductions():
             api.solve(problem, cfg, backend="sharded")
         c.n   # ceil(H/s) for an SA solve with track_objective=False
 
-    Only :func:`preduce` adds to it (once per ``all_reduce`` it calls);
-    :func:`pgather` does not."""
-    c = types.SimpleNamespace(n=0)
+    Only :func:`preduce` adds to ``c.n`` (once per ``all_reduce`` it
+    calls); :func:`pmax` adds to ``c.max`` instead, and :func:`pgather` to
+    neither."""
+    c = types.SimpleNamespace(n=0, max=0)
     _OPEN_COUNTS.append(c)
     try:
         yield c
@@ -133,10 +134,20 @@ def count_reductions():
         _OPEN_COUNTS.remove(c)
 
 
+def _all_reduce(x, op, group):
+    """``x`` reduced by ``op`` over ``group``: in place when ``x`` is
+    contiguous, else a contiguous copy (``all_reduce`` takes only dense
+    tensors). The port's one ``all_reduce`` call site."""
+    x = x.contiguous()
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
 def preduce(x, group=None, counted: bool = True):
     """The all-reduce seam: the sum of ``x`` over the ranks of ``group``
     (a ``torch.distributed`` process group), or ``x`` itself when
-    ``group`` is None. The one ``all_reduce`` call site of the port.
+    ``group`` is None: the seam every solver and the trainer reduce
+    through.
 
     A contiguous ``x`` is reduced in place and returned; any other view
     (``all_reduce`` takes only dense tensors) is copied first.
@@ -145,11 +156,25 @@ def preduce(x, group=None, counted: bool = True):
     reductions that belong to no solve."""
     if group is None:
         return x
-    x = x.contiguous()
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    x = _all_reduce(x, dist.ReduceOp.SUM, group)
     if counted:
         for c in _OPEN_COUNTS:
             c.n += 1
+    return x
+
+
+def pmax(x, group=None):
+    """The max-reduction seam: the elementwise max of ``x`` over the ranks
+    of ``group``, or ``x`` itself when ``group`` is None. Reduced in place
+    when ``x`` is contiguous, as :func:`preduce` does. Counted in the open
+    :func:`count_reductions` blocks' ``max``, apart from their sums:
+    int8 gradient compression (``optim.compress``) takes the max of its
+    scales before it sums the payload."""
+    if group is None:
+        return x
+    x = _all_reduce(x, dist.ReduceOp.MAX, group)
+    for c in _OPEN_COUNTS:
+        c.max += 1
     return x
 
 

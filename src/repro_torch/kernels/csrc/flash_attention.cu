@@ -39,7 +39,7 @@
 //   that straddle the causal diagonal, the window's edge or Sk are
 //   masked (to -inf: keys past Sk, which TMA fills with zeros, would
 //   score 0); the rest skip the mask.
-// * simt (f32 at every D, and bf16 at D = 32 and 160): one block of 256
+// * simt (f32 at every D, and bf16 at D = 16, 32 and 160): one block of 256
 //   threads per 64-row query tile loops over 64-row key tiles loaded into
 //   shared memory as f32 (rows past Sk zero-filled); every thread computes
 //   a 4 x 4 patch of the score tile with f32 FMAs, masks it, updates its
@@ -302,6 +302,9 @@ int flash_fwd(const T* q, const T* k, const T* v, T* o, int B, int Hq,
       (long long)B * Hq > 65535 || window < 0)
     return cudaErrorInvalidValue;
   switch (D) {
+    case 16:                            // the smoke configs
+      return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, st, causal,
+                           window, offset, scale, stream);
     case 32:
       return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, st, causal,
                            window, offset, scale, stream);

@@ -54,7 +54,7 @@ same kernel.
   as bf16 (161 KB at D = 128), loaded by TMA, whose strides and starts
   ``tma_strides_ok`` checks. ``flash_tile_plan`` is the Python mirror of
   the live key tiles it walks and the tiles it masks. The ``simt`` body
-  (f32, and bf16 at D = 32 and 160) runs one block per 64-row query tile
+  (f32, and bf16 at D = 16, 32 and 160) runs one block per 64-row query tile
   over 64-row key tiles held as f32 (115 KB at D = 128, 139 KB at D =
   160). ``csrc/flash_attention.cu`` exports each body's tile sizes and
   shared-memory formula for the cross-check.
@@ -96,8 +96,9 @@ GRID_X_MAX = 2 ** 31 - 1       # blocks along grid x
 FLASH_BLOCK_Q = 64
 FLASH_BLOCK_K = 64
 FLASH_PAD = 4                 # f32 of padding per Q/K/P tile row
-# 128: llama3-8b, qwen1.5-4b; 64: tinyllama-1.1b; 160: stablelm-12b.
-FLASH_HEAD_DIMS = (32, 64, 128, 160)
+# 128: llama3-8b, qwen1.5-4b; 64: tinyllama-1.1b; 160: stablelm-12b;
+# 16: the smoke configs (d_model 64 over 4 heads).
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 160)
 FLASH_WGMMA_BLOCK_Q = 128
 FLASH_WGMMA_BLOCK_K = 128
 FLASH_WGMMA_STAGES = 2
@@ -201,7 +202,7 @@ def flash_attention_route(dtype, D: int) -> str:
     """The body of ``csrc/flash_attention.cu`` that serves (dtype, D):
     ``"wgmma"`` for bf16 at D in ``FLASH_WGMMA_HEAD_DIMS``, else
     ``"simt"`` (f32 at every D: TF32 products would not meet its bars;
-    bf16 at D = 32 and 160). ``dtype`` is a torch dtype or its name."""
+    bf16 at D = 16, 32 and 160). ``dtype`` is a torch dtype or its name."""
     name = str(dtype).rsplit(".", 1)[-1]
     if name == "bfloat16" and D in FLASH_WGMMA_HEAD_DIMS:
         return "wgmma"

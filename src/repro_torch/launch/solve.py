@@ -50,8 +50,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import os
-import tempfile
 import time
 
 import torch
@@ -59,6 +57,7 @@ import torch.distributed as dist
 
 from repro_torch import api
 from repro_torch.api import FAMILIES, KERNELS, SolverConfig
+from repro_torch.core import distributed
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -141,7 +140,6 @@ def _elastic_kwargs(args):
     """Parse the elastic CLI flags into solve_elastic kwargs. A missing
     directory is made now, shared by every rank of the default group, so
     it is called once the group is joined."""
-    from repro_torch.core import distributed
     from repro_torch.runtime import ElasticConfig, FailureInjector
     if args.checkpoint_dir is None:
         args.checkpoint_dir = distributed.shared_tempdir("repro_elastic_")
@@ -155,34 +153,6 @@ def _elastic_kwargs(args):
             checkpoint_every=args.checkpoint_every or 1),
         "injector": FailureInjector(failures=failures) if failures else None,
     }
-
-
-@contextlib.contextmanager
-def _hosts(device: str):
-    """The default process group, whose ranks are the elastic solve's
-    hosts: joined from torchrun's environment (``WORLD_SIZE`` and the
-    rest), or made here for one rank through a ``FileStore`` in a
-    temporary directory. Yields (backend, world size); a group made here
-    is destroyed after the block."""
-    from repro_torch.core import distributed
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    count = torch.cuda.device_count() if device == "cuda" else 0
-    backend = distributed.placement_backend(device, world, count)
-    distributed.check_placement(backend, world, device, count)
-    with contextlib.ExitStack() as stack:
-        if "WORLD_SIZE" in os.environ:
-            if device == "cuda":
-                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
-                                      % count)
-            dist.init_process_group(backend)
-        else:
-            tmp = stack.enter_context(tempfile.TemporaryDirectory(
-                prefix="repro_torch_solve_"))
-            dist.init_process_group(
-                backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
-                rank=0, world_size=1)
-        stack.callback(dist.destroy_process_group)
-        yield backend, world
 
 
 def list_families() -> str:
@@ -219,7 +189,8 @@ def main(argv=None):
     ekw = None
     with contextlib.ExitStack() as stack:
         if _elastic_requested(args):
-            backend, world = stack.enter_context(_hosts(args.device))
+            backend, world = stack.enter_context(
+                distributed.join_hosts(args.device))
             ekw = _elastic_kwargs(args)
             if dist.get_rank() == 0:
                 print(f"elastic: backend {backend}, world size {world}, "

@@ -5,29 +5,69 @@ stablelm-12b.
 
     model = init_params(arch, seed=0)             # an LM on the card
     logits = model.forward(tokens)                # (B, S, V)
+    loss = train_loss(model, {"tokens": tokens, "targets": targets},
+                      remat="none")               # K5 runs here
     last = model.prefill(tokens)                  # (B, 1, V); K5 runs here
     cache = init_cache(arch, B, max_seq)
     logits, cache = model.decode_step(tok, cache, pos)
 
 ``repro`` scans stacked per-slot params over layer groups (for the TPU
 dry-run); here each layer is a module of a ``ModuleList``, and
-``repro_torch.convert`` moves weights and caches between the two layouts.
-As in ``repro``, ``prefill`` returns the last position's logits and seeds
-no cache (serving re-runs ``decode_step`` from an empty one), and decode
-attention is plain PyTorch, so no kernel launches there. Unported block
-kinds, encoder-decoder archs and the modality frontends raise
-``NotImplementedError``.
+``repro_torch.convert`` moves weights, optimizer state and caches between
+the two layouts. Parameters are made with ``requires_grad=False`` for
+serving; the trainer (``runtime.driver``) turns gradients on for its own
+model. ``forward``'s ``remat`` checkpoints each block: "full" recomputes
+the whole block in the backward pass, "dots" keeps the outputs of the
+matrix products (``aten.mm`` / ``addmm`` / ``bmm``) and recomputes the
+rest, the counterparts of ``jax.checkpoint`` and
+``checkpoint_policies.checkpoint_dots``; either way K5's forward runs
+again in the backward pass. As in ``repro``, ``prefill`` returns the last
+position's logits and seeds no cache (serving re-runs ``decode_step``
+from an empty one), and decode attention is plain PyTorch, so no kernel
+launches there. Unported block kinds, encoder-decoder archs and the
+modality frontends raise ``NotImplementedError``; so do ``repro``'s
+``shard_acts`` (no device mesh, ROADMAP Queue 1, item 7) and
+``unroll_layers`` (only the roofline's cost extraction needs it), which
+are not ported.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import layers as L
+
+REMAT = ("none", "full", "dots")
+# The operations whose outputs "dots" keeps (jax's checkpoint_dots saves
+# every dot_general's output).
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, x, remat: str):
+    """``fn(x)`` under the activation-checkpointing policy ``remat``."""
+    if remat == "none":
+        return fn(x)
+    if remat == "full":
+        return _ckpt.checkpoint(fn, x, use_reentrant=False)
+    if remat == "dots":
+        return _ckpt.checkpoint(fn, x, use_reentrant=False, context_fn=(
+            functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                              _dots_policy)))
+    raise ValueError(f"remat must be one of {REMAT}, not {remat!r}")
+
 
 def check_ported(arch: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot run yet."""
@@ -94,15 +134,17 @@ class LM(nn.Module):
         unembed = self.embed.T if self.arch.tie_embeddings else self.unembed
         return x @ unembed
 
-    def _hidden(self, tokens):
+    def _hidden(self, tokens, remat: str = "none"):
         x = self._embed(tokens)
         for blk in self.layers:
-            x = blk(x)
+            x = _checkpointed(blk, x, remat)
         return x
 
-    def forward(self, tokens):
-        """Full-sequence forward: tokens (B, S) -> logits (B, S, V)."""
-        return self._logits(self._hidden(tokens))
+    def forward(self, tokens, remat: str = "none"):
+        """Full-sequence forward: tokens (B, S) -> logits (B, S, V), each
+        block under the checkpointing policy ``remat`` (one of
+        :data:`REMAT`)."""
+        return self._logits(self._hidden(tokens, remat))
 
     def prefill(self, tokens):
         """Forward over the prompt -> the last position's logits (B, 1, V).
@@ -118,6 +160,29 @@ class LM(nn.Module):
         for i, blk in enumerate(self.layers):
             x = blk.decode(x, cache["k"][i], cache["v"][i], pos)
         return self._logits(x), cache
+
+
+def train_loss(model: LM, batch: Dict, aux_weight: float = 0.01,
+               remat: str = "none", shard_acts: bool = False):
+    """The mean next-token cross-entropy of ``batch`` (``{"tokens": (B,
+    S), "targets": (B, S)}``, tensors or numpy arrays, moved to the
+    model's device), as ``repro``'s ``train_loss`` computes it: f32
+    logits, logsumexp minus the gold logit, the mean. The gold logit is a
+    ``torch.gather``, the same function as ``repro``'s masked reduction
+    over the vocabulary (which exists for a sharded vocabulary, which the
+    port does not have). ``repro`` adds ``aux_weight`` times the MoE
+    load-balancing loss; the dense path has none, so its aux is 0."""
+    if shard_acts:
+        raise NotImplementedError(
+            "shard_acts needs a device mesh, which the port does not have "
+            "(ROADMAP Queue 1, item 7)")
+    dev = model.embed.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    targets = torch.as_tensor(batch["targets"], device=dev).long()
+    logits = model.forward(tokens, remat=remat).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:

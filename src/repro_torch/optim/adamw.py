@@ -1,0 +1,108 @@
+"""AdamW with f32 state, global-norm clipping and a cosine schedule (the
+port of ``repro/optim/adamw.py``).
+
+``repro``'s update, not ``torch.optim.AdamW``'s: no f32 master copy of
+the parameters; f32 moments, also for bf16 parameters; a global-norm clip
+over every leaf in f32; bias corrections ``1 - b ** step`` on an f32 step;
+``mh / (sqrt(vh) + eps) + wd * p`` with p read in f32, and ``p - lr *
+delta`` rounded back to the parameter's dtype. The scalars are f32
+tensors and each product rounds where ``repro``'s does. The update runs
+in place, one leaf at a time, so its f32 temporaries are one leaf's size.
+
+A tree is a dict or a list of tensors (the trainer passes the model's
+``named_parameters`` as a dict). ``repro``'s ``state_specs`` needs a
+device mesh and is not ported (ROADMAP Queue 1, item 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+F32 = torch.float32
+
+
+def cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
+                    min_ratio: float = 0.1) -> Callable:
+    """lr(step): linear warm-up to ``base_lr`` over ``warmup_steps``, then
+    a cosine decay to ``min_ratio * base_lr`` at ``total_steps``; an f32
+    tensor on the step's device."""
+    def lr(step):
+        step = torch.as_tensor(step).to(F32)
+        warm = base_lr * step / max(warmup_steps, 1)
+        t = torch.clamp((step - warmup_steps)
+                        / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+        cos = min_ratio + (1 - min_ratio) * 0.5 * (1 + torch.cos(math.pi * t))
+        return torch.where(step < warmup_steps, warm, base_lr * cos)
+    return lr
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor          # int32, 0-dim
+    mu: object                  # f32, shaped like the parameters
+    nu: object
+
+
+def _keys(tree):
+    return list(tree) if isinstance(tree, dict) else range(len(tree))
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: fn(v) for k, v in tree.items()}
+    return [fn(v) for v in tree]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    learning_rate: Callable | float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+    def init(self, params) -> AdamWState:
+        zeros = lambda p: torch.zeros(p.shape, dtype=F32, device=p.device)
+        first = next(iter(params.values() if isinstance(params, dict)
+                          else params))
+        return AdamWState(
+            step=torch.zeros((), dtype=torch.int32, device=first.device),
+            mu=_map(zeros, params), nu=_map(zeros, params))
+
+    @torch.no_grad()
+    def update(self, grads, state: AdamWState, params
+               ) -> Tuple[object, AdamWState]:
+        """Apply one step to ``params`` IN PLACE from ``grads`` (the same
+        keys; any float dtype). The state's step and moments update in
+        place too. Returns (params, state), the same objects."""
+        keys = _keys(params)
+        dev = state.step.device
+        scalar = lambda x: torch.tensor(x, dtype=F32, device=dev)
+        step = state.step.add_(1)
+        scale = None
+        if self.clip_norm > 0:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[k].to(F32)))
+                                   for k in keys))
+            scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
+                                max=1.0)
+        b1, b2 = scalar(self.b1), scalar(self.b2)
+        c1, c2 = scalar(1 - self.b1), scalar(1 - self.b2)
+        bc1 = 1 - b1 ** step.to(F32)
+        bc2 = 1 - b2 ** step.to(F32)
+        lr = self.learning_rate(step) if callable(self.learning_rate) \
+            else scalar(self.learning_rate)
+        eps, wd = scalar(self.eps), scalar(self.weight_decay)
+        for k in keys:
+            p, m, v = params[k], state.mu[k], state.nu[k]
+            g = grads[k].to(F32)
+            if scale is not None:
+                g = g * scale
+            m.mul_(b1).add_(c1 * g)
+            v.mul_(b2).add_(c2 * g * g)
+            pf = p.to(F32)
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + wd * pf
+            p.copy_(pf - lr * delta)
+        return params, state

@@ -230,7 +230,8 @@ def test_rows_without_keys_are_zero(Sq, Sk):
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 32, "simt"), (torch.bfloat16, 160, "simt"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 160, "simt"),
     (torch.float32, 128, "simt"), (torch.float32, 64, "simt"),
     (torch.float32, 32, "simt"), (torch.float32, 160, "simt"),
     ("bfloat16", 128, "wgmma"), ("float32", 128, "simt")])

@@ -206,7 +206,24 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
         + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    training = ["repro_torch.optim", "repro_torch.optim.adamw",
+                "repro_torch.optim.compress", "repro_torch.data.tokens",
+                "repro_torch.runtime.driver", "repro_torch.launch.train"]
+    scanned = {str(f.relative_to(ROOT)) for f in files}
+    for mod in training:
+        path = "src/" + mod.replace(".", "/")
+        assert path + ".py" in scanned or path + "/__init__.py" in scanned
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+    # The training modules, imported: nothing of JAX comes with them.
+    code = ("import importlib, sys\n"
+            f"for m in {training!r}: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=dict(os.environ,
+                                             PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
