@@ -230,18 +230,48 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    with losses within rel 1e-5 of the undisturbed run; the checkpoint's
    bytes, write and restore times; (e) ``python -m
    repro_torch.launch.train --arch tinyllama-1.1b --smoke --steps 20
-   --ckpt-dir <tmp>`` exits 0.
+   --ckpt-dir <tmp>`` exits 0;
+17. (run after phase 10, before phase 16) sliding-window attention and
+   the MoE block: (a) mixtral-8x7b at full width (d 4096, 32/8 heads of
+   128, 8 experts top 2, d_ff 14,336, vocab 32,000, window 4096, bf16),
+   its depth cut from 32 to 16 layers (23.48 B parameters, 46.96 GB; the
+   32 would not fit the card), random from a seed: ``LM.prefill`` at B 1,
+   S 8192, exactly 16 K5 launches, all ``wgmma``, no other kernel,
+   finite logits; the median of three, tokens/s, peak memory, the split
+   by CUDA events (K5, q/k/v, rope, the attention's rest, router +
+   top-k, dispatch, the expert products, combine, rmsnorm, unembed), the
+   device's busy share, K5 on layer 0's q/k/v against its plain version
+   (the prefill's bar); then ``BatchedServer.generate`` batch 8, prompt
+   128, generate 32: no kernel, ms per step against the bytes a step
+   reads at the HBM rate, a step's split; (b) K5's windowed call on
+   those q/k/v: its time, device time, plain version,
+   ``scaled_dot_product_attention`` with an explicit (S, S) band mask
+   (the backend it picks logged), the bound from the live pairs, and the
+   same call at window 0; (c) granite-moe-1b-a400m at full width and
+   depth (24 layers, 32 experts top 8, heads of 64): the same prefill
+   (24 ``wgmma`` launches, causal) and serving; (d) f32 at granite
+   widths, 2 layers, B 2, S 512, the card against the CPU from the same
+   weights: logits rel 1e-4, aux and ``train_loss`` rel 1e-5, the chosen
+   experts equal except within 1e-5 of a top-k tie (counted), then
+   mixtral-smoke (window 32) serving prompt 40 + generate 16 through its
+   ring of 32: the card's tokens equal the CPU's; (e) ``python -m
+   repro_torch.launch.serve --arch mixtral-8x7b --smoke --prompt-len 40
+   --gen-len 16`` exits 0 on the card.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
 ``svm_inner`` and ``flash_attention``, and a row for each kernel at a
 phase 12 path's shape: its launches on its main path (``flash_attention``
 also its launches per training step and its error and times at the
-training shape, phase 16),
+training shape, phase 16, and its launches per mixtral prefill, error,
+times, bound and SDPA's time at mixtral's windowed shape, with the time
+at window 0, phase 17),
 its error against the plain version, its time through the wrapper
 (``ms``, CUDA events over back-to-back calls, host work included), its
 device time alone (``device_ms``: the summed kernel durations of a
-torch.profiler trace of back-to-back calls; ``sa_inner``'s on the epsilon
+torch.profiler trace of back-to-back calls, taken once more when it
+holds no kernel record, and failing when the second holds none either;
+``sa_inner``'s on the epsilon
 path's inputs, ``spmm``'s and ``svm_inner``'s on news20.binary's), the
 plain version's time, the bound and, where one PyTorch call computes the
 same function, that call's time), the card's name and power limit as
@@ -340,13 +370,10 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(fn, n: int = 50):
-    """Device time per call of ``fn``: from a torch.profiler trace (the
-    same machinery as ``device_profile``) of ``n`` back-to-back calls,
-    the mean duration of each kernel ``fn`` launches, summed over its
-    kernels, so the host's launch work between them is left out. Means,
-    not totals over ``n``: a trace can miss a call's record (the first,
-    in some runs), and that is logged. None when it holds no kernel."""
+def trace_kernel_ms(fn, n: int):
+    """Summed mean kernel durations (ms) per call of ``fn`` in one
+    torch.profiler trace of ``n`` back-to-back calls, or None when the
+    trace holds no kernel record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -354,11 +381,17 @@ def device_ms(fn, n: int = 50):
     torch.cuda.synchronize()
     path = os.path.join(ROOT, "build", "device_ms_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
+    # The trace drops kernel records, more of them the longer the process
+    # has run (1-4 of 50 early in this script, all 5 of K5's 0.7 ms calls
+    # by phase 17, 19 of 20 in phase 8 with the idle below): 0.2 s of
+    # idle on each side of the calls and 50 calls keep some.
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.2)
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
@@ -374,6 +407,26 @@ def device_ms(fn, n: int = 50):
         log(f"  (device time: the trace holds {counts} records of "
             f"{len(counts)} kernel(s) over {n} calls)")
     return sum(sum(d) / len(d) for d in by_name.values()) / 1e3
+
+
+def device_ms(fn, n: int = 50):
+    """Device time per call of ``fn``: from a torch.profiler trace (the
+    same machinery as ``device_profile``) of ``n`` back-to-back calls,
+    the mean duration of each kernel ``fn`` launches, summed over its
+    kernels, so the host's launch work between them is left out. Means,
+    not totals over ``n``: a trace can miss a call's record (the first,
+    in some runs), and that is logged. A trace that holds no kernel
+    record at all is taken once more, and that is logged; if the second
+    holds none either, this raises, so no kernel row's device time is
+    left unmeasured unnoticed."""
+    for attempt in (1, 2):
+        got = trace_kernel_ms(fn, n)
+        if got is not None:
+            return got
+        log(f"  (device time: trace {attempt} of {n} calls held no kernel "
+            f"record{'; tracing again' if attempt == 1 else ''})")
+    raise AssertionError(f"device_ms: two traces of {n} calls held no "
+                         f"kernel record")
 
 
 def fmt_ms(t) -> str:
@@ -2288,7 +2341,9 @@ def phase_sharded_nccl():
         host = (time.perf_counter() - t0) / 200 * 1e3
         torch.cuda.synchronize()
         back = (time.perf_counter() - t0) / 200 * 1e3
-        dev = device_ms(lambda: linalg.preduce(buf, group))
+        # NCCL at world size 1 may launch no kernel at all: no kernel
+        # row, so an empty trace reads "not measured" here.
+        dev = trace_kernel_ms(lambda: linalg.preduce(buf, group), 50)
         log(f"  the same, 200 back to back: host {host:.4f} ms a call to "
             f"return, {back:.4f} ms a call to the last one's end; device "
             f"{fmt_ms(dev)} ms a call (torch.profiler kernel durations)")
@@ -3715,7 +3770,7 @@ def flash_row(args, kw):
            "bound_ms": b, "bound_by": why,
            "simt_ms": time_ms(simt, 3, 1),
            **{name: sorted(ts)[1] for name, ts in rounds.items()}}
-    row["device_ms"] = device_ms(lambda: flash_attention(q, k, v, **kw), 5)
+    row["device_ms"] = device_ms(lambda: flash_attention(q, k, v, **kw))
     log(f"  flash_attention at this shape: {row['ms']:.4f} ms (device "
         f"{fmt_ms(row['device_ms'])}), "
         f"{flops / row['ms'] / 1e9:.2f} TFLOP/s, {b / row['ms']:.3f} of "
@@ -4031,6 +4086,487 @@ def phase_f32_lm():
         f"({t_gpu[0].tolist()})")
     if not (t_gpu == t_cpu).all():
         raise AssertionError("f32 card and CPU generate different tokens")
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: sliding-window attention and the MoE block.
+# ---------------------------------------------------------------------------
+
+# (a) mixtral-8x7b at full width, its depth cut from 32 to 16 layers: the
+# 32 hold 46.70 B parameters, 93.4 GB at bf16, more than the card's 80 GB;
+# 16 hold 23.48 B (46.96 GB) and leave room for the prefill's (E, C, F)
+# buffers. (c) granite-moe-1b-a400m at full width and depth. Both prefill
+# B 1 at S 8192 (PREFILL_B, PREFILL_S: mixtral's is twice its window, so
+# K5's band skips whole key tiles) and serve as phase 9 does.
+MIXTRAL, MIXTRAL_LAYERS = "mixtral-8x7b", 16
+GRANITE = "granite-moe-1b-a400m"
+# (d) f32, the card against the CPU: granite widths at 2 layers, B x S;
+# then mixtral-smoke (window 32) serving prompt 40 + 16, so its ring wraps.
+MOE_F32_LAYERS, MOE_F32_B, MOE_F32_S = 2, 2, 512
+RING_P, RING_G = 40, 16
+
+
+def moe_model(name, n_layers=None):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    arch = get_config(name)
+    full = arch.n_layers
+    if n_layers is not None:
+        arch = dataclasses.replace(arch, n_layers=n_layers)
+    t0 = time.perf_counter()
+    model = lm.init_params(arch, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  {arch.name}: {arch.n_layers} layers"
+        f"{'' if n_layers is None else f' (cut from {full})'}, d_model "
+        f"{arch.d_model}, {arch.n_heads}/{arch.n_kv_heads} heads of "
+        f"{arch.head_dim_}, {arch.n_experts} experts top {arch.top_k}, "
+        f"d_ff {arch.d_ff}, vocab {arch.vocab_size}, window {arch.window}, "
+        f"{arch.dtype}: {n / 1e9:.3f} B parameters ({nbytes / 1e9:.2f} GB), "
+        f"random from seed 0, made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return arch, model, nbytes
+
+
+# What a split times: (module, attribute, label); the MoE's parts are the
+# functions ``layers.moe_tokens`` calls.
+def moe_patches():
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    return [(L, "flash_attention", "kernel"), (L, "project_qkv", "proj"),
+            (L, "apply_rope", "rope"), (L, "attention_train", "attn"),
+            (L, "attention_decode", "attn_decode"),
+            (L, "moe_route", "route"), (L, "moe_dispatch", "dispatch"),
+            (L, "expert_ffn", "experts"), (L, "moe_combine", "combine"),
+            (L, "moe", "moe"), (L, "rmsnorm", "norm"),
+            (lm.LM, "_logits", "logits")]
+
+
+def timed_split(fn, keep=("kernel",)):
+    """(total device ms, {label: ms}, PhaseTimer) of one ``fn()`` with
+    CUDA events around each function of ``moe_patches``; the first
+    call's arguments are kept for the labels in ``keep``."""
+    import torch
+    timer = PhaseTimer()
+    patches = moe_patches()
+    saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
+    for o, a, label in patches:
+        setattr(o, a, timer.wrap(label, getattr(o, a), label in keep))
+    try:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+    finally:
+        for o, a, f in saved:
+            setattr(o, a, f)
+    tot = timer.totals_ms()
+    tot = {label: tot.get(label, 0.0) for _, _, label in patches}
+    return e0.elapsed_time(e1), tot, timer
+
+
+def moe_split(total, tot, attn):
+    """The rows of a split: ``attn`` is the attention label
+    (``attn`` for a prefill, ``attn_decode`` for a decode step)."""
+    moe_parts = tot["route"] + tot["dispatch"] + tot["experts"] \
+        + tot["combine"]
+    return {
+        "K5 (flash_attention)": tot["kernel"],
+        "q/k/v projections (GEMMs)": tot["proj"],
+        "rope (q, k)": tot["rope"],
+        "attention rest (o relayout + wo; decode: cache, softmax)":
+            tot[attn] - tot["proj"] - tot["rope"] - tot["kernel"],
+        "router + top-k + aux (f32)": tot["route"],
+        "dispatch (places by a sort + scatter)": tot["dispatch"],
+        "expert products (3 bmm, SiLU mul)": tot["experts"],
+        "combine (gather, weight, sum over K)": tot["combine"],
+        "MoE rest (reshapes)": tot["moe"] - moe_parts,
+        "rmsnorm (2 per layer + final)": tot["norm"],
+        "final norm's rest + unembed": tot["logits"],
+        "rest (embed gather, residual adds)": total - tot[attn]
+        - tot["moe"] - tot["norm"] - tot["logits"],
+    }
+
+
+def log_moe_split(what, total, split, n=1):
+    log(f"  where {what}'s time goes (device time by CUDA events, ms"
+        f"{'' if n == 1 else ' per step'}; traced {total / n:.3f} ms):")
+    for name, ms in split.items():
+        log(f"    {name:58s} {ms / n:10.3f}  {100 * ms / total:5.1f}%")
+
+
+def moe_prefill(arch, model):
+    """Phase 17's prefill of ``arch``: launches, median of three, peak
+    memory, the split, and K5 on layer 0's q/k/v against its plain
+    version. Returns (launches of K5, its error, layer 0's (q, k, v),
+    kw)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, S = PREFILL_B, PREFILL_S
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    toks = torch.randint(0, arch.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill(toks)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        got = read_counts()
+        routes = dict(flash_attention.route_launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = dict.fromkeys(got, 0)
+        want["flash_attention"] = arch.n_layers
+        want_routes = {"wgmma": arch.n_layers, "simt": 0}
+        log(f"  prefill B={B} S={S}: launches {got} (expected {want}); K5 by "
+            f"body {routes} (expected {want_routes}); first prefill "
+            f"{cold:.4f} s; peak device memory {peak:.3f} GiB")
+        if got != want or routes != want_routes:
+            raise AssertionError(f"{arch.name} prefill launches {got} "
+                                 f"{routes}, expected {want} {want_routes}")
+        if logits.shape != (B, 1, arch.vocab_size) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"{arch.name} prefill logits "
+                                 f"{tuple(logits.shape)} not finite")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(toks)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        med = sorted(walls)[1]
+        log(f"  steady prefills: {' '.join(f'{w:.4f}' for w in walls)} s "
+            f"(median {med:.4f} s, {B * S / med:.1f} tokens/s)")
+        total, tot, timer = timed_split(lambda: model.prefill(toks))
+        log_moe_split("a prefill", total, moe_split(total, tot, "attn"))
+        log_profile("one prefill", device_profile(
+            lambda: model.prefill(toks)), med * 1e3, 1)
+        (q, k, v), kw = timer.first["kernel"]
+        del timer
+        g = q.shape[1] // k.shape[1]
+        want_o = torch.cat([attention_ref(q[:, i * g:(i + 1) * g],
+                                          k[:, i:i + 1], v[:, i:i + 1], **kw)
+                            for i in range(k.shape[1])], dim=1).float()
+        err = check_close(f"K5 on layer 0's q/k/v of the {arch.name} "
+                          f"prefill {tuple(q.shape)} / {tuple(k.shape)} "
+                          f"{q.dtype} {kw}", flash_attention(q, k, v, **kw)
+                          .float(), want_o, 2.0 ** -7, 4e-3)
+        del want_o
+    return got["flash_attention"], err, (q, k, v), kw
+
+
+def moe_serve(arch, model, nbytes_read):
+    """Phase 17's serving run: ``BatchedServer.generate`` at phase 9's
+    batch, prompt and length; no kernel launched (decode attention is
+    plain PyTorch); ms per step against the bytes a step reads (every
+    weight but the embedding table, whose B rows are gathered, since the
+    dispatch runs all E experts' buffers) at the HBM rate; the split of a
+    decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import BatchedServer
+
+    B, P, G = SERVE_B, SERVE_P, SERVE_G
+    prompts = np.random.default_rng(0).integers(
+        0, arch.vocab_size, (B, P)).astype(np.int32)
+    server = BatchedServer(arch, model, max_seq=P + G)
+    server.generate(prompts[:, :4], 2)                  # warm-up
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.generate(prompts, G)
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    steps = P + G
+    step_ms = wall / steps * 1e3
+    bound = nbytes_read / HBM_BYTES_PER_S * 1e3
+    log(f"  serving batch {B}, prompt {P}, generate {G}: launches {got} "
+        f"(expected none); {steps} decode steps in {wall:.4f} s: "
+        f"{step_ms:.4f} ms per step, {B * G / wall:.1f} generated tokens/s;"
+        f" a step reads {nbytes_read / 1e9:.2f} GB of weights: bound "
+        f"{bound:.4f} ms at the HBM rate, the step at {step_ms / bound:.2f}x"
+        f" it; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; sample "
+        f"{out[0][:8].tolist()}")
+    if any(got.values()):
+        raise AssertionError(f"generate launched kernels: {got}")
+    if out.shape != (B, G) or out.dtype != np.int32 \
+            or not ((out >= 0) & (out < arch.vocab_size)).all():
+        raise AssertionError(f"generate gave {out.dtype} {out.shape}")
+    t0 = time.perf_counter()
+    total, tot, _ = timed_split(
+        lambda: server.generate(prompts[:, :8], 8), keep=())
+    traced = time.perf_counter() - t0
+    log(f"  16 decode steps of another generate (prompt 8, generate 8) "
+        f"under CUDA events: traced wall {traced / 16 * 1e3:.3f} ms per "
+        f"step; where the device idles between launches these intervals "
+        f"are mostly host time")
+    log_moe_split("a decode step", total,
+                  moe_split(total, tot, "attn_decode"), 16)
+    log_profile("16 decode steps", device_profile(
+        lambda: server.generate(prompts[:, :8], 8)), step_ms, 16)
+
+
+def sdpa_backend(q, k, v, mask):
+    """The backend ``scaled_dot_product_attention`` picks for these
+    operands (its dispatcher's own choice), or why it cannot say."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, mask, 0.0, False, scale=None, enable_gqa=True)).name
+    except Exception as exc:             # private API: report, go on
+        return f"unknown ({exc!r})"
+
+
+def window_row(q, k, v, kw, launches, err):
+    """K5's windowed call at mixtral's shape (layer 0's q/k/v): its time
+    through the wrapper, device time, plain version, SDPA with an explicit
+    band mask, the same call at window 0, and the bound from this call's
+    live pairs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    (B, Hq, Sq, D), (Hkv, Sk) = q.shape, k.shape[1:3]
+    g, window = Hq // Hkv, kw["window"]
+    pos = torch.arange(Sq, device=q.device)
+    band = (pos[None, :] <= pos[:, None]) \
+        & (pos[None, :] > pos[:, None] - window)
+    backend = sdpa_backend(q, k, v, band)
+
+    def plain():
+        return torch.cat([attention_ref(q[:, i * g:(i + 1) * g],
+                                        k[:, i:i + 1], v[:, i:i + 1], **kw)
+                          for i in range(Hkv)], dim=1)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                              enable_gqa=True)
+
+    lib_err = float((sdpa().float() - plain().float()).abs().max())
+    # The windowed call, the same call at window 0 and SDPA in turns,
+    # three rounds of ten calls (five of SDPA); medians.
+    timed = {"ms": (lambda: flash_attention(q, k, v, **kw), 10),
+             "window0_ms": (lambda: flash_attention(q, k, v, causal=True,
+                                                    window=0), 10),
+             "library_ms": (sdpa, 5)}
+    rounds = {name: [] for name in timed}
+    for _ in range(3):
+        for name, (fn, reps) in timed.items():
+            rounds[name].append(time_ms(fn, reps, 1))
+    med = {name: sorted(ts)[1] for name, ts in rounds.items()}
+    pairs = B * live_pairs(Sq, Sk, True, window)
+    pairs0 = B * live_pairs(Sq, Sk, True, 0)
+    flops = 4.0 * Hq * D * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b, why = bound_ms(nbytes, flops, BF16_FLOPS)
+    row = {"window_launches": launches, "window_max_abs_err": err,
+           "window_ms": med["ms"],
+           "window_device_ms": device_ms(
+               lambda: flash_attention(q, k, v, **kw)),
+           "window_plain_ms": time_ms(plain, 2, 1),
+           "window_bound_ms": b, "window_bound_by": why,
+           "window_library_ms": med["library_ms"],
+           "window0_ms": med["window0_ms"]}
+    ratio = row["window_ms"] / row["window0_ms"]
+    log(f"  K5 windowed at mixtral's shape {tuple(q.shape)} / "
+        f"{tuple(k.shape)} bf16, window {window}: {row['window_ms']:.4f} "
+        f"ms (device {fmt_ms(row['window_device_ms'])}), "
+        f"{flops / row['window_ms'] / 1e9:.1f} TFLOP/s, {b / row['window_ms']:.3f}"
+        f" of the bound ({b:.4f} ms by {why}: {pairs} live pairs, "
+        f"{flops / 1e9:.1f} GFLOP); plain {row['window_plain_ms']:.4f} ms; "
+        f"SDPA with the (S, S) band mask {row['window_library_ms']:.4f} ms "
+        f"(backend {backend}; max |SDPA - plain| {lib_err:.2e}) (rounds, "
+        f"ms: " + "; ".join(f"{n} {' '.join(f'{t:.4f}' for t in ts)}"
+                            for n, ts in rounds.items()) + ")")
+    log(f"  the same call at window 0 ({pairs0} live pairs, "
+        f"{pairs / pairs0:.3f} of them): {row['window0_ms']:.4f} ms; "
+        f"windowed / window 0 = {ratio:.3f}")
+    if ratio > 0.9:
+        log("  FINDING: the windowed call takes as long as window 0: the "
+            "band does not skip whole key tiles")
+    return row
+
+
+def moe_f32_card_vs_cpu():
+    """Phase 17 (d): f32 granite widths at 2 layers, card against CPU
+    from the same weights; then mixtral-smoke serving through a ring that
+    wraps."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    arch = dataclasses.replace(get_config(GRANITE), n_layers=MOE_F32_LAYERS,
+                               dtype="float32")
+    B, S = MOE_F32_B, MOE_F32_S
+    log(f"phase 17 (d): f32 {GRANITE} widths at {MOE_F32_LAYERS} layers, "
+        f"B={B} S={S}, the card against the CPU")
+    gpu = lm.init_params(arch, seed=0, device="cuda")
+    cpu = lm.LM(arch, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, arch.vocab_size, (B, S)).astype(np.int32)
+    batch = {"tokens": toks,
+             "targets": rng.integers(0, arch.vocab_size,
+                                     (B, S)).astype(np.int32)}
+    picks = {"cuda": [], "cpu": []}
+    outs = {"cuda": [], "cpu": []}
+    route, combine = L.moe_route, L.moe_combine
+
+    def recorded(router, xf, top_k):
+        out = route(router, xf, top_k)
+        picks[xf.device.type].append((router, xf, out[1]))
+        return out
+
+    def combined(out_buf, row, keep, topw):
+        out = combine(out_buf, row, keep, topw)
+        outs[out.device.type].append((out.cpu(), int((~keep).sum())))
+        return out
+    L.moe_route, L.moe_combine = recorded, combined
+    try:
+        with torch.no_grad():
+            flash_attention.launches = 0
+            lg, aux_g = gpu.forward_aux(torch.as_tensor(toks, device="cuda"))
+            lg, aux_g = lg.cpu(), float(aux_g)
+            if flash_attention.launches != MOE_F32_LAYERS:
+                raise AssertionError(f"f32 forward launched K5 "
+                                     f"{flash_attention.launches} times")
+            lc, aux_c = cpu.forward_aux(torch.as_tensor(toks))
+            aux_c = float(aux_c)
+            loss_g = float(lm.train_loss(gpu, batch))
+            loss_c = float(lm.train_loss(cpu, batch))
+    finally:
+        L.moe_route, L.moe_combine = route, combine
+    # The chosen experts, layer by layer (the forwards' calls), with the
+    # CPU's gap between each token's K-th and (K+1)-th probability.
+    K = arch.top_k
+    differ, near = 0, 0
+    for (_, _, eg), (router, xf, ec) in zip(picks["cuda"][:MOE_F32_LAYERS],
+                                             picks["cpu"][:MOE_F32_LAYERS]):
+        probs = torch.softmax(xf.float() @ router, dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        gap = top[:, K - 1] - top[:, K]
+        same = (eg.cpu().sort(-1).values == ec.sort(-1).values).all(-1)
+        differ += int((~same).sum())
+        near += int((gap < 1e-5).sum())
+        if bool((~same & (gap >= 1e-5)).any()):
+            raise AssertionError("f32 card and CPU pick other experts away "
+                                 "from a near-tie")
+    rel = float((lg - lc).abs().max() / lc.abs().max())
+    worst = int((lg - lc).abs().amax(-1).reshape(-1).argmax())
+    for i, ((og, dg), (oc, dc)) in enumerate(zip(
+            outs["cuda"][:MOE_F32_LAYERS], outs["cpu"][:MOE_F32_LAYERS])):
+        log(f"  layer {i}: MoE output max |card - cpu| "
+            f"{float((og - oc).abs().max()):.3e} (max |cpu| "
+            f"{float(oc.abs().max()):.3e}; at token "
+            f"{int((og - oc).abs().amax(-1).argmax())}); dropped picks "
+            f"{dg} / {dc}")
+    log(f"  the CPU: {torch.backends.cpu.get_cpu_capability()}, "
+        f"{torch.get_num_threads()} threads, float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()}; the largest logits "
+        f"difference at token {worst}")
+    rel_aux = abs(aux_g - aux_c) / abs(aux_c)
+    rel_loss = abs(loss_g - loss_c) / abs(loss_c)
+    log(f"  logits {tuple(lg.shape)}: max |card - cpu| / max |cpu| "
+        f"{rel:.3e} (bar 1e-4); aux {aux_g:.7f} / {aux_c:.7f}, rel "
+        f"{rel_aux:.3e} (bar 1e-5); train_loss {loss_g:.7f} / {loss_c:.7f},"
+        f" rel {rel_loss:.3e} (bar 1e-5); tokens whose experts differ "
+        f"{differ} of {B * S} x {MOE_F32_LAYERS} layers, {near} within 1e-5 "
+        f"of a top-{K} tie")
+    if not (rel <= 1e-4 and rel_aux <= 1e-5 and rel_loss <= 1e-5):
+        raise AssertionError("f32 card and CPU differ")
+    del gpu, cpu, picks, outs
+
+    smoke = dataclasses.replace(get_smoke_config(MIXTRAL), dtype="float32")
+    gpu = lm.init_params(smoke, seed=0, device="cuda")
+    cpu = lm.LM(smoke, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    prompts = rng.integers(0, smoke.vocab_size, (4, RING_P)).astype(np.int32)
+    t_gpu = BatchedServer(smoke, gpu, RING_P + RING_G).generate(prompts,
+                                                                RING_G)
+    t_cpu = BatchedServer(smoke, cpu, RING_P + RING_G).generate(prompts,
+                                                                RING_G)
+    ring = lm.init_cache(smoke, 1, RING_P + RING_G, "cpu")["k"][0].shape[2]
+    log(f"  {smoke.name} f32 serving prompt {RING_P} + {RING_G} through a "
+        f"ring of {ring} (window {smoke.window}): card tokens equal the "
+        f"CPU's: {bool((t_gpu == t_cpu).all())} ({t_gpu[0].tolist()})")
+    if ring != smoke.window or not (t_gpu == t_cpu).all():
+        raise AssertionError("mixtral-smoke ring serving: card and CPU "
+                             "differ")
+
+
+def moe_cli():
+    """Phase 17 (e): the serving CLI on the card."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           MIXTRAL, "--smoke", "--prompt-len", "40", "--gen-len", "16"]
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=300)
+    log(f"phase 17 (e): {' '.join(cmd[1:])}: exit {out.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s: {out.stdout.strip()[-300:]}")
+    if out.returncode != 0 or "arch=mixtral-smoke generated (4, 16)" \
+            not in out.stdout:
+        raise AssertionError(f"(e) the CLI: {out.stdout[-2000:]} "
+                             f"{out.stderr[-3000:]}")
+
+
+def phase_moe():
+    """Phase 17: (a) mixtral-8x7b at full width (16 layers): prefill,
+    serving; (b) K5's windowed call at its shape; (c) granite-moe-1b at
+    full width and depth: prefill, serving; (d) f32 card against CPU;
+    (e) the CLI. Returns what K5's row gains."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    log(f"phase 17 (a): {MIXTRAL} at full width, depth cut to "
+        f"{MIXTRAL_LAYERS} layers")
+    arch, model, nbytes = moe_model(MIXTRAL, MIXTRAL_LAYERS)
+    launches, err, (q, k, v), kw = moe_prefill(arch, model)
+    if kw.get("window") != arch.window:
+        raise AssertionError(f"mixtral's K5 call took {kw}, not window "
+                             f"{arch.window}")
+    embed = model.embed.numel() * model.embed.element_size()
+    moe_serve(arch, model, nbytes - embed)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 17 (b): K5's windowed call at {MIXTRAL}'s shape")
+    row = window_row(q, k, v, kw, launches, err)
+    del q, k, v
+    torch.cuda.empty_cache()
+    log(f"phase 17 (c): {GRANITE} at full width and depth")
+    arch, model, nbytes = moe_model(GRANITE)
+    moe_prefill(arch, model)
+    embed = model.embed.numel() * model.embed.element_size()
+    moe_serve(arch, model, nbytes - embed)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_f32_card_vs_cpu()
+    torch.cuda.empty_cache()
+    moe_cli()
+    log(f"phase 17 done in {time.perf_counter() - t0:.1f} s")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4630,6 +5166,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_f32_lm()
     torch.cuda.empty_cache()
+    window_row = phase_moe()
+    torch.cuda.empty_cache()
     train_row = phase_training()
     torch.cuda.empty_cache()
     phase_elastic()
@@ -4638,6 +5176,7 @@ def main() -> int:
     rows.update(family_rows)
     rows["flash_attention"]["launches"] = fa_launches
     rows["flash_attention"].update(train_row)
+    rows["flash_attention"].update(window_row)
     for name, n in launches.items():
         rows[name]["launches"] = n
     for name in svm_rows:
@@ -4645,7 +5184,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = tuple(train_row)             # K5's row: the training step
+    # K5's row: the training step, the windowed call at mixtral's shape
+    extra = tuple(train_row) + tuple(window_row)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows.values()]}))
     print(smi)

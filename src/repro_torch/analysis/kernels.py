@@ -342,11 +342,13 @@ def _head_dims(dispatch) -> List[int]:
     return sorted(dims)
 
 
-# (Sq, Sk, causal, window): the llama3-8b prefill, decode against a
-# cache, a ragged window, a bidirectional Sq < Sk, a partial last tile.
-FLASH_CASES = ((8192, 8192, True, 0), (1, 384, True, 128),
-               (300, 300, True, 100), (128, 256, False, 0),
-               (520, 520, True, 0), (100, 228, True, 0))
+# (Sq, Sk, causal, window): the llama3-8b prefill, the mixtral-8x7b
+# prefill (window 4096: whole key tiles skipped), decode against a cache,
+# a ragged window, a bidirectional Sq < Sk, a partial last tile.
+FLASH_CASES = ((8192, 8192, True, 0), (8192, 8192, True, 4096),
+               (1, 384, True, 128), (300, 300, True, 100),
+               (128, 256, False, 0), (520, 520, True, 0),
+               (100, 228, True, 0))
 
 
 def _describe_flash_attention(dispatch) -> Tuple[List[Diagnostic], int]:

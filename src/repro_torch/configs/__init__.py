@@ -3,9 +3,11 @@
 
 The ten configuration modules are copies, as data, of ``repro.configs``'
 (the exact published hyperparameters plus a reduced smoke variant); the
-port keeps its own copies so that it never imports the JAX package. Only
-the dense ``attn_mlp`` configurations run in the port so far
-(``repro_torch.models.lm.check_ported`` refuses the rest).
+port keeps its own copies so that it never imports the JAX package. The
+configurations of ``attn_mlp``, ``swa_mlp`` and ``moe`` blocks run in the
+port so far: the dense archs, mixtral-8x7b and granite-moe-1b-a400m
+(``repro_torch.models.lm.check_ported`` refuses hymba-1.5b, xlstm-350m,
+whisper-large-v3 and pixtral-12b).
 """
 from __future__ import annotations
 

@@ -72,6 +72,9 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    def block_at(self, layer: int) -> str:
+        return self.block_pattern[layer % len(self.block_pattern)]
+
 
 # ---------------------------------------------------------------------------
 # Shape configs

@@ -14,8 +14,10 @@ uninterrupted trajectory. A sparse operand crosses as its six ELL arrays
 Language models: ``repro`` keeps an LM's weights as a tree whose
 ``layers["slot{i}_{kind}"]`` leaves stack the layers of pattern slot i
 along a leading group axis (layer g * period + i), and its decode cache
-the same way; the port keeps one module per layer and one
-(n_layers, ...) tensor per cache leaf. ``lm_params_from_numpy`` /
+the same way; the port keeps one module per layer and, per cache leaf,
+one tensor a layer (a sliding-window layer's ring is shorter than a
+full-attention layer's). The MoE router is f32 in a bf16 model on both
+sides, and crosses as such. ``lm_params_from_numpy`` /
 ``lm_params_to_numpy`` and ``cache_from_numpy`` / ``cache_to_numpy`` move
 them across as numpy arrays (``np.asarray`` of each ``repro`` leaf; bf16
 leaves travel as float32, which holds them exactly), and
@@ -246,8 +248,10 @@ def adamw_state_to_numpy(arch: ArchConfig, state: AdamWState) -> AdamWState:
 
 
 def cache_from_numpy(arch: ArchConfig, tree, device="cuda"):
-    """The port's decode cache from ``repro``'s (``{"slot{i}_{kind}":
-    {"k": (G, B, Hkv, S, Dh), "v": ...}}``, numpy leaves)."""
+    """The port's decode cache (``lm.init_cache``'s layout: a list of one
+    tensor a layer under "k" and "v") from ``repro``'s
+    (``{"slot{i}_{kind}": {"k": (G, B, Hkv, S_i, Dh), "v": ...}}``, numpy
+    leaves; S_i is slot i's cache length)."""
     dev = resolve_device(device)
     out = {}
     for name in ("k", "v"):
@@ -255,14 +259,15 @@ def cache_from_numpy(arch: ArchConfig, tree, device="cuda"):
         for i, slot, period in _slots(arch):
             for g, leaf in enumerate(np.asarray(tree[slot][name],
                                                 dtype=np.float32)):
-                per_layer[g * period + i] = _f32(leaf)
-        out[name] = torch.stack(per_layer).to(device=dev,
-                                              dtype=arch.torch_dtype)
+                per_layer[g * period + i] = _f32(leaf).to(
+                    device=dev, dtype=arch.torch_dtype)
+        out[name] = per_layer
     return out
 
 
 def cache_to_numpy(arch: ArchConfig, cache):
     """``repro``'s decode cache tree from the port's, float32 leaves."""
-    return {slot: {name: cache[name][i::period].float().cpu().numpy()
+    return {slot: {name: np.stack([t.float().cpu().numpy()
+                                   for t in cache[name][i::period]])
                    for name in ("k", "v")}
             for i, slot, period in _slots(arch)}

@@ -4,7 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --smoke --batch 4 --prompt-len 32 --gen-len 16 --device cpu
 
-Runs on the card unless ``--device cpu`` is given. As in ``repro``, the
+Every arch ``lm.check_ported`` accepts runs, the MoE archs too
+(``--arch mixtral-8x7b`` or ``granite-moe-1b-a400m``); mixtral's
+sliding-window layers decode through a ring cache. Runs on the card
+unless ``--device cpu`` is given. As in ``repro``, the
 prompt is fed through the decode path one token at a time (teacher
 forcing: correct, though not the fast path; the bulk prefill is
 ``LM.prefill``), then ``gen_len`` tokens are decoded greedily.
@@ -22,7 +25,8 @@ from repro_torch.models import lm
 
 
 class BatchedServer:
-    """Greedy batched decoding with a shared linear cache."""
+    """Greedy batched decoding with a shared cache (``lm.init_cache``:
+    linear, or a ring for a sliding-window layer)."""
 
     def __init__(self, arch, model, max_seq: int):
         self.arch = arch

@@ -1,15 +1,19 @@
-"""Dense model layers (the port of ``repro/models/layers.py``): RMSNorm,
+"""Model layers (the port of ``repro/models/layers.py``): RMSNorm,
 rotary embeddings, GQA attention (full / sliding-window, the full-sequence
-path through ``flash_attention`` and the cached single-token decode path)
-and the SwiGLU / 2-matrix MLP.
+path through ``flash_attention`` and the cached single-token decode path,
+whose sliding-window cache is a ring), the SwiGLU / 2-matrix MLP and the
+capacity-based top-k MoE.
 
 The arithmetic lives in plain functions that take tensors, as ``repro``'s
-do; ``RMSNorm``, ``Attention`` and ``MLP`` hold the parameters under
-``repro``'s names and call them. Matmuls run in the config dtype (bf16);
-norms, rotary embeddings and attention compute in f32 and cast back, at
-the same points as ``repro``. Not ported: ``maybe_shard`` (no device mesh
-yet), the MoE block and the perf flags (``DECODE_GROUPED_GQA`` stays at
-its default, the repeat of the cache's heads).
+do; ``RMSNorm``, ``Attention``, ``MLP`` and ``MoE`` hold the parameters
+under ``repro``'s names and call them. Matmuls run in the config dtype
+(bf16); norms, rotary embeddings, attention and the MoE router compute in
+f32 and cast back, at the same points as ``repro``. The MoE is plain
+PyTorch, as ``repro``'s is plain ``jnp`` outside any Pallas kernel: its
+expert products are three ``torch.bmm`` over (E, C, D) buffers. Not
+ported: ``maybe_shard`` and the MoE's expert-parallel buffer sharding (no
+device mesh yet), and the perf flags (``DECODE_GROUPED_GQA`` stays at its
+default, the repeat of the cache's heads; ``MOE_BUF_2D`` only shards).
 """
 from __future__ import annotations
 
@@ -150,14 +154,16 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, *, n_heads,
 
 class Attention(nn.Module):
     """GQA attention weights: wq (D, H Dh), wk/wv (D, Hkv Dh), wo
-    (H Dh, D), and bq/bk/bv with a QKV bias."""
+    (H Dh, D), and bq/bk/bv with a QKV bias. ``window`` > 0 makes it
+    sliding-window attention, whose decode cache is a ring."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int, qkv_bias: bool, rope_theta: float, dtype,
-                 device=None):
+                 device=None, window: int = 0):
         super().__init__()
         self.shape = dict(n_heads=n_heads, n_kv_heads=n_kv_heads,
-                          head_dim=head_dim, rope_theta=rope_theta)
+                          head_dim=head_dim, rope_theta=rope_theta,
+                          window=window)
         self.wq = empty_param((d_model, n_heads * head_dim), dtype, device)
         self.wk = empty_param((d_model, n_kv_heads * head_dim), dtype, device)
         self.wv = empty_param((d_model, n_kv_heads * head_dim), dtype, device)
@@ -202,3 +208,145 @@ class MLP(nn.Module):
 
     def forward(self, x):
         return mlp(dict(self.named_parameters()), x, self.act)
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based top-k dispatch)
+# ---------------------------------------------------------------------------
+
+# Token blocks larger than this run chunk by chunk, each with its own
+# capacity (bounds the dispatch buffers); read at call time, as in repro.
+MOE_CHUNK_TOKENS = 1 << 17
+
+
+def moe_route(router, xf, top_k: int):
+    """Router and top-k of a flat token block xf (T, D): f32 logits
+    ``xf.float() @ router``, softmax, the top_k experts of each token in
+    descending weight (``torch.topk``'s sorted order is ``lax.top_k``'s;
+    ties are where the two may differ), their weights renormalised by
+    max(sum, 1e-9), and the Switch load-balancing loss E * sum_e
+    mean-prob_e * share_e, where share_e is the fraction of the T K picks
+    that went to e (added up as ``repro``'s scatter-add does). Returns
+    (topw (T, K) f32, tope (T, K) int64, aux)."""
+    T = xf.shape[0]
+    E = router.shape[1]
+    probs = torch.softmax(xf.float() @ router, dim=-1)
+    topw, tope = torch.topk(probs, top_k, dim=-1, sorted=True)
+    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+    share = torch.zeros(E, dtype=torch.float32, device=xf.device).index_add_(
+        0, tope.reshape(-1), torch.full((T * top_k,), 1.0 / (T * top_k),
+                                        dtype=torch.float32,
+                                        device=xf.device))
+    return topw, tope, E * torch.sum(probs.mean(0) * share)
+
+
+def expert_places(e_flat, n_experts: int):
+    """Each pick's place in its expert: its rank among the picks of the
+    same expert in the order of ``e_flat`` (the T K picks, token-major).
+    These are the integers of ``repro``'s cumsum of the (T K, E) one-hot
+    down the picks; here they come from one sort of the unique keys
+    expert * T K + pick, since a scan down the one-hot's T K rows runs
+    column by column on the card: 14.8267 ms at T K = 65,536 over 32
+    experts on an H100 (80GB HBM3, 700 W), the sort 0.3058 ms. The keys
+    are unique, so the order does not rest on the sort being stable."""
+    n = e_flat.numel()
+    pick = torch.arange(n, device=e_flat.device)
+    key, order = torch.sort(e_flat * n + pick)
+    first = torch.searchsorted(key, torch.arange(
+        n_experts, dtype=key.dtype, device=key.device) * n)
+    return torch.empty_like(e_flat).scatter_(
+        0, order, pick - first[key // n])
+
+
+def moe_dispatch(xf, tope, n_experts: int, capacity: int):
+    """The (E, C, D) expert buffers of xf (T, D) for the picks tope
+    (T, K). The T K picks, token-major with slot k = 0 the highest
+    weight, take places in their expert in that order
+    (``expert_places``); a pick at place C or later is dropped. Only the
+    kept rows are written (their (expert, place) are unique), which
+    equals ``repro``'s scatter-add of zeros for the dropped ones. Returns
+    (buf, row, keep): row e C + place of each pick in the flattened
+    buffer (E C for a dropped one), keep its mask, each (T K,)."""
+    T, D = xf.shape
+    K = tope.shape[1]
+    e_flat = tope.reshape(T * K)
+    place = expert_places(e_flat, n_experts)
+    keep = place < capacity
+    row = torch.where(keep, e_flat * capacity + place, n_experts * capacity)
+    # A spare last row takes the dropped picks and is cut off.
+    buf = xf.new_zeros((n_experts * capacity + 1, D)).index_copy(
+        0, row, torch.repeat_interleave(xf, K, dim=0))
+    return buf[:-1].view(n_experts, capacity, D), row, keep
+
+
+def expert_ffn(p, buf, act: str = "silu"):
+    """The experts' SwiGLU on their buffers: act(buf w_gate) * (buf w_up),
+    then w_down, three ``torch.bmm`` at the buffers' dtype."""
+    h = act_fn(act)(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    return torch.bmm(h, p["w_down"])
+
+
+def moe_combine(out_buf, row, keep, topw):
+    """Each token's output: its K picks' rows of out_buf (E, C, D), zero
+    for a dropped pick, weighted by topw cast to out_buf's dtype and
+    summed over K -> (T, D)."""
+    E, C, D = out_buf.shape
+    T, K = topw.shape
+    got = out_buf.reshape(E * C, D)[torch.where(keep, row, 0)]
+    got = torch.where(keep[:, None], got, 0)
+    w = topw.reshape(T * K, 1).to(got.dtype)
+    return (got * w).reshape(T, K, D).sum(dim=1)
+
+
+def moe_tokens(p, xf, *, n_experts: int, top_k: int,
+               capacity_factor: float, act: str = "silu"):
+    """Capacity-based top-k MoE over a flat token block xf (T, D), with
+    capacity C = max(int(T K / E * capacity_factor), 4) a expert.
+    Returns (out (T, D), aux)."""
+    T = xf.shape[0]
+    topw, tope, aux = moe_route(p["router"], xf, top_k)
+    C = max(int(T * top_k / n_experts * capacity_factor), 4)
+    buf, row, keep = moe_dispatch(xf, tope, n_experts, C)
+    return moe_combine(expert_ffn(p, buf, act), row, keep, topw), aux
+
+
+def moe(p, x, *, n_experts: int, top_k: int, capacity_factor: float = 1.25,
+        act: str = "silu", chunk_tokens: int | None = None):
+    """GShard-style capacity-based top-k MoE of x (B, S, D) -> (out, aux).
+    Token blocks of more than ``chunk_tokens`` (default
+    ``MOE_CHUNK_TOKENS``) that it divides run chunk by chunk, capacity
+    per chunk, aux the mean over the chunks, as in ``repro``."""
+    B, S, D = x.shape
+    T = B * S
+    xf = x.reshape(T, D)
+    if chunk_tokens is None:
+        chunk_tokens = MOE_CHUNK_TOKENS
+    kw = dict(n_experts=n_experts, top_k=top_k,
+              capacity_factor=capacity_factor, act=act)
+    if chunk_tokens and T > chunk_tokens and T % chunk_tokens == 0:
+        outs, auxs = zip(*(moe_tokens(p, xc, **kw)
+                           for xc in xf.split(chunk_tokens)))
+        return torch.cat(outs).reshape(B, S, D), torch.stack(auxs).mean()
+    out, aux = moe_tokens(p, xf, **kw)
+    return out.reshape(B, S, D), aux
+
+
+class MoE(nn.Module):
+    """MoE weights: ``router`` (D, E) in f32 whatever the config dtype,
+    ``w_gate`` and ``w_up`` (E, D, F), ``w_down`` (E, F, D)."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int, top_k: int,
+                 capacity_factor: float, dtype, device=None,
+                 act: str = "silu"):
+        super().__init__()
+        self.shape = dict(n_experts=n_experts, top_k=top_k,
+                          capacity_factor=capacity_factor, act=act)
+        self.router = empty_param((d_model, n_experts), torch.float32,
+                                  device)
+        self.w_gate = empty_param((n_experts, d_model, d_ff), dtype, device)
+        self.w_up = empty_param((n_experts, d_model, d_ff), dtype, device)
+        self.w_down = empty_param((n_experts, d_ff, d_model), dtype, device)
+
+    def forward(self, x):
+        """(out, aux) of x (B, S, D)."""
+        return moe(dict(self.named_parameters()), x, **self.shape)

@@ -1,10 +1,15 @@
-"""Decoder LM of the port, the dense path (the port of
-``repro/models/lm.py``): every layer an ``attn_mlp`` block (GQA attention
-+ SwiGLU MLP), as in llama3-8b, tinyllama-1.1b, qwen1.5-4b (QKV bias) and
-stablelm-12b.
+"""Decoder LM of the port (the port of ``repro/models/lm.py``): layer i
+is a block of kind ``arch.block_at(i)``, one of
+
+    attn_mlp  GQA attention + SwiGLU MLP   (llama3-8b, tinyllama-1.1b,
+                                            qwen1.5-4b, stablelm-12b)
+    swa_mlp   sliding-window attention + MLP
+    moe       GQA attention (sliding-window where ``arch.window`` > 0) +
+              the capacity-based top-k MoE   (mixtral-8x7b, granite-moe-1b)
 
     model = init_params(arch, seed=0)             # an LM on the card
     logits = model.forward(tokens)                # (B, S, V)
+    logits, aux = model.forward_aux(tokens)       # + the summed MoE aux
     loss = train_loss(model, {"tokens": tokens, "targets": targets},
                       remat="none")               # K5 runs here
     last = model.prefill(tokens)                  # (B, 1, V); K5 runs here
@@ -24,16 +29,22 @@ rest, the counterparts of ``jax.checkpoint`` and
 again in the backward pass. As in ``repro``, ``prefill`` returns the last
 position's logits and seeds no cache (serving re-runs ``decode_step``
 from an empty one), and decode attention is plain PyTorch, so no kernel
-launches there. Unported block kinds, encoder-decoder archs and the
-modality frontends raise ``NotImplementedError``; so do ``repro``'s
-``shard_acts`` (no device mesh, ROADMAP Queue 1, item 7) and
-``unroll_layers`` (only the roofline's cost extraction needs it), which
-are not ported.
+launches there. The decode cache holds one k and one v tensor a layer,
+``repro``'s ``_cache_len`` long: ``seq_len``, or a ring of
+min(seq_len, window) for a sliding-window layer, so a pattern that mixes
+the two has caches of two lengths. The MoE routes the tokens of each call
+together: all B S of a prefill, the B of a decode step (at batch 8 a
+capacity of 4 a expert, so decode drops tokens a prefill would keep, as
+in ``repro``). Unported block kinds (``mamba_mlp``, ``hybrid``,
+``mlstm``, ``slstm``), encoder-decoder archs and the modality frontends
+raise ``NotImplementedError``; so do ``repro``'s ``shard_acts`` (no
+device mesh, ROADMAP Queue 1, item 7) and ``unroll_layers`` (only the
+roofline's cost extraction needs it), which are not ported.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, List
 
 import torch
 from torch import nn
@@ -69,13 +80,20 @@ def _checkpointed(fn, x, remat: str):
     raise ValueError(f"remat must be one of {REMAT}, not {remat!r}")
 
 
+# The block kinds the port runs, and those whose attention takes
+# ``arch.window`` (repro's lm.py picks the window by the same test).
+PORTED_KINDS = ("attn_mlp", "swa_mlp", "moe")
+WINDOWED_KINDS = ("swa_mlp", "moe")
+
+
 def check_ported(arch: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot run yet."""
     for kind in arch.block_pattern:
-        if kind != "attn_mlp":
+        if kind not in PORTED_KINDS:
             raise NotImplementedError(
                 f"{arch.name}: block kind {kind!r} is not ported to "
-                f"repro_torch yet (only 'attn_mlp'; see ROADMAP Queue 1)")
+                f"repro_torch yet (only {', '.join(PORTED_KINDS)}; see "
+                f"ROADMAP Queue 1)")
     if arch.is_encdec:
         raise NotImplementedError(
             f"{arch.name}: encoder-decoder archs are not ported yet")
@@ -85,34 +103,64 @@ def check_ported(arch: ArchConfig) -> None:
             f"ported yet")
 
 
-class Block(nn.Module):
-    """One ``attn_mlp`` block: x + attn(norm1 x), then + mlp(norm2 x)."""
+def block_window(arch: ArchConfig, kind: str) -> int:
+    """The attention window of a ``kind`` block (0: full attention)."""
+    return arch.window if kind in WINDOWED_KINDS else 0
 
-    def __init__(self, arch: ArchConfig, device=None):
+
+def cache_len(arch: ArchConfig, kind: str, seq_len: int) -> int:
+    """A ``kind`` layer's decode cache length (``repro``'s
+    ``_cache_len``): a ring of min(seq_len, window) where the block's
+    attention has a window, else seq_len."""
+    window = block_window(arch, kind)
+    return min(seq_len, window) if window > 0 else seq_len
+
+
+class Block(nn.Module):
+    """One block of ``kind``: x + attn(norm1 x), then + ffn(norm2 x), the
+    FFN an ``MLP`` (``mlp``) or, for ``moe``, an ``MoE`` (``moe``)."""
+
+    def __init__(self, arch: ArchConfig, kind: str, device=None):
         super().__init__()
         dt, D = arch.torch_dtype, arch.d_model
         self.norm1 = L.RMSNorm(D, dt, device)
         self.attn = L.Attention(D, arch.n_heads, arch.n_kv_heads,
                                 arch.head_dim_, arch.qkv_bias,
-                                arch.rope_theta, dt, device)
+                                arch.rope_theta, dt, device,
+                                window=block_window(arch, kind))
         self.norm2 = L.RMSNorm(D, dt, device)
-        self.mlp = L.MLP(D, arch.d_ff, dt, device, arch.mlp_type, arch.act)
+        if kind == "moe":
+            self.moe = L.MoE(D, arch.d_ff, arch.n_experts, arch.top_k,
+                             arch.capacity_factor, dt, device, arch.act)
+        else:
+            self.mlp = L.MLP(D, arch.d_ff, dt, device, arch.mlp_type,
+                             arch.act)
+
+    def _ffn(self, x):
+        """(ffn(norm2 x), the MoE's aux or None)."""
+        h = self.norm2(x)
+        if hasattr(self, "moe"):
+            return self.moe(h)
+        return self.mlp(h), None
 
     def forward(self, x):
+        """(x after the block, the MoE's aux or None)."""
         a, _ = self.attn(self.norm1(x))
         x = x + a
-        return x + self.mlp(self.norm2(x))
+        f, aux = self._ffn(x)
+        return x + f, aux
 
     def decode(self, x, cache_k, cache_v, pos: int):
         a, _, _ = self.attn.decode(self.norm1(x), cache_k, cache_v, pos)
         x = x + a
-        return x + self.mlp(self.norm2(x))
+        return x + self._ffn(x)[0]
 
 
 class LM(nn.Module):
     """Parameters under ``repro``'s names: ``embed`` (V, D),
-    ``layers.{i}.{norm1,attn,norm2,mlp}.*``, ``final_norm.scale`` and
-    ``unembed`` (D, V) (absent with tied embeddings)."""
+    ``layers.{i}.{norm1,attn,norm2}.*`` and ``layers.{i}.mlp.*`` or
+    ``layers.{i}.moe.*``, ``final_norm.scale`` and ``unembed`` (D, V)
+    (absent with tied embeddings)."""
 
     def __init__(self, arch: ArchConfig, device=None):
         super().__init__()
@@ -120,8 +168,8 @@ class LM(nn.Module):
         self.arch = arch
         dt, D, V = arch.torch_dtype, arch.d_model, arch.vocab_size
         self.embed = L.empty_param((V, D), dt, device)
-        self.layers = nn.ModuleList(Block(arch, device)
-                                    for _ in range(arch.n_layers))
+        self.layers = nn.ModuleList(Block(arch, arch.block_at(i), device)
+                                    for i in range(arch.n_layers))
         self.final_norm = L.RMSNorm(D, dt, device)
         if not arch.tie_embeddings:
             self.unembed = L.empty_param((D, V), dt, device)
@@ -135,27 +183,40 @@ class LM(nn.Module):
         return x @ unembed
 
     def _hidden(self, tokens, remat: str = "none"):
+        """(last hidden state, the MoE layers' aux summed in f32)."""
         x = self._embed(tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
-            x = _checkpointed(blk, x, remat)
-        return x
+            x, a = _checkpointed(blk, x, remat)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def forward_aux(self, tokens, remat: str = "none"):
+        """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux),
+        each block under the checkpointing policy ``remat`` (one of
+        :data:`REMAT`); aux is the sum of the MoE layers' load-balancing
+        losses (0 without MoE layers), as ``repro``'s ``forward``
+        returns it."""
+        x, aux = self._hidden(tokens, remat)
+        return self._logits(x), aux
 
     def forward(self, tokens, remat: str = "none"):
-        """Full-sequence forward: tokens (B, S) -> logits (B, S, V), each
-        block under the checkpointing policy ``remat`` (one of
-        :data:`REMAT`)."""
-        return self._logits(self._hidden(tokens, remat))
+        """``forward_aux``'s logits alone."""
+        return self.forward_aux(tokens, remat)[0]
 
     def prefill(self, tokens):
         """Forward over the prompt -> the last position's logits (B, 1, V).
         Only that position is normed and unembedded: the values are
         ``forward``'s, without the (B, S, V) logits."""
-        return self._logits(self._hidden(tokens)[:, -1:])
+        return self._logits(self._hidden(tokens)[0][:, -1:])
 
-    def decode_step(self, tokens, cache: Dict[str, torch.Tensor], pos: int):
+    def decode_step(self, tokens, cache: Dict[str, List[torch.Tensor]],
+                    pos: int):
         """One decode step: tokens (B, 1) at position ``pos`` against
-        ``cache`` (from ``init_cache``), which is updated IN PLACE.
-        Returns (logits (B, 1, V), cache)."""
+        ``cache`` (from ``init_cache``), which is updated IN PLACE; an
+        MoE layer routes the B tokens together. Returns (logits (B, 1,
+        V), cache)."""
         x = self._embed(tokens)
         for i, blk in enumerate(self.layers):
             x = blk.decode(x, cache["k"][i], cache["v"][i], pos)
@@ -170,8 +231,8 @@ def train_loss(model: LM, batch: Dict, aux_weight: float = 0.01,
     logits, logsumexp minus the gold logit, the mean. The gold logit is a
     ``torch.gather``, the same function as ``repro``'s masked reduction
     over the vocabulary (which exists for a sharded vocabulary, which the
-    port does not have). ``repro`` adds ``aux_weight`` times the MoE
-    load-balancing loss; the dense path has none, so its aux is 0."""
+    port does not have). Plus ``aux_weight`` times the MoE layers' summed
+    load-balancing loss (0 without MoE layers), as in ``repro``."""
     if shard_acts:
         raise NotImplementedError(
             "shard_acts needs a device mesh, which the port does not have "
@@ -179,19 +240,22 @@ def train_loss(model: LM, batch: Dict, aux_weight: float = 0.01,
     dev = model.embed.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev).long()
-    logits = model.forward(tokens, remat=remat).float()
+    logits, aux = model.forward_aux(tokens, remat=remat)
+    logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    return torch.mean(logz - gold) + aux_weight * aux
 
 
 def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:
     """An :class:`LM` with random weights from ``seed``, drawn on
     ``device`` by a ``torch.Generator`` at ``repro``'s scales: N(0, 1) in
-    f32 times fan_in ** -0.5 for the dense matrices, 0.02 for ``embed``
-    and d_model ** -0.5 for ``unembed``, then cast to the config dtype;
-    norm scales 1, biases 0. (Not ``jax.random``'s numbers: weights cross
-    from ``repro`` through ``convert.lm_params_from_numpy``.)"""
+    f32 times fan_in ** -0.5 for the dense matrices (shape[0]; the MoE
+    router, which stays f32), shape[1] ** -0.5 for the (E, ., .) expert
+    weights, 0.02 for ``embed`` and d_model ** -0.5 for ``unembed``, then
+    cast to each parameter's dtype; norm scales 1, biases 0. (Not
+    ``jax.random``'s numbers: weights cross from ``repro`` through
+    ``convert.lm_params_from_numpy``.)"""
     dev = resolve_device(device)
     model = LM(arch, dev)
     gen = torch.Generator(device=dev)
@@ -204,20 +268,25 @@ def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:
             elif leaf in ("bq", "bk", "bv"):
                 p.zero_()
             else:
+                fan_in = p.shape[1] if p.dim() == 3 else p.shape[0]
                 std = {"embed": 0.02, "unembed": arch.d_model ** -0.5}.get(
-                    name, p.shape[0] ** -0.5)
+                    name, fan_in ** -0.5)
                 p.copy_(torch.randn(p.shape, generator=gen, device=dev,
                                     dtype=torch.float32).mul_(std))
     return model
 
 
 def init_cache(arch: ArchConfig, batch: int, seq_len: int,
-               device="cuda") -> Dict[str, torch.Tensor]:
-    """The decode cache (``repro``'s ``cache_specs``, allocated): k and v
-    of every layer, (n_layers, B, Hkv, seq_len, head_dim) zeros in the
-    config dtype on ``device``."""
+               device="cuda") -> Dict[str, List[torch.Tensor]]:
+    """The decode cache (``repro``'s ``cache_specs``, allocated): for "k"
+    and "v" a list of one (B, Hkv, cache_len, head_dim) tensor of zeros a
+    layer, in the config dtype on ``device``, where ``cache_len`` is
+    ``seq_len`` or, for a sliding-window layer, its ring's
+    min(seq_len, window)."""
     check_ported(arch)
-    shape = (arch.n_layers, batch, arch.n_kv_heads, seq_len, arch.head_dim_)
     dev = resolve_device(device)
-    return {name: torch.zeros(shape, dtype=arch.torch_dtype, device=dev)
-            for name in ("k", "v")}
+    shapes = [(batch, arch.n_kv_heads,
+               cache_len(arch, arch.block_at(i), seq_len), arch.head_dim_)
+              for i in range(arch.n_layers)]
+    return {name: [torch.zeros(s, dtype=arch.torch_dtype, device=dev)
+                   for s in shapes] for name in ("k", "v")}

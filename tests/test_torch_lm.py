@@ -14,7 +14,8 @@ the same numpy inputs and weights.
 * The port's own decode-vs-forward consistency, init_params' names,
   shapes and dtypes against repro's param_specs, the refusals (no card,
   unported block kinds), the kernel's head dimensions against every
-  ported arch, and the serving CLI.
+  ported arch, and the serving CLI. The MoE and sliding-window blocks are
+  held to repro in test_torch_moe.py.
 """
 import dataclasses
 
@@ -274,19 +275,24 @@ def test_init_params_defaults_to_the_card():
         lm.init_cache(get_smoke_config("llama3-8b"), 1, 4)
 
 
-@pytest.mark.parametrize("name,kind", [
-    ("mixtral-8x7b", "moe"), ("granite-moe-1b-a400m", "moe"),
-    ("hymba-1.5b", "hybrid"), ("xlstm-350m", "mlstm"),
-    ("whisper-large-v3", "encoder-decoder"), ("pixtral-12b", "vision_stub")])
-def test_unported_archs_raise(name, kind):
+@pytest.mark.parametrize("name,pattern,kind", [
+    ("xlstm-350m", ("slstm",), "slstm"),
+    ("tinyllama-1.1b", ("mamba_mlp",), "mamba_mlp"),
+    ("hymba-1.5b", None, "hybrid"), ("xlstm-350m", None, "mlstm"),
+    ("whisper-large-v3", None, "encoder-decoder"),
+    ("pixtral-12b", None, "vision_stub")])
+def test_unported_archs_raise(name, pattern, kind):
+    arch = get_smoke_config(name)
+    if pattern is not None:
+        arch = dataclasses.replace(arch, block_pattern=pattern)
     with pytest.raises(NotImplementedError, match=kind):
-        lm.init_params(get_smoke_config(name), seed=0, device="cpu")
+        lm.init_params(arch, seed=0, device="cpu")
 
 
 def test_flash_kernel_takes_every_ported_head_dim():
-    """The port runs the four dense archs, and each has a head dimension
-    the card's flash_attention kernel is built for, so its prefill
-    launches there."""
+    """The port runs the four dense archs and the two MoE archs, and each
+    has a head dimension the card's flash_attention kernel is built for,
+    so its prefill launches there."""
     def runs(arch):
         try:
             lm.check_ported(arch)
@@ -296,7 +302,8 @@ def test_flash_kernel_takes_every_ported_head_dim():
 
     ported = [get_config(n) for n in list_archs() if runs(get_config(n))]
     assert sorted(a.name for a in ported) == sorted(
-        ["llama3-8b", "tinyllama-1.1b", "qwen1.5-4b", "stablelm-12b"])
+        ["llama3-8b", "tinyllama-1.1b", "qwen1.5-4b", "stablelm-12b",
+         "mixtral-8x7b", "granite-moe-1b-a400m"])
     for arch in ported:
         assert arch.head_dim_ in dispatch.FLASH_HEAD_DIMS, arch.name
 
