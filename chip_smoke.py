@@ -256,7 +256,36 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    mixtral-smoke (window 32) serving prompt 40 + generate 16 through its
    ring of 32: the card's tokens equal the CPU's; (e) ``python -m
    repro_torch.launch.serve --arch mixtral-8x7b --smoke --prompt-len 40
-   --gen-len 16`` exits 0 on the card.
+   --gen-len 16`` exits 0 on the card;
+18. (run after phase 17, before phase 16) the recurrent blocks: (a)
+   hymba-1.5b at full width and depth (32 ``hybrid`` layers: attention
+   of 25/5 heads of 64 in a window of 1024 beside 25 SSM heads of key
+   dim 16, d 1600, d_ff 5,504, vocab 32,001, 128 meta tokens, bf16;
+   1.433 B parameters), random from a seed: ``LM.prefill`` at B 1, S 8192
+   (8,320 positions), exactly 32 K5 launches, all ``wgmma``, no other
+   kernel, finite logits; the median of three, tokens/s, peak memory,
+   the split by CUDA events (K5, q/k/v, rope, the attention's rest, the
+   SSM projections, ``chunked_gla``'s intra-chunk and inter-chunk parts,
+   the SSM gate and out, the MLP, rmsnorm, unembed), the busy share, K5 on
+   layer 0's q/k/v against its plain version (the prefill's bar) with its
+   time, device time, bound, SDPA with an explicit band mask and the same
+   call at window 0; ``BatchedServer.generate`` batch 8, prompt 128,
+   generate 32: no kernel, ms per step against the bytes a step reads,
+   the idle share and operations a step; decode against prefill at
+   meta_tokens 0 (atol 0.12, rtol 0.05); (b) xlstm-350m at full width
+   and depth (24 layers, mLSTM and sLSTM in turn, d 1024, 4 heads of
+   256, vocab 50,304, bf16; 0.2416 B parameters): the prefill at B 1, S
+   2048 (cut from 8192: the sLSTM's steps are launched one by one), no
+   kernel, finite logits, the median of three, tokens/s, the split
+   (mLSTM intra-chunk, inter-chunk, the sLSTM scan, the projections), the
+   device operations of an sLSTM step; serving as in (a); (c) f32 at
+   hymba and xlstm widths, 2 layers, B 2, S 512, the card against the
+   CPU from the same weights (logits rel 1e-4, ``train_loss`` rel 1e-5),
+   and the smoke configs serving prompt 40 + generate 16 (hymba-smoke
+   through its ring of 32): the card's tokens equal the CPU's; (d)
+   ``python -m repro_torch.launch.serve --arch hymba-1.5b --smoke
+   --prompt-len 40 --gen-len 16`` and the same for xlstm-350m exit 0 on
+   the card.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
@@ -265,7 +294,7 @@ phase 12 path's shape: its launches on its main path (``flash_attention``
 also its launches per training step and its error and times at the
 training shape, phase 16, and its launches per mixtral prefill, error,
 times, bound and SDPA's time at mixtral's windowed shape, with the time
-at window 0, phase 17),
+at window 0, phase 17, and the same at hymba's, phase 18),
 its error against the plain version, its time through the wrapper
 (``ms``, CUDA events over back-to-back calls, host work included), its
 device time alone (``device_ms``: the summed kernel durations of a
@@ -331,8 +360,11 @@ TINY, TINY_LAYERS, TINY_B, TINY_S = "tinyllama-1.1b", 2, 2, 512
 # (B, Hq, Hkv, Sq, Sk, D, causal, window): tests/test_kernels.py
 # ATTN_CASES, then ragged keys, a ragged window, 4:1 GQA at D = 128 over a
 # partial last tile, a bidirectional Sq < Sk, stablelm-12b's heads
-# (32 over 8 of D = 160) over a partial last tile, and the smoke configs'
-# D = 16 at the training launcher's default batch and length.
+# (32 over 8 of D = 160) over a partial last tile, the smoke configs'
+# D = 16 at the training launcher's default batch and length, and
+# hymba-1.5b's 25 query heads over 5 (group 5, D = 64) at its window of
+# 1024 (640 positions: the f32 check's 512 tokens + 128 meta tokens) and
+# at a ragged length under a narrower window.
 ATTN_CASES = [
     (2, 4, 2, 128, 128, 64, True, 0),
     (1, 8, 2, 256, 256, 64, True, 64),
@@ -346,6 +378,8 @@ ATTN_CASES = [
     (1, 4, 1, 128, 256, 64, False, 0),
     (1, 32, 8, 520, 520, 160, True, 0),
     (8, 4, 2, 128, 128, 16, True, 0),
+    (1, 25, 5, 640, 640, 64, True, 1024),
+    (1, 25, 5, 650, 650, 64, True, 300),
 ]
 
 
@@ -4145,13 +4179,14 @@ def moe_patches():
             (lm.LM, "_logits", "logits")]
 
 
-def timed_split(fn, keep=("kernel",)):
+def timed_split(fn, keep=("kernel",), patches=None):
     """(total device ms, {label: ms}, PhaseTimer) of one ``fn()`` with
-    CUDA events around each function of ``moe_patches``; the first
-    call's arguments are kept for the labels in ``keep``."""
+    CUDA events around each function of ``patches`` (default
+    ``moe_patches``); the first call's arguments are kept for the labels
+    in ``keep``."""
     import torch
     timer = PhaseTimer()
-    patches = moe_patches()
+    patches = moe_patches() if patches is None else patches
     saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
     for o, a, label in patches:
         setattr(o, a, timer.wrap(label, getattr(o, a), label in keep))
@@ -4267,13 +4302,14 @@ def moe_prefill(arch, model):
     return got["flash_attention"], err, (q, k, v), kw
 
 
-def moe_serve(arch, model, nbytes_read):
+def moe_serve(arch, model, nbytes_read, patches=None, split=None):
     """Phase 17's serving run: ``BatchedServer.generate`` at phase 9's
     batch, prompt and length; no kernel launched (decode attention is
     plain PyTorch); ms per step against the bytes a step reads (every
     weight but the embedding table, whose B rows are gathered, since the
     dispatch runs all E experts' buffers) at the HBM rate; the split of a
-    decode step."""
+    decode step over ``patches`` by ``split(total, tot, timer)``
+    (default: the MoE's). Phase 18 serves the recurrent archs through it."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import BatchedServer
@@ -4307,15 +4343,17 @@ def moe_serve(arch, model, nbytes_read):
             or not ((out >= 0) & (out < arch.vocab_size)).all():
         raise AssertionError(f"generate gave {out.dtype} {out.shape}")
     t0 = time.perf_counter()
-    total, tot, _ = timed_split(
-        lambda: server.generate(prompts[:, :8], 8), keep=())
+    total, tot, timer = timed_split(
+        lambda: server.generate(prompts[:, :8], 8), keep=(),
+        patches=patches)
     traced = time.perf_counter() - t0
     log(f"  16 decode steps of another generate (prompt 8, generate 8) "
         f"under CUDA events: traced wall {traced / 16 * 1e3:.3f} ms per "
         f"step; where the device idles between launches these intervals "
         f"are mostly host time")
     log_moe_split("a decode step", total,
-                  moe_split(total, tot, "attn_decode"), 16)
+                  moe_split(total, tot, "attn_decode") if split is None
+                  else split(total, tot, timer), 16)
     log_profile("16 decode steps", device_profile(
         lambda: server.generate(prompts[:, :8], 8)), step_ms, 16)
 
@@ -4332,11 +4370,13 @@ def sdpa_backend(q, k, v, mask):
         return f"unknown ({exc!r})"
 
 
-def window_row(q, k, v, kw, launches, err):
-    """K5's windowed call at mixtral's shape (layer 0's q/k/v): its time
+def window_row(q, k, v, kw, launches, err, prefix="window",
+               what="mixtral's"):
+    """K5's windowed call at ``what`` shape (layer 0's q/k/v): its time
     through the wrapper, device time, plain version, SDPA with an explicit
     band mask, the same call at window 0, and the bound from this call's
-    live pairs."""
+    live pairs, as the ``prefix``_... keys of K5's row (mixtral's:
+    window_..., and window0_ms)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
@@ -4374,27 +4414,30 @@ def window_row(q, k, v, kw, launches, err):
     flops = 4.0 * Hq * D * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     b, why = bound_ms(nbytes, flops, BF16_FLOPS)
-    row = {"window_launches": launches, "window_max_abs_err": err,
-           "window_ms": med["ms"],
-           "window_device_ms": device_ms(
+    w0 = "window0_ms" if prefix == "window" else f"{prefix}_window0_ms"
+    row = {f"{prefix}_launches": launches, f"{prefix}_max_abs_err": err,
+           f"{prefix}_ms": med["ms"],
+           f"{prefix}_device_ms": device_ms(
                lambda: flash_attention(q, k, v, **kw)),
-           "window_plain_ms": time_ms(plain, 2, 1),
-           "window_bound_ms": b, "window_bound_by": why,
-           "window_library_ms": med["library_ms"],
-           "window0_ms": med["window0_ms"]}
-    ratio = row["window_ms"] / row["window0_ms"]
-    log(f"  K5 windowed at mixtral's shape {tuple(q.shape)} / "
-        f"{tuple(k.shape)} bf16, window {window}: {row['window_ms']:.4f} "
-        f"ms (device {fmt_ms(row['window_device_ms'])}), "
-        f"{flops / row['window_ms'] / 1e9:.1f} TFLOP/s, {b / row['window_ms']:.3f}"
+           f"{prefix}_plain_ms": time_ms(plain, 2, 1),
+           f"{prefix}_bound_ms": b, f"{prefix}_bound_by": why,
+           f"{prefix}_library_ms": med["library_ms"],
+           w0: med["window0_ms"]}
+    ms = row[f"{prefix}_ms"]
+    ratio = ms / row[w0]
+    log(f"  K5 windowed at {what} shape {tuple(q.shape)} / "
+        f"{tuple(k.shape)} bf16, window {window}: {ms:.4f} "
+        f"ms (device {fmt_ms(row[f'{prefix}_device_ms'])}), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {b / ms:.3f}"
         f" of the bound ({b:.4f} ms by {why}: {pairs} live pairs, "
-        f"{flops / 1e9:.1f} GFLOP); plain {row['window_plain_ms']:.4f} ms; "
-        f"SDPA with the (S, S) band mask {row['window_library_ms']:.4f} ms "
+        f"{flops / 1e9:.1f} GFLOP); plain {row[f'{prefix}_plain_ms']:.4f} "
+        f"ms; SDPA with the (S, S) band mask "
+        f"{row[f'{prefix}_library_ms']:.4f} ms "
         f"(backend {backend}; max |SDPA - plain| {lib_err:.2e}) (rounds, "
         f"ms: " + "; ".join(f"{n} {' '.join(f'{t:.4f}' for t in ts)}"
                             for n, ts in rounds.items()) + ")")
     log(f"  the same call at window 0 ({pairs0} live pairs, "
-        f"{pairs / pairs0:.3f} of them): {row['window0_ms']:.4f} ms; "
+        f"{pairs / pairs0:.3f} of them): {row[w0]:.4f} ms; "
         f"windowed / window 0 = {ratio:.3f}")
     if ratio > 0.9:
         log("  FINDING: the windowed call takes as long as window 0: the "
@@ -4566,6 +4609,405 @@ def phase_moe():
     torch.cuda.empty_cache()
     moe_cli()
     log(f"phase 17 done in {time.perf_counter() - t0:.1f} s")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the recurrent blocks (hymba's hybrid block, xLSTM).
+# ---------------------------------------------------------------------------
+
+# (a) hymba-1.5b at full width and depth, prefilled at B 1, S 8192 (8320
+# positions with its 128 meta tokens); (b) xlstm-350m at full width and
+# depth, its prefill cut from S 8192 to 2048: the sLSTM is S dependent
+# steps of ~20 eager operations a layer, which the host launches one by
+# one (12 layers x 8192 steps would take ~20 s a prefill). Both serve as
+# phase 9 does.
+HYMBA, XLSTM, XLSTM_S = "hymba-1.5b", "xlstm-350m", 2048
+# (c) f32 card against CPU at hymba and xlstm widths, 2 layers, B x S; the
+# smoke configs serve prompt RING_P + RING_G (hymba-smoke's ring of 32
+# wraps).
+REC_F32_LAYERS, REC_F32_B, REC_F32_S = 2, 2, 512
+
+
+def recurrent_model(name):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    arch = get_config(name)
+    t0 = time.perf_counter()
+    model = lm.init_params(arch, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  {arch.name}: {arch.n_layers} layers {arch.block_pattern}, "
+        f"d_model {arch.d_model}, {arch.n_heads}/{arch.n_kv_heads} heads "
+        f"of {arch.head_dim_}, SSM heads {arch.ssm_heads} of key dim "
+        f"{arch.ssm_state}, d_ff {arch.d_ff}, vocab {arch.vocab_size}, "
+        f"window {arch.window}, {arch.meta_tokens} meta tokens, "
+        f"{arch.dtype}: {n / 1e9:.4f} B parameters ({nbytes / 1e9:.2f} GB),"
+        f" random from seed 0, made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return arch, model, nbytes
+
+
+# What phase 18's splits time: the attention's parts, the recurrent
+# module's functions (``chunked_gla`` calls ``gla_intra`` and
+# ``gla_inter``), the MLP, the norms and the unembedding.
+def recurrent_patches():
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import recurrent as R
+    return [(L, "flash_attention", "kernel"), (L, "project_qkv", "proj"),
+            (L, "apply_rope", "rope"), (L, "attention_train", "attn"),
+            (L, "attention_decode", "attn_decode"),
+            (R, "_ssm_qkva", "ssm_proj"), (R, "gla_intra", "intra"),
+            (R, "gla_inter", "inter"), (R, "gla_step", "gla_step"),
+            (R, "ssm_heads_train", "ssm"), (R, "ssm_heads_step", "ssm_step"),
+            (R, "_mlstm_qkvifa", "mlstm_proj"), (R, "mlstm_train", "mlstm"),
+            (R, "mlstm_step", "mlstm_step"), (R, "_slstm_pre", "slstm_proj"),
+            (R, "slstm_scan", "slstm_scan"), (R, "slstm_train", "slstm"),
+            (L, "mlp", "mlp"), (L, "rmsnorm", "norm"),
+            (lm.LM, "_logits", "logits")]
+
+
+def recurrent_split(total, tot, unembed, decode=False):
+    """The rows of a phase 18 split (labels of ``recurrent_patches``);
+    ``unembed`` is the logits' time less the final norm's."""
+    attn = tot["attn_decode"] if decode else tot["attn"]
+    ssm = tot["ssm_step"] if decode else tot["ssm"]
+    mlstm = tot["mlstm_step"] if decode else tot["mlstm"]
+    gla = tot["gla_step"] if decode else tot["intra"] + tot["inter"]
+    rows = {}
+    if attn and not decode:
+        rows["K5 (flash_attention)"] = tot["kernel"]
+    if attn:
+        rows.update({
+            "q/k/v projections (GEMMs)": tot["proj"],
+            "rope (q, k)": tot["rope"],
+            "attention rest (o relayout + wo; decode: cache, softmax)":
+                attn - tot["proj"] - tot["rope"] - tot["kernel"]})
+    if ssm:
+        rows["SSM projections (q, k, v, decay)"] = tot["ssm_proj"]
+    if ssm or mlstm:
+        if decode:
+            rows["recurrence step (gla_step)"] = gla
+        else:
+            rows["chunked_gla intra-chunk (C x C products)"] = tot["intra"]
+            rows["chunked_gla inter-chunk (the boundary loop)"] = \
+                tot["inter"]
+    if ssm:
+        rows["SSM gate and out"] = ssm - tot["ssm_proj"] - (
+            gla if not mlstm else 0)
+    if mlstm:
+        rows["mLSTM projections (q, k, v, gates)"] = tot["mlstm_proj"]
+        rows["mLSTM gate, normaliser and out"] = \
+            mlstm - tot["mlstm_proj"] - gla
+    if tot["slstm"]:
+        rows["sLSTM input projections"] = tot["slstm_proj"]
+        rows["sLSTM scan (dependent steps)"] = tot["slstm_scan"]
+        rows["sLSTM out"] = tot["slstm"] - tot["slstm_proj"] \
+            - tot["slstm_scan"]
+    if tot["mlp"]:
+        rows["MLP (gate/up/down GEMMs, SiLU mul)"] = tot["mlp"]
+    rows["rmsnorm"] = tot["norm"]
+    rows["unembed (last position)"] = unembed
+    rows["rest (embed gather, meta rows, residual adds)"] = total - attn \
+        - ssm - mlstm - tot["slstm"] - tot["mlp"] - tot["norm"] - unembed
+    return rows
+
+
+def unembed_ms(tot, timer):
+    """The logits' time less the final norms': the last norm of each
+    ``LM._logits`` call (every call of the traced function runs the same
+    number of norms)."""
+    norms = timer.events.get("norm", [])
+    calls = len(timer.events.get("logits", []))
+    if not calls:
+        return 0.0
+    per = len(norms) // calls
+    return tot["logits"] - sum(a.elapsed_time(b)
+                               for a, b in norms[per - 1::per])
+
+
+def recurrent_prefill(arch, model, S):
+    """Phase 18's prefill of ``arch`` at B 1, S: launches (K5 once a
+    layer with attention, all wgmma, nothing else), finite logits, the
+    median of three, tokens/s, peak memory, the split by CUDA events and
+    the busy share. Returns (K5's launches, layer 0's (q, k, v), kw) or
+    (0, None, None) without attention."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    toks = torch.randint(0, arch.vocab_size, (1, S), generator=gen,
+                         device="cuda")
+    attn_layers = sum(arch.block_at(i) in lm.ATTENTION_KINDS
+                      for i in range(arch.n_layers))
+    with torch.no_grad():
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill(toks)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        got = read_counts()
+        routes = dict(flash_attention.route_launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = dict.fromkeys(got, 0)
+        want["flash_attention"] = attn_layers
+        want_routes = {"wgmma": attn_layers, "simt": 0}
+        log(f"  prefill B=1 S={S} ({S + arch.meta_tokens} positions): "
+            f"launches {got} (expected {want}); K5 by body {routes} "
+            f"(expected {want_routes}); first prefill {cold:.4f} s; peak "
+            f"device memory {peak:.3f} GiB")
+        if got != want or routes != want_routes:
+            raise AssertionError(f"{arch.name} prefill launches {got} "
+                                 f"{routes}, expected {want} {want_routes}")
+        if logits.shape != (1, 1, arch.vocab_size) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"{arch.name} prefill logits "
+                                 f"{tuple(logits.shape)} not finite")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(toks)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        med = sorted(walls)[1]
+        log(f"  steady prefills: {' '.join(f'{w:.4f}' for w in walls)} s "
+            f"(median {med:.4f} s, {S / med:.1f} tokens/s)")
+        total, tot, timer = timed_split(lambda: model.prefill(toks),
+                                        patches=recurrent_patches())
+        log_moe_split("a prefill", total, recurrent_split(
+            total, tot, unembed_ms(tot, timer)))
+        if attn_layers:
+            log_profile("one prefill", device_profile(
+                lambda: model.prefill(toks)), med * 1e3, 1)
+            (q, k, v), kw = timer.first["kernel"]
+            return got["flash_attention"], (q, k, v), kw
+    return 0, None, None
+
+
+def decode_vs_prefill(arch, model, what, hold=True):
+    """Teacher-forced decode's logits at the last of 128 prompt positions
+    (batch 8) against ``prefill``'s, with the meta tokens off: decode
+    never sees them, in ``repro`` too, so with them the two differ by
+    design. Held to ``repro``'s bar (atol 0.12, rtol 0.05) if ``hold``,
+    else only logged."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    B, P = SERVE_B, SERVE_P
+    prompts = np.random.default_rng(0).integers(
+        0, arch.vocab_size, (B, P)).astype(np.int32)
+    model.arch = dataclasses.replace(arch, meta_tokens=0)
+    try:
+        with torch.no_grad():
+            toks = torch.as_tensor(prompts, device="cuda")
+            cache = lm.init_cache(model.arch, B, P, "cuda")
+            for t in range(P):
+                logits, cache = model.decode_step(toks[:, t:t + 1], cache, t)
+            last = model.prefill(toks)
+    finally:
+        model.arch = arch
+    name = (f"{arch.name}{what} decode logits at position {P - 1} vs "
+            f"prefill (B={B}, meta_tokens 0, {arch.dtype}; max |prefill "
+            f"logit| {float(last.float().abs().max()):.4f})")
+    if hold:
+        check_close(name, logits.float(), last.float(), 0.05, 0.12)
+    else:
+        log(f"  {name}: max_abs_err "
+            f"{float((logits.float() - last.float()).abs().max()):.3e} "
+            f"(logged, not held)")
+
+
+def slstm_step_ops(arch):
+    """Device operations and host ms of one sLSTM step at ``arch``'s full
+    width (B 1), from 16 steps of ``recurrent.slstm_scan``."""
+    import torch
+    from repro_torch.models import recurrent as R
+    H, dh = arch.n_heads, arch.d_model // arch.n_heads
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    pre = torch.randn(16, H, 1, 4 * dh, generator=gen, device="cuda")
+    r = torch.randn(H, dh, 4 * dh, generator=gen, device="cuda") * dh ** -0.5
+    state = tuple(torch.zeros(H, 1, dh, device="cuda") for _ in range(4))
+    with torch.no_grad():
+        step_ms = time_ms(lambda: R.slstm_scan(pre, r, state), 5) / 16
+        busy, ops, _ = device_profile(lambda: R.slstm_scan(pre, r, state))
+    log(f"  an sLSTM step at d {arch.d_model}, {H} heads of {dh}: "
+        f"{ops / 16:.1f} device operations, {step_ms:.4f} ms of wall "
+        f"(CUDA events over 16 steps), device busy "
+        f"{fmt_ms(None if busy is None else busy / 16)} ms")
+
+
+def recurrent_serve(arch, model, nbytes):
+    """Serving at phase 9's batch, prompt and length through
+    ``moe_serve`` (no kernel; ms per step against every weight but the
+    embedding table at the HBM rate; the split), then decode against
+    prefill at meta_tokens 0 at full depth: logged at bf16, where the
+    two paths' roundings drift apart over the depth (hymba's 32 layers
+    miss ``repro``'s bar), and held to that bar with the model cast to
+    f32. The bf16 models are held to it at 2 layers, in (c)."""
+    import dataclasses
+    embed = model.embed.numel() * model.embed.element_size()
+    moe_serve(arch, model, nbytes - embed, patches=recurrent_patches(),
+              split=lambda total, tot, timer: recurrent_split(
+                  total, tot, unembed_ms(tot, timer), decode=True))
+    decode_vs_prefill(arch, model, " (full depth)", hold=False)
+    model.float()
+    decode_vs_prefill(dataclasses.replace(arch, dtype="float32"), model,
+                      " (full depth)")
+
+
+def recurrent_f32_card_vs_cpu():
+    """Phase 18 (c): f32 at hymba and xlstm widths, 2 layers, the card
+    against the CPU from the same weights; at bf16, decode against
+    prefill at meta_tokens 0 at ``repro``'s bar; the smoke configs'
+    serving."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import lm
+
+    B, S = REC_F32_B, REC_F32_S
+    rng = np.random.default_rng(1)
+    for name in (HYMBA, XLSTM):
+        arch = dataclasses.replace(get_config(name),
+                                   n_layers=REC_F32_LAYERS, dtype="float32")
+        log(f"phase 18 (c): f32 {name} widths at {REC_F32_LAYERS} layers, "
+            f"B={B} S={S} ({S + arch.meta_tokens} positions), the card "
+            f"against the CPU")
+        gpu = lm.init_params(arch, seed=0, device="cuda")
+        cpu = lm.LM(arch, "cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        batch = {"tokens": rng.integers(0, arch.vocab_size,
+                                        (B, S)).astype(np.int32),
+                 "targets": rng.integers(0, arch.vocab_size,
+                                         (B, S)).astype(np.int32)}
+        want = sum(arch.block_at(i) in lm.ATTENTION_KINDS
+                   for i in range(arch.n_layers))
+        with torch.no_grad():
+            flash_attention.launches = 0
+            lg = gpu.forward(torch.as_tensor(batch["tokens"],
+                                             device="cuda")).cpu()
+            if flash_attention.launches != want:
+                raise AssertionError(f"f32 forward launched K5 "
+                                     f"{flash_attention.launches} times, "
+                                     f"not {want}")
+            lc = cpu.forward(torch.as_tensor(batch["tokens"]))
+            loss_g = float(lm.train_loss(gpu, batch))
+            loss_c = float(lm.train_loss(cpu, batch))
+        rel = float((lg - lc).abs().max() / lc.abs().max())
+        rel_loss = abs(loss_g - loss_c) / abs(loss_c)
+        log(f"  logits {tuple(lg.shape)}: max |card - cpu| / max |cpu| "
+            f"{rel:.3e} (bar 1e-4); train_loss {loss_g:.7f} / "
+            f"{loss_c:.7f}, rel {rel_loss:.3e} (bar 1e-5); K5 launches "
+            f"{want}")
+        if not (rel <= 1e-4 and rel_loss <= 1e-5):
+            raise AssertionError(f"f32 {name}: card and CPU differ")
+        del gpu, cpu
+        bf16 = dataclasses.replace(arch, dtype="bfloat16")
+        decode_vs_prefill(bf16, lm.init_params(bf16, seed=0, device="cuda"),
+                          f" ({REC_F32_LAYERS} layers)")
+
+        smoke = dataclasses.replace(get_smoke_config(name), dtype="float32")
+        gpu = lm.init_params(smoke, seed=0, device="cuda")
+        cpu = lm.LM(smoke, "cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        prompts = rng.integers(0, smoke.vocab_size,
+                               (4, RING_P)).astype(np.int32)
+        t_gpu = BatchedServer(smoke, gpu, RING_P + RING_G).generate(
+            prompts, RING_G)
+        t_cpu = BatchedServer(smoke, cpu, RING_P + RING_G).generate(
+            prompts, RING_G)
+        cache = lm.init_cache(smoke, 1, RING_P + RING_G, "cpu")
+        ring = cache["k"][0].shape[2] if "k" in cache else None
+        log(f"  {smoke.name} f32 serving prompt {RING_P} + {RING_G}"
+            f"{'' if ring is None else f' through a ring of {ring}'}, "
+            f"cache entries {sorted(cache)}: card tokens equal the CPU's: "
+            f"{bool((t_gpu == t_cpu).all())} ({t_gpu[0].tolist()})")
+        if not (t_gpu == t_cpu).all() or ring not in (None, smoke.window):
+            raise AssertionError(f"{smoke.name} serving: card and CPU "
+                                 f"differ")
+
+
+def recurrent_cli():
+    """Phase 18 (d): the serving CLI on the card, both archs' smoke
+    configs (decode only, so no kernel: hymba-smoke's heads of 20 are
+    not a K5 head dimension)."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    for name, smoke in ((HYMBA, "hymba-smoke"), (XLSTM, "xlstm-smoke")):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               name, "--smoke", "--prompt-len", "40", "--gen-len", "16"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=300)
+        log(f"phase 18 (d): {' '.join(cmd[1:])}: exit {out.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s: {out.stdout.strip()[-300:]}")
+        if out.returncode != 0 or f"arch={smoke} generated (4, 16)" \
+                not in out.stdout:
+            raise AssertionError(f"(d) the CLI: {out.stdout[-2000:]} "
+                                 f"{out.stderr[-3000:]}")
+
+
+def phase_recurrent():
+    """Phase 18: (a) hymba-1.5b at full width and depth: prefill (K5 32
+    times, windowed), K5 at its shape, serving; (b) xlstm-350m at full
+    width and depth: prefill at S 2048 (no kernel), an sLSTM step's
+    operations, serving; (c) f32 card against CPU; (d) the CLI. Returns
+    what K5's row gains."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    log(f"phase 18 (a): {HYMBA} at full width and depth")
+    arch, model, nbytes = recurrent_model(HYMBA)
+    launches, (q, k, v), kw = recurrent_prefill(arch, model, PREFILL_S)
+    if kw.get("window") != arch.window:
+        raise AssertionError(f"hymba's K5 call took {kw}, not window "
+                             f"{arch.window}")
+    recurrent_serve(arch, model, nbytes)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = q.shape[1] // k.shape[1]
+    with torch.no_grad():
+        want_o = torch.cat([attention_ref(q[:, i * g:(i + 1) * g],
+                                          k[:, i:i + 1], v[:, i:i + 1], **kw)
+                            for i in range(k.shape[1])], dim=1).float()
+        err = check_close(f"K5 on layer 0's q/k/v of the {HYMBA} prefill "
+                          f"{tuple(q.shape)} / {tuple(k.shape)} {q.dtype} "
+                          f"{kw}", flash_attention(q, k, v, **kw).float(),
+                          want_o, 2.0 ** -7, 4e-3)
+    del want_o
+    row = window_row(q, k, v, kw, launches, err, prefix="hymba",
+                     what="hymba's")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    log(f"phase 18 (b): {XLSTM} at full width and depth, prefill cut to "
+        f"S {XLSTM_S}")
+    arch, model, nbytes = recurrent_model(XLSTM)
+    recurrent_prefill(arch, model, XLSTM_S)
+    slstm_step_ops(arch)
+    recurrent_serve(arch, model, nbytes)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrent_f32_card_vs_cpu()
+    torch.cuda.empty_cache()
+    recurrent_cli()
+    log(f"phase 18 done in {time.perf_counter() - t0:.1f} s")
     return row
 
 
@@ -5168,6 +5610,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     window_row = phase_moe()
     torch.cuda.empty_cache()
+    hymba_row = phase_recurrent()
+    torch.cuda.empty_cache()
     train_row = phase_training()
     torch.cuda.empty_cache()
     phase_elastic()
@@ -5177,6 +5621,7 @@ def main() -> int:
     rows["flash_attention"]["launches"] = fa_launches
     rows["flash_attention"].update(train_row)
     rows["flash_attention"].update(window_row)
+    rows["flash_attention"].update(hymba_row)
     for name, n in launches.items():
         rows[name]["launches"] = n
     for name in svm_rows:
@@ -5184,8 +5629,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    # K5's row: the training step, the windowed call at mixtral's shape
-    extra = tuple(train_row) + tuple(window_row)
+    # K5's row: the training step, the windowed calls at mixtral's and
+    # hymba's shapes
+    extra = tuple(train_row) + tuple(window_row) + tuple(hymba_row)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows.values()]}))
     print(smi)

@@ -327,10 +327,10 @@ def _describe_inner(dispatch, name: str) -> Tuple[List[Diagnostic], int]:
 
 
 def _head_dims(dispatch) -> List[int]:
-    """The head dimensions K5 serves: dispatch's, and every ported LM
-    arch's."""
+    """The head dimensions K5 serves: dispatch's, and those of every
+    ported LM arch with an attention block (xlstm-350m has none)."""
     from repro_torch import configs
-    from repro_torch.models.lm import check_ported
+    from repro_torch.models.lm import check_ported, has_attention
     dims = set(dispatch.FLASH_HEAD_DIMS)
     for arch in configs.list_archs():
         cfg = configs.get_config(arch)
@@ -338,7 +338,8 @@ def _head_dims(dispatch) -> List[int]:
             check_ported(cfg)
         except NotImplementedError:
             continue
-        dims.add(cfg.head_dim_)
+        if has_attention(cfg):
+            dims.add(cfg.head_dim_)
     return sorted(dims)
 
 

@@ -3,11 +3,11 @@
 
 The ten configuration modules are copies, as data, of ``repro.configs``'
 (the exact published hyperparameters plus a reduced smoke variant); the
-port keeps its own copies so that it never imports the JAX package. The
-configurations of ``attn_mlp``, ``swa_mlp`` and ``moe`` blocks run in the
-port so far: the dense archs, mixtral-8x7b and granite-moe-1b-a400m
-(``repro_torch.models.lm.check_ported`` refuses hymba-1.5b, xlstm-350m,
-whisper-large-v3 and pixtral-12b).
+port keeps its own copies so that it never imports the JAX package.
+Eight of them run in the port so far: the dense archs, mixtral-8x7b,
+granite-moe-1b-a400m, hymba-1.5b and xlstm-350m
+(``repro_torch.models.lm.check_ported`` refuses the encoder-decoder
+whisper-large-v3 and pixtral-12b's vision frontend).
 """
 from __future__ import annotations
 

@@ -16,8 +16,10 @@ Language models: ``repro`` keeps an LM's weights as a tree whose
 along a leading group axis (layer g * period + i), and its decode cache
 the same way; the port keeps one module per layer and, per cache leaf,
 one tensor a layer (a sliding-window layer's ring is shorter than a
-full-attention layer's). The MoE router is f32 in a bf16 model on both
-sides, and crosses as such. ``lm_params_from_numpy`` /
+full-attention layer's; a layer without an entry holds None there). The
+MoE router, the recurrent blocks' decay, gate and recurrent weights and
+the recurrent state entries of the cache are f32 in a bf16 model on both
+sides, and cross as such. ``lm_params_from_numpy`` /
 ``lm_params_to_numpy`` and ``cache_from_numpy`` / ``cache_to_numpy`` move
 them across as numpy arrays (``np.asarray`` of each ``repro`` leaf; bf16
 leaves travel as float32, which holds them exactly), and
@@ -248,26 +250,29 @@ def adamw_state_to_numpy(arch: ArchConfig, state: AdamWState) -> AdamWState:
 
 
 def cache_from_numpy(arch: ArchConfig, tree, device="cuda"):
-    """The port's decode cache (``lm.init_cache``'s layout: a list of one
-    tensor a layer under "k" and "v") from ``repro``'s
-    (``{"slot{i}_{kind}": {"k": (G, B, Hkv, S_i, Dh), "v": ...}}``, numpy
-    leaves; S_i is slot i's cache length)."""
+    """The port's decode cache (``lm.init_cache``'s layout: {entry: one
+    tensor a layer, None where a layer lacks the entry}) from ``repro``'s
+    (``{"slot{i}_{kind}": {entry: (G, ...)}}``, numpy leaves: "k" and "v"
+    (G, B, Hkv, S_i, Dh) with S_i slot i's cache length, and the f32
+    recurrent states). k and v take the config dtype, the states stay
+    f32."""
     dev = resolve_device(device)
     out = {}
-    for name in ("k", "v"):
-        per_layer = [None] * arch.n_layers
-        for i, slot, period in _slots(arch):
-            for g, leaf in enumerate(np.asarray(tree[slot][name],
-                                                dtype=np.float32)):
-                per_layer[g * period + i] = _f32(leaf).to(
-                    device=dev, dtype=arch.torch_dtype)
-        out[name] = per_layer
+    for i, slot, period in _slots(arch):
+        for name, stacked in tree[slot].items():
+            dtype = arch.torch_dtype if name in ("k", "v") \
+                else torch.float32
+            per_layer = out.setdefault(name, [None] * arch.n_layers)
+            for g, leaf in enumerate(np.asarray(stacked, dtype=np.float32)):
+                per_layer[g * period + i] = _f32(leaf).to(device=dev,
+                                                          dtype=dtype)
     return out
 
 
 def cache_to_numpy(arch: ArchConfig, cache):
     """``repro``'s decode cache tree from the port's, float32 leaves."""
     return {slot: {name: np.stack([t.float().cpu().numpy()
-                                   for t in cache[name][i::period]])
-                   for name in ("k", "v")}
+                                   for t in per_layer[i::period]])
+                   for name, per_layer in cache.items()
+                   if per_layer[i] is not None}
             for i, slot, period in _slots(arch)}

@@ -1,12 +1,15 @@
-"""Serving launcher of the port: batched greedy decoding with a KV cache
-(the port of ``repro/launch/serve.py``).
+"""Serving launcher of the port: batched greedy decoding with a KV and
+state cache (the port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --smoke --batch 4 --prompt-len 32 --gen-len 16 --device cpu
 
-Every arch ``lm.check_ported`` accepts runs, the MoE archs too
-(``--arch mixtral-8x7b`` or ``granite-moe-1b-a400m``); mixtral's
-sliding-window layers decode through a ring cache. Runs on the card
+Every arch ``lm.check_ported`` accepts runs: the dense and MoE archs
+(``--arch mixtral-8x7b`` or ``granite-moe-1b-a400m``; mixtral's
+sliding-window layers decode through a ring cache), hymba-1.5b (a ring
+of k and v beside the SSM heads' f32 state; its decode sees no meta
+tokens, as in ``repro``) and xlstm-350m (the mLSTM and sLSTM states).
+Runs on the card
 unless ``--device cpu`` is given. As in ``repro``, the
 prompt is fed through the decode path one token at a time (teacher
 forcing: correct, though not the fast path; the bulk prefill is
@@ -25,8 +28,9 @@ from repro_torch.models import lm
 
 
 class BatchedServer:
-    """Greedy batched decoding with a shared cache (``lm.init_cache``:
-    linear, or a ring for a sliding-window layer)."""
+    """Greedy batched decoding with a shared cache (``lm.init_cache``: k
+    and v linear, or a ring for a sliding-window layer, and the
+    recurrent layers' states)."""
 
     def __init__(self, arch, model, max_seq: int):
         self.arch = arch

@@ -1,14 +1,19 @@
 """Decoder LM of the port (the port of ``repro/models/lm.py``): layer i
 is a block of kind ``arch.block_at(i)``, one of
 
-    attn_mlp  GQA attention + SwiGLU MLP   (llama3-8b, tinyllama-1.1b,
+    attn_mlp   GQA attention + SwiGLU MLP  (llama3-8b, tinyllama-1.1b,
                                             qwen1.5-4b, stablelm-12b)
-    swa_mlp   sliding-window attention + MLP
-    moe       GQA attention (sliding-window where ``arch.window`` > 0) +
-              the capacity-based top-k MoE   (mixtral-8x7b, granite-moe-1b)
+    swa_mlp    sliding-window attention + MLP
+    moe        GQA attention (sliding-window where ``arch.window`` > 0) +
+               the capacity-based top-k MoE  (mixtral-8x7b, granite-moe-1b)
+    mamba_mlp  SSM heads + MLP
+    hybrid     sliding-window attention beside SSM heads, x + 0.5 (attn +
+               ssm), then the MLP            (hymba-1.5b)
+    mlstm      the xLSTM matrix-memory cell, no MLP
+    slstm      the xLSTM scalar-memory cell, no MLP  (xlstm-350m: both)
 
     model = init_params(arch, seed=0)             # an LM on the card
-    logits = model.forward(tokens)                # (B, S, V)
+    logits = model.forward(tokens)                # (B, M + S, V)
     logits, aux = model.forward_aux(tokens)       # + the summed MoE aux
     loss = train_loss(model, {"tokens": tokens, "targets": targets},
                       remat="none")               # K5 runs here
@@ -26,20 +31,25 @@ the whole block in the backward pass, "dots" keeps the outputs of the
 matrix products (``aten.mm`` / ``addmm`` / ``bmm``) and recomputes the
 rest, the counterparts of ``jax.checkpoint`` and
 ``checkpoint_policies.checkpoint_dots``; either way K5's forward runs
-again in the backward pass. As in ``repro``, ``prefill`` returns the last
-position's logits and seeds no cache (serving re-runs ``decode_step``
-from an empty one), and decode attention is plain PyTorch, so no kernel
-launches there. The decode cache holds one k and one v tensor a layer,
-``repro``'s ``_cache_len`` long: ``seq_len``, or a ring of
-min(seq_len, window) for a sliding-window layer, so a pattern that mixes
-the two has caches of two lengths. The MoE routes the tokens of each call
-together: all B S of a prefill, the B of a decode step (at batch 8 a
-capacity of 4 a expert, so decode drops tokens a prefill would keep, as
-in ``repro``). Unported block kinds (``mamba_mlp``, ``hybrid``,
-``mlstm``, ``slstm``), encoder-decoder archs and the modality frontends
-raise ``NotImplementedError``; so do ``repro``'s ``shard_acts`` (no
-device mesh, ROADMAP Queue 1, item 7) and ``unroll_layers`` (only the
-roofline's cost extraction needs it), which are not ported.
+again in the backward pass. An arch with ``meta_tokens`` (hymba) prepends
+M learned rows to the embedded tokens of a full-sequence forward, so its
+logits have M + S positions; ``train_loss`` drops the first M. As in
+``repro``, ``decode_step`` embeds its tokens without them, so hymba's
+decode is not its prefill's last position unless M = 0. Also as in
+``repro``, ``prefill`` returns the last position's logits and seeds no
+cache (serving re-runs ``decode_step`` from an empty one), and decode is
+plain PyTorch, so no kernel launches there. The decode cache
+(``init_cache``) holds, a layer, what its kind carries: k and v
+(``repro``'s ``_cache_len`` long: ``seq_len``, or a ring of min(seq_len,
+window) for a sliding-window layer), the SSM state, the mLSTM state and
+normaliser, the sLSTM's c, n, h, m; the recurrent states in f32. The MoE
+routes the tokens of each call together: all B S of a prefill, the B of a
+decode step (at batch 8 a capacity of 4 a expert, so decode drops tokens
+a prefill would keep, as in ``repro``). Encoder-decoder archs and the
+modality frontends raise ``NotImplementedError``; so do ``repro``'s
+``shard_acts`` (no device mesh, ROADMAP Queue 1, item 7) and
+``unroll_layers`` (only the roofline's cost extraction needs it), which
+are not ported.
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 
 REMAT = ("none", "full", "dots")
 # The operations whose outputs "dots" keeps (jax's checkpoint_dots saves
@@ -80,10 +91,16 @@ def _checkpointed(fn, x, remat: str):
     raise ValueError(f"remat must be one of {REMAT}, not {remat!r}")
 
 
-# The block kinds the port runs, and those whose attention takes
-# ``arch.window`` (repro's lm.py picks the window by the same test).
-PORTED_KINDS = ("attn_mlp", "swa_mlp", "moe")
-WINDOWED_KINDS = ("swa_mlp", "moe")
+# The block kinds the port runs, those with an attention block, those
+# with SSM heads, and those whose attention takes ``arch.window`` (repro's lm.py picks the window by
+# the same test).
+PORTED_KINDS = ("attn_mlp", "swa_mlp", "moe", "mamba_mlp", "hybrid",
+                "mlstm", "slstm")
+ATTENTION_KINDS = ("attn_mlp", "swa_mlp", "moe", "hybrid")
+SSM_KINDS = ("mamba_mlp", "hybrid")
+WINDOWED_KINDS = ("swa_mlp", "moe", "hybrid")
+# An sLSTM layer's decode-cache entries, its state (c, n, h, m).
+SLSTM_STATE = ("slstm_c", "slstm_n", "slstm_h", "slstm_m")
 
 
 def check_ported(arch: ArchConfig) -> None:
@@ -97,10 +114,15 @@ def check_ported(arch: ArchConfig) -> None:
     if arch.is_encdec:
         raise NotImplementedError(
             f"{arch.name}: encoder-decoder archs are not ported yet")
-    if arch.frontend != "none" or arch.meta_tokens:
+    if arch.frontend != "none":
         raise NotImplementedError(
-            f"{arch.name}: frontend {arch.frontend!r} / meta tokens are not "
-            f"ported yet")
+            f"{arch.name}: frontend {arch.frontend!r} is not ported yet")
+
+
+def has_attention(arch: ArchConfig) -> bool:
+    """Whether any layer of ``arch`` has an attention block (so K5 runs
+    in its prefill)."""
+    return any(kind in ATTENTION_KINDS for kind in arch.block_pattern)
 
 
 def block_window(arch: ArchConfig, kind: str) -> int:
@@ -117,24 +139,37 @@ def cache_len(arch: ArchConfig, kind: str, seq_len: int) -> int:
 
 
 class Block(nn.Module):
-    """One block of ``kind``: x + attn(norm1 x), then + ffn(norm2 x), the
-    FFN an ``MLP`` (``mlp``) or, for ``moe``, an ``MoE`` (``moe``)."""
+    """One block of ``kind``, with ``repro``'s ``_init_block`` leaves:
+    ``norm1``, then ``attn`` (attention kinds) and / or ``ssm``
+    (``mamba_mlp``, ``hybrid``), then ``norm2`` and the FFN, an ``MLP``
+    (``mlp``) or, for ``moe``, an ``MoE`` (``moe``); an ``mlstm`` or
+    ``slstm`` block is ``norm1`` and its cell alone."""
 
     def __init__(self, arch: ArchConfig, kind: str, device=None):
         super().__init__()
         dt, D = arch.torch_dtype, arch.d_model
+        self.kind = kind
         self.norm1 = L.RMSNorm(D, dt, device)
-        self.attn = L.Attention(D, arch.n_heads, arch.n_kv_heads,
-                                arch.head_dim_, arch.qkv_bias,
-                                arch.rope_theta, dt, device,
-                                window=block_window(arch, kind))
-        self.norm2 = L.RMSNorm(D, dt, device)
-        if kind == "moe":
-            self.moe = L.MoE(D, arch.d_ff, arch.n_experts, arch.top_k,
-                             arch.capacity_factor, dt, device, arch.act)
+        if kind in ATTENTION_KINDS:
+            self.attn = L.Attention(D, arch.n_heads, arch.n_kv_heads,
+                                    arch.head_dim_, arch.qkv_bias,
+                                    arch.rope_theta, dt, device,
+                                    window=block_window(arch, kind))
+        if kind in SSM_KINDS:
+            self.ssm = R.SSMHeads(D, arch.ssm_heads or arch.n_heads,
+                                  arch.ssm_state, dt, device)
+        if kind == "mlstm":
+            self.mlstm = R.MLSTM(D, arch.n_heads, dt, device)
+        elif kind == "slstm":
+            self.slstm = R.SLSTM(D, arch.n_heads, dt, device)
         else:
-            self.mlp = L.MLP(D, arch.d_ff, dt, device, arch.mlp_type,
-                             arch.act)
+            self.norm2 = L.RMSNorm(D, dt, device)
+            if kind == "moe":
+                self.moe = L.MoE(D, arch.d_ff, arch.n_experts, arch.top_k,
+                                 arch.capacity_factor, dt, device, arch.act)
+            else:
+                self.mlp = L.MLP(D, arch.d_ff, dt, device, arch.mlp_type,
+                                 arch.act)
 
     def _ffn(self, x):
         """(ffn(norm2 x), the MoE's aux or None)."""
@@ -145,22 +180,51 @@ class Block(nn.Module):
 
     def forward(self, x):
         """(x after the block, the MoE's aux or None)."""
-        a, _ = self.attn(self.norm1(x))
-        x = x + a
+        h = self.norm1(x)
+        if self.kind == "mlstm":
+            return x + self.mlstm(h)[0], None
+        if self.kind == "slstm":
+            return x + self.slstm(h)[0], None
+        if self.kind == "hybrid":
+            x = x + 0.5 * (self.attn(h)[0] + self.ssm(h)[0])
+        elif self.kind == "mamba_mlp":
+            x = x + self.ssm(h)[0]
+        else:
+            x = x + self.attn(h)[0]
         f, aux = self._ffn(x)
         return x + f, aux
 
-    def decode(self, x, cache_k, cache_v, pos: int):
-        a, _, _ = self.attn.decode(self.norm1(x), cache_k, cache_v, pos)
+    def decode(self, x, cache: Dict[str, List], i: int, pos: int):
+        """One token through the block against layer ``i``'s entries of
+        ``cache``, which are updated in place."""
+        h = self.norm1(x)
+        if self.kind == "mlstm":
+            a, (state, norm) = self.mlstm.step(
+                h, cache["mlstm_state"][i], cache["mlstm_norm"][i])
+            cache["mlstm_state"][i].copy_(state)
+            cache["mlstm_norm"][i].copy_(norm)
+            return x + a
+        if self.kind == "slstm":
+            a, state = self.slstm.step(h, tuple(cache[n][i]
+                                                for n in SLSTM_STATE))
+            for n, s in zip(SLSTM_STATE, state):
+                cache[n][i].copy_(s)
+            return x + a
+        if self.kind in ATTENTION_KINDS:
+            a, _, _ = self.attn.decode(h, cache["k"][i], cache["v"][i], pos)
+        if self.kind in SSM_KINDS:
+            s, state = self.ssm.step(h, cache["ssm_state"][i])
+            cache["ssm_state"][i].copy_(state)
+            a = 0.5 * (a + s) if self.kind == "hybrid" else s
         x = x + a
         return x + self._ffn(x)[0]
 
 
 class LM(nn.Module):
     """Parameters under ``repro``'s names: ``embed`` (V, D),
-    ``layers.{i}.{norm1,attn,norm2}.*`` and ``layers.{i}.mlp.*`` or
-    ``layers.{i}.moe.*``, ``final_norm.scale`` and ``unembed`` (D, V)
-    (absent with tied embeddings)."""
+    ``layers.{i}.*`` (see :class:`Block`), ``final_norm.scale``,
+    ``unembed`` (D, V) (absent with tied embeddings) and ``meta`` (M, D)
+    with M = ``arch.meta_tokens`` > 0."""
 
     def __init__(self, arch: ArchConfig, device=None):
         super().__init__()
@@ -173,9 +237,17 @@ class LM(nn.Module):
         self.final_norm = L.RMSNorm(D, dt, device)
         if not arch.tie_embeddings:
             self.unembed = L.empty_param((D, V), dt, device)
+        if arch.meta_tokens:
+            self.meta = L.empty_param((arch.meta_tokens, D), dt, device)
 
-    def _embed(self, tokens):
-        return self.embed[tokens.long()]
+    def _embed(self, tokens, prefix: bool = True):
+        """The tokens' embedding rows, after the ``meta`` rows broadcast
+        over the batch where the arch has them and ``prefix`` is set."""
+        x = self.embed[tokens.long()]
+        if prefix and self.arch.meta_tokens:
+            meta = self.meta[None].expand(x.shape[0], -1, -1)
+            x = torch.cat([meta.to(x.dtype), x], dim=1)
+        return x
 
     def _logits(self, x):
         x = self.final_norm(x)
@@ -193,11 +265,11 @@ class LM(nn.Module):
         return x, aux
 
     def forward_aux(self, tokens, remat: str = "none"):
-        """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux),
-        each block under the checkpointing policy ``remat`` (one of
-        :data:`REMAT`); aux is the sum of the MoE layers' load-balancing
-        losses (0 without MoE layers), as ``repro``'s ``forward``
-        returns it."""
+        """Full-sequence forward: tokens (B, S) -> (logits (B, M + S, V),
+        aux), M the arch's meta tokens (0 but for hymba), each block under
+        the checkpointing policy ``remat`` (one of :data:`REMAT`); aux is
+        the sum of the MoE layers' load-balancing losses (0 without MoE
+        layers), as ``repro``'s ``forward`` returns it."""
         x, aux = self._hidden(tokens, remat)
         return self._logits(x), aux
 
@@ -217,9 +289,9 @@ class LM(nn.Module):
         ``cache`` (from ``init_cache``), which is updated IN PLACE; an
         MoE layer routes the B tokens together. Returns (logits (B, 1,
         V), cache)."""
-        x = self._embed(tokens)
+        x = self._embed(tokens, prefix=False)
         for i, blk in enumerate(self.layers):
-            x = blk.decode(x, cache["k"][i], cache["v"][i], pos)
+            x = blk.decode(x, cache, i, pos)
         return self._logits(x), cache
 
 
@@ -232,7 +304,8 @@ def train_loss(model: LM, batch: Dict, aux_weight: float = 0.01,
     ``torch.gather``, the same function as ``repro``'s masked reduction
     over the vocabulary (which exists for a sharded vocabulary, which the
     port does not have). Plus ``aux_weight`` times the MoE layers' summed
-    load-balancing loss (0 without MoE layers), as in ``repro``."""
+    load-balancing loss (0 without MoE layers), as in ``repro``. The
+    meta-token positions that ``forward`` prepends carry no loss."""
     if shard_acts:
         raise NotImplementedError(
             "shard_acts needs a device mesh, which the port does not have "
@@ -241,19 +314,26 @@ def train_loss(model: LM, batch: Dict, aux_weight: float = 0.01,
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev).long()
     logits, aux = model.forward_aux(tokens, remat=remat)
-    logits = logits.float()
+    logits = logits[:, logits.shape[1] - targets.shape[1]:].float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return torch.mean(logz - gold) + aux_weight * aux
+
+
+# The recurrent blocks' biases, filled with constants, not drawn.
+_BIAS_FILL = {"b_decay": 2.0, "b_f": 3.0}
 
 
 def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:
     """An :class:`LM` with random weights from ``seed``, drawn on
     ``device`` by a ``torch.Generator`` at ``repro``'s scales: N(0, 1) in
     f32 times fan_in ** -0.5 for the dense matrices (shape[0]; the MoE
-    router, which stays f32), shape[1] ** -0.5 for the (E, ., .) expert
-    weights, 0.02 for ``embed`` and d_model ** -0.5 for ``unembed``, then
-    cast to each parameter's dtype; norm scales 1, biases 0. (Not
+    router and the recurrent gates' f32 matrices), shape[1] ** -0.5 for the
+    (E, ., .) expert weights, dh ** -0.5 for the sLSTM's (H, dh, dh)
+    recurrent ``r_*``, 0.02 for ``embed`` and ``meta``, d_model ** -0.5
+    for ``unembed``, then cast to each parameter's dtype; norm scales 1,
+    QKV biases 0, the SSM decay bias ``b_decay`` 2 and the mLSTM forget
+    bias ``b_f`` 3, as ``repro``'s inits fill them. (Not
     ``jax.random``'s numbers: weights cross from ``repro`` through
     ``convert.lm_params_from_numpy``.)"""
     dev = resolve_device(device)
@@ -267,9 +347,17 @@ def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:
                 p.fill_(1)
             elif leaf in ("bq", "bk", "bv"):
                 p.zero_()
+            elif leaf in _BIAS_FILL:
+                p.fill_(_BIAS_FILL[leaf])
             else:
-                fan_in = p.shape[1] if p.dim() == 3 else p.shape[0]
-                std = {"embed": 0.02, "unembed": arch.d_model ** -0.5}.get(
+                if leaf.startswith("r_"):          # (H, dh, dh)
+                    fan_in = p.shape[-1]
+                elif p.dim() == 3:                 # (E, fan_in, out)
+                    fan_in = p.shape[1]
+                else:
+                    fan_in = p.shape[0]
+                std = {"embed": 0.02, "meta": 0.02,
+                       "unembed": arch.d_model ** -0.5}.get(
                     name, fan_in ** -0.5)
                 p.copy_(torch.randn(p.shape, generator=gen, device=dev,
                                     dtype=torch.float32).mul_(std))
@@ -277,16 +365,39 @@ def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:
 
 
 def init_cache(arch: ArchConfig, batch: int, seq_len: int,
-               device="cuda") -> Dict[str, List[torch.Tensor]]:
-    """The decode cache (``repro``'s ``cache_specs``, allocated): for "k"
-    and "v" a list of one (B, Hkv, cache_len, head_dim) tensor of zeros a
-    layer, in the config dtype on ``device``, where ``cache_len`` is
-    ``seq_len`` or, for a sliding-window layer, its ring's
-    min(seq_len, window)."""
+               device="cuda") -> Dict[str, List]:
+    """The decode cache (``repro``'s ``cache_specs``, allocated, zeros on
+    ``device``): {entry: a list with one tensor a layer, None for a layer
+    without the entry}, over the entries the arch's kinds carry: "k" and
+    "v" (B, Hkv, cache_len, head_dim) in the config dtype, where
+    ``cache_len`` is ``seq_len`` or, for a sliding-window layer, its
+    ring's min(seq_len, window); and, in f32, "ssm_state" (B, Hs,
+    ssm_state, d_model / Hs), "mlstm_state" (B, H, head_dim, dh),
+    "mlstm_norm" (B, H, head_dim) and "slstm_c" / "_n" / "_h" / "_m" (B,
+    H, dh), dh = d_model / H."""
     check_ported(arch)
     dev = resolve_device(device)
-    shapes = [(batch, arch.n_kv_heads,
-               cache_len(arch, arch.block_at(i), seq_len), arch.head_dim_)
-              for i in range(arch.n_layers)]
-    return {name: [torch.zeros(s, dtype=arch.torch_dtype, device=dev)
-                   for s in shapes] for name in ("k", "v")}
+    H, Hd = arch.n_heads, arch.head_dim_
+    Hs = arch.ssm_heads or H
+    dh = arch.d_model // H
+    f32 = torch.float32
+    cache: Dict[str, List] = {}
+    for i in range(arch.n_layers):
+        kind = arch.block_at(i)
+        shapes = {}
+        if kind in ATTENTION_KINDS:
+            kv = (batch, arch.n_kv_heads, cache_len(arch, kind, seq_len), Hd)
+            shapes["k"] = shapes["v"] = (kv, arch.torch_dtype)
+        if kind in SSM_KINDS:
+            shapes["ssm_state"] = ((batch, Hs, arch.ssm_state,
+                                    arch.d_model // Hs), f32)
+        elif kind == "mlstm":
+            shapes["mlstm_state"] = ((batch, H, Hd, dh), f32)
+            shapes["mlstm_norm"] = ((batch, H, Hd), f32)
+        elif kind == "slstm":
+            for name in SLSTM_STATE:
+                shapes[name] = ((batch, H, dh), f32)
+        for name, (shape, dtype) in shapes.items():
+            cache.setdefault(name, [None] * arch.n_layers)[i] = torch.zeros(
+                shape, dtype=dtype, device=dev)
+    return cache

@@ -1,0 +1,347 @@
+"""Recurrent and state-space layers (the port of
+``repro/models/recurrent.py``): the chunkwise gated linear recurrence
+(Mamba-2/SSD, GLA and mLSTM share it), the SSM heads and mLSTM built on
+it, and the strictly sequential sLSTM.
+
+  o_t = q_t . S_t,   S_t = a_t * S_{t-1} + k_t v_t^T          (per head)
+
+with a scalar decay a_t in (0, 1] a head and step. ``chunked_gla`` takes
+T in chunks of C: within a chunk the recurrence is a (C x C)
+decay-masked product (``gla_intra``); across chunks a (dk x dv) state is
+carried over the T / C boundaries (``gla_inter``), all in f32. mLSTM is
+the same recurrence with its input gate folded into k and a normaliser
+row n_t = a_t n_{t-1} + k_t beside the state, h = (S q) / max(|n . q|, 1).
+
+``repro`` has no Pallas kernel here (its versions are plain ``jnp``), so
+these are plain PyTorch. The arithmetic is ``repro``'s, with two changes
+that leave the values as they are: the decay mask is applied to the
+exponent before ``exp`` (``repro`` takes ``exp`` of the whole (C x C)
+difference, whose masked upper triangle may overflow to inf, which
+``torch.where``'s backward turns into NaN), and the sLSTM's four
+recurrent products run as one (H, dh, 4 dh) batched product a step.
+The modules hold their parameters under ``repro``'s leaf names; the
+decay, gate and recurrent weights stay f32 in a bf16 model, as in
+``repro``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.layers import act_fn, empty_param
+
+_GATES = ("z", "i", "f", "o")
+
+
+# ---------------------------------------------------------------------------
+# Chunkwise gated linear recurrence (shared primitive)
+# ---------------------------------------------------------------------------
+
+def gla_intra(qc, kc, vc, cum, normalize: bool):
+    """The within-chunk part: qc, kc (B, H, N, C, dk), vc (B, H, N, C,
+    dv), cum (B, H, N, C) the within-chunk cumsum of log a. Returns
+    (o_intra (B, H, N, C, dv), n_intra (B, H, N, C) or None):
+    scores[i, j] = (q_i . k_j) exp(cum_i - cum_j) for j <= i, 0 above."""
+    C = cum.shape[-1]
+    rel = cum[..., :, None] - cum[..., None, :]
+    causal = torch.ones((C, C), dtype=torch.bool, device=cum.device).tril()
+    decay = torch.exp(torch.where(causal, rel, float("-inf")))
+    scores = torch.einsum("bhnid,bhnjd->bhnij", qc, kc) * decay
+    o = torch.einsum("bhnij,bhnjv->bhniv", scores, vc)
+    return o, (scores.sum(-1) if normalize else None)
+
+
+def gla_inter(qc, kc, vc, cum, normalize: bool, state0, norm0):
+    """The across-chunk part: the state S entering chunk c adds
+    exp(cum_i) q_i S to its outputs, and leaves it as exp(total) S +
+    sum_j exp(total - cum_j) k_j v_j^T (total = cum's last entry); one
+    ``addcmul`` a chunk carries it. Returns (o_inter (B, H, N, C, dv),
+    n_inter (B, H, N, C) or None, final S (B, H, dk, dv), final n (B, H,
+    dk))."""
+    B, H, N, C, dk = qc.shape
+    dv = vc.shape[-1]
+    total = cum[..., -1]                                  # (B, H, N)
+    k_scaled = kc * torch.exp(total[..., None, None] - cum[..., None])
+    kv = torch.einsum("bhnjd,bhnjv->bhndv", k_scaled, vc)
+    q_scaled = qc * torch.exp(cum[..., None])
+    a = torch.exp(total)
+    S = qc.new_zeros((B, H, dk, dv)) if state0 is None else state0.float()
+    n = qc.new_zeros((B, H, dk)) if norm0 is None else norm0.float()
+    ksum = k_scaled.sum(-2) if normalize else None        # (B, H, N, dk)
+    states, norms = [], []
+    for c in range(N):
+        states.append(S)
+        S = torch.addcmul(kv[:, :, c], a[:, :, c, None, None], S)
+        if normalize:
+            norms.append(n)
+            n = torch.addcmul(ksum[:, :, c], a[:, :, c, None], n)
+    o = torch.einsum("bhnid,bhndv->bhniv", q_scaled, torch.stack(states, 2))
+    n_inter = None
+    if normalize:
+        n_inter = torch.einsum("bhnid,bhnd->bhni", q_scaled,
+                               torch.stack(norms, 2))
+    elif norm0 is not None:     # repro decays a given norm0 all the same
+        n = n * torch.exp(total.sum(-1))[..., None]
+    return o, n_inter, S, n
+
+
+def chunked_gla(q, k, v, log_a, *, chunk: int = 128,
+                normalize: bool = False, state0=None, norm0=None):
+    """q, k: (B, H, T, dk); v: (B, H, T, dv); log_a: (B, H, T) <= 0.
+
+    Returns (o (B, H, T, dv) in q's dtype, final state (B, H, dk, dv),
+    final norm (B, H, dk)), both f32. ``normalize=True`` adds the mLSTM
+    normaliser's denominator. T must be a multiple of C = min(chunk, T),
+    as in ``repro``."""
+    B, H, T, dk = q.shape
+    dv = v.shape[-1]
+    C = min(chunk, T)
+    if T % C != 0:
+        raise ValueError(f"sequence length {T} not a multiple of chunk {C}")
+    N = T // C
+    qc = q.float().reshape(B, H, N, C, dk)
+    kc = k.float().reshape(B, H, N, C, dk)
+    vc = v.float().reshape(B, H, N, C, dv)
+    cum = torch.cumsum(log_a.float().reshape(B, H, N, C), dim=-1)
+    o_intra, n_intra = gla_intra(qc, kc, vc, cum, normalize)
+    o_inter, n_inter, S, n = gla_inter(qc, kc, vc, cum, normalize, state0,
+                                       norm0)
+    o = o_intra + o_inter
+    if normalize:
+        denom = torch.clamp_min(torch.abs(n_intra + n_inter), 1.0)
+        o = o / denom[..., None]
+    return o.reshape(B, H, T, dv).to(q.dtype), S, n
+
+
+def gla_step(q, k, v, log_a, state, norm=None, *, normalize: bool = False):
+    """One token of the recurrence (decode). q, k: (B, H, dk); v: (B, H,
+    dv); log_a: (B, H); state: (B, H, dk, dv). Returns (o in q's dtype,
+    state', norm')."""
+    a = torch.exp(log_a.float())[..., None, None]
+    kf = k.float()
+    state = a * state + torch.einsum("bhd,bhv->bhdv", kf, v.float())
+    o = torch.einsum("bhd,bhdv->bhv", q.float(), state)
+    if normalize:
+        norm = a[..., 0] * norm + kf
+        denom = torch.clamp_min(torch.abs(
+            torch.einsum("bhd,bhd->bh", q.float(), norm)), 1.0)[..., None]
+        o = o / denom
+    return o.to(q.dtype), state, norm
+
+
+# ---------------------------------------------------------------------------
+# Mamba-style SSM heads (alone in ``mamba_mlp``, beside attention in hymba)
+# ---------------------------------------------------------------------------
+
+def _ssm_qkva(p, x, n_heads: int, dk: int):
+    """q, k (B, H, S, dk), v (B, H, S, D / H) and log a (B, H, S) =
+    log sigmoid(x w_decay + b_decay), the last in f32."""
+    B, S, D = x.shape
+    dv = D // n_heads
+    q = (x @ p["wq"]).reshape(B, S, n_heads, dk).transpose(1, 2)
+    k = (x @ p["wk"]).reshape(B, S, n_heads, dk).transpose(1, 2)
+    v = (x @ p["wv"]).reshape(B, S, n_heads, dv).transpose(1, 2)
+    la = F.logsigmoid(x.float() @ p["w_decay"] + p["b_decay"])
+    return q, k, v, la.transpose(1, 2)
+
+
+def ssm_heads_train(p, x, *, n_heads: int, dk: int, chunk: int = 128):
+    """Full-sequence SSM heads of x (B, S, D). Returns (out, final
+    state)."""
+    B, S, D = x.shape
+    q, k, v, la = _ssm_qkva(p, x, n_heads, dk)
+    o, state, _ = chunked_gla(q, k, v, la, chunk=chunk)
+    o = o.transpose(1, 2).reshape(B, S, D)
+    gate = act_fn("silu")(x @ p["w_gate"])
+    return (o * gate) @ p["wo"], state
+
+
+def ssm_heads_step(p, x, state, *, n_heads: int, dk: int):
+    """One token: x (B, 1, D), state (B, H, dk, D / H). Returns (out,
+    state')."""
+    B, _, D = x.shape
+    q, k, v, la = _ssm_qkva(p, x, n_heads, dk)
+    o, state, _ = gla_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], la[:, :, 0],
+                           state)
+    gate = act_fn("silu")(x @ p["w_gate"])
+    return (o.reshape(B, 1, D) * gate) @ p["wo"], state
+
+
+class SSMHeads(nn.Module):
+    """wq, wk (D, H dk), wv, w_gate (D, D), wo (D, D); w_decay (D, H) and
+    b_decay (H,) in f32."""
+
+    def __init__(self, d_model: int, n_heads: int, dk: int, dtype,
+                 device=None):
+        super().__init__()
+        self.shape = dict(n_heads=n_heads, dk=dk)
+        dv = d_model // n_heads
+        self.wq = empty_param((d_model, n_heads * dk), dtype, device)
+        self.wk = empty_param((d_model, n_heads * dk), dtype, device)
+        self.wv = empty_param((d_model, n_heads * dv), dtype, device)
+        self.w_decay = empty_param((d_model, n_heads), torch.float32, device)
+        self.b_decay = empty_param((n_heads,), torch.float32, device)
+        self.w_gate = empty_param((d_model, n_heads * dv), dtype, device)
+        self.wo = empty_param((n_heads * dv, d_model), dtype, device)
+
+    def forward(self, x):
+        return ssm_heads_train(dict(self.named_parameters()), x,
+                               **self.shape)
+
+    def step(self, x, state):
+        return ssm_heads_step(dict(self.named_parameters()), x, state,
+                              **self.shape)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (chunkwise parallel) and sLSTM (sequential)
+# ---------------------------------------------------------------------------
+
+def _mlstm_qkvifa(p, x, n_heads: int):
+    """q / sqrt(dh), k times the input gate sigmoid(x w_i), v, each (B, H,
+    S, dh), and log a = log sigmoid(x w_f + b_f) (B, H, S) in f32."""
+    B, S, D = x.shape
+    dh = D // n_heads
+
+    def heads(w):
+        return (x @ w).reshape(B, S, n_heads, dh).transpose(1, 2)
+
+    q = heads(p["wq"]) / (dh ** 0.5)
+    k = heads(p["wk"])
+    v = heads(p["wv"])
+    xf = x.float()
+    i_gate = torch.sigmoid(xf @ p["w_i"]).transpose(1, 2)
+    la = F.logsigmoid(xf @ p["w_f"] + p["b_f"]).transpose(1, 2)
+    return q, k * i_gate[..., None].to(k.dtype), v, la
+
+
+def mlstm_train(p, x, *, n_heads: int, chunk: int = 128):
+    """Full-sequence mLSTM of x (B, S, D). Returns (out, (state,
+    norm))."""
+    B, S, D = x.shape
+    q, k, v, la = _mlstm_qkvifa(p, x, n_heads)
+    o, state, norm = chunked_gla(q, k, v, la, chunk=chunk, normalize=True)
+    o = o.transpose(1, 2).reshape(B, S, D)
+    gate = act_fn("silu")(x @ p["w_gate"])
+    return (o * gate) @ p["wo"], (state, norm)
+
+
+def mlstm_step(p, x, state, norm, *, n_heads: int):
+    """One token: x (B, 1, D), state (B, H, dh, dh), norm (B, H, dh).
+    Returns (out, (state', norm'))."""
+    B, _, D = x.shape
+    q, k, v, la = _mlstm_qkvifa(p, x, n_heads)
+    o, state, norm = gla_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                              la[:, :, 0], state, norm, normalize=True)
+    gate = act_fn("silu")(x @ p["w_gate"])
+    return (o.reshape(B, 1, D) * gate) @ p["wo"], (state, norm)
+
+
+class MLSTM(nn.Module):
+    """wq, wk, wv, w_gate, wo (D, D); w_i, w_f (D, H) and b_f (H,) in
+    f32."""
+
+    def __init__(self, d_model: int, n_heads: int, dtype, device=None):
+        super().__init__()
+        self.n_heads = n_heads
+        for name in ("wq", "wk", "wv"):
+            setattr(self, name, empty_param((d_model, d_model), dtype,
+                                            device))
+        self.w_i = empty_param((d_model, n_heads), torch.float32, device)
+        self.w_f = empty_param((d_model, n_heads), torch.float32, device)
+        self.b_f = empty_param((n_heads,), torch.float32, device)
+        self.w_gate = empty_param((d_model, d_model), dtype, device)
+        self.wo = empty_param((d_model, d_model), dtype, device)
+
+    def forward(self, x):
+        return mlstm_train(dict(self.named_parameters()), x,
+                           n_heads=self.n_heads)
+
+    def step(self, x, state, norm):
+        return mlstm_step(dict(self.named_parameters()), x, state, norm,
+                          n_heads=self.n_heads)
+
+
+def _slstm_pre(p, x, n_heads: int):
+    """The input pre-activations of the four gates, f32, laid out (S, H,
+    B, 4 dh) (gates z, i, f, o side by side), so that a step's recurrent
+    products add to them in one ``baddbmm``."""
+    B, S, D = x.shape
+    dh = D // n_heads
+    pre = [(x @ p[f"w_{g}"]).float().reshape(B, S, n_heads, dh)
+           for g in _GATES]
+    return torch.cat(pre, dim=-1).permute(1, 2, 0, 3).contiguous()
+
+
+def slstm_scan(pre, r, state):
+    """The sLSTM's steps over pre (S, H, B, 4 dh) with the recurrent
+    weights r (H, dh, 4 dh) (``r_z | r_i | r_f | r_o``) from state (c, n,
+    h, m), each (H, B, dh) f32. Each step: the gates' pre-activations
+    plus h r, z = tanh, the log-domain input and forget gates i, f with
+    the stabiliser m' = max(f + m, i), c' = exp(f + m - m') c + exp(i -
+    m') z, n' likewise with 1 for z, h' = sigmoid(o) c' / max(|n'|, 1).
+    Returns (hs (S, H, B, dh), (c, n, h, m))."""
+    c, n, h, m = state
+    dh = c.shape[-1]
+    hs = []
+    for t in range(pre.shape[0]):
+        g = torch.baddbmm(pre[t], h, r)
+        zt = torch.tanh(g[..., :dh])
+        it_ = g[..., dh:2 * dh]
+        fm = g[..., 2 * dh:3 * dh] + m
+        m = torch.maximum(fm, it_)
+        i_s = torch.exp(it_ - m)
+        f_s = torch.exp(fm - m)
+        c = torch.addcmul(f_s * c, i_s, zt)
+        n = torch.addcmul(i_s, f_s, n)
+        h = torch.sigmoid(g[..., 3 * dh:]) * c / torch.clamp_min(
+            torch.abs(n), 1.0)
+        hs.append(h)
+    return torch.stack(hs), (c, n, h, m)
+
+
+def slstm_train(p, x, *, n_heads: int, state0=None):
+    """The sLSTM over x (B, S, D), step by step (its memory mixing has no
+    parallel form, xLSTM Sec. 2), from ``state0`` = (c, n, h, m), each
+    (B, H, dh) f32, or zeros. Returns (out, (c, n, h, m))."""
+    B, S, D = x.shape
+    dh = D // n_heads
+    pre = _slstm_pre(p, x, n_heads)
+    r = torch.cat([p[f"r_{g}"].float() for g in _GATES], dim=-1)
+    if state0 is None:
+        state = tuple(pre.new_zeros((n_heads, B, dh)) for _ in range(4))
+    else:
+        state = tuple(s.float().transpose(0, 1) for s in state0)
+    hs, state = slstm_scan(pre, r, state)
+    out = hs.permute(2, 0, 1, 3).reshape(B, S, D).to(x.dtype)
+    return out @ p["wo"], tuple(s.transpose(0, 1) for s in state)
+
+
+def slstm_step(p, x, state, *, n_heads: int):
+    """One token: the train path at S = 1."""
+    return slstm_train(p, x, n_heads=n_heads, state0=state)
+
+
+class SLSTM(nn.Module):
+    """w_z, w_i, w_f, w_o, wo (D, D); r_z, r_i, r_f, r_o (H, dh, dh) in
+    f32 (block-diagonal recurrent weights, one block a head)."""
+
+    def __init__(self, d_model: int, n_heads: int, dtype, device=None):
+        super().__init__()
+        self.n_heads = n_heads
+        dh = d_model // n_heads
+        self.wo = empty_param((d_model, d_model), dtype, device)
+        for g in _GATES:
+            setattr(self, f"w_{g}", empty_param((d_model, d_model), dtype,
+                                                device))
+            setattr(self, f"r_{g}", empty_param((n_heads, dh, dh),
+                                                torch.float32, device))
+
+    def forward(self, x):
+        return slstm_train(dict(self.named_parameters()), x,
+                           n_heads=self.n_heads)
+
+    def step(self, x, state):
+        return slstm_step(dict(self.named_parameters()), x, state,
+                          n_heads=self.n_heads)

@@ -457,6 +457,21 @@ def test_check_kernels_green_over_every_package():
         == set(KERNEL_PACKAGES)
 
 
+@pytest.mark.parametrize("arch,want", [("xlstm-350m", []),
+                                       ("hymba-1.5b", [64])])
+def test_head_dims_count_only_archs_with_attention(arch, want, monkeypatch):
+    """K5's head dimensions come from dispatch and the ported archs with
+    an attention block: xlstm-350m (no attention, d_model / heads 256)
+    adds none, hymba-1.5b adds its 64."""
+    from types import SimpleNamespace
+
+    from repro_torch import configs
+    from repro_torch.analysis import kernels as tkernels
+    monkeypatch.setattr(configs, "list_archs", lambda: [arch])
+    assert tkernels._head_dims(SimpleNamespace(FLASH_HEAD_DIMS=())) == want
+    assert tkernels._head_dims(dispatch) == sorted(dispatch.FLASH_HEAD_DIMS)
+
+
 def test_package_without_describer_and_stray_describer():
     errs = _errors(tan.check_kernels(
         packages=KERNEL_PACKAGES + ("new_kernel",))[0])

@@ -13,9 +13,11 @@ the same numpy inputs and weights.
   bar (atol 0.12, rtol 0.05).
 * The port's own decode-vs-forward consistency, init_params' names,
   shapes and dtypes against repro's param_specs, the refusals (no card,
-  unported block kinds), the kernel's head dimensions against every
-  ported arch, and the serving CLI. The MoE and sliding-window blocks are
-  held to repro in test_torch_moe.py.
+  encoder-decoder, the vision frontend), the recurrent kinds building,
+  the kernel's head dimensions against every ported arch with attention,
+  and the serving CLI. The MoE and sliding-window blocks are held to
+  repro in test_torch_moe.py, the recurrent ones in
+  test_torch_recurrent.py.
 """
 import dataclasses
 
@@ -278,21 +280,34 @@ def test_init_params_defaults_to_the_card():
 @pytest.mark.parametrize("name,pattern,kind", [
     ("xlstm-350m", ("slstm",), "slstm"),
     ("tinyllama-1.1b", ("mamba_mlp",), "mamba_mlp"),
-    ("hymba-1.5b", None, "hybrid"), ("xlstm-350m", None, "mlstm"),
-    ("whisper-large-v3", None, "encoder-decoder"),
-    ("pixtral-12b", None, "vision_stub")])
-def test_unported_archs_raise(name, pattern, kind):
+    ("hymba-1.5b", None, "hybrid"), ("xlstm-350m", None, "mlstm")])
+def test_recurrent_kinds_build_and_run(name, pattern, kind):
+    """The four recurrent kinds, once refused, build and run a forward
+    on the CPU (they are held to repro in test_torch_recurrent.py)."""
     arch = get_smoke_config(name)
     if pattern is not None:
         arch = dataclasses.replace(arch, block_pattern=pattern)
+    assert kind in arch.block_pattern
+    model = lm.init_params(arch, seed=0, device="cpu")
+    toks = torch.as_tensor(_tokens(arch.vocab_size, S=8))
+    with torch.inference_mode():
+        logits = model.forward(toks)
+    assert logits.shape == (2, 8 + arch.meta_tokens, arch.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("whisper-large-v3", "encoder-decoder"), ("pixtral-12b", "vision_stub")])
+def test_unported_archs_raise(name, kind):
     with pytest.raises(NotImplementedError, match=kind):
-        lm.init_params(arch, seed=0, device="cpu")
+        lm.init_params(get_smoke_config(name), seed=0, device="cpu")
 
 
 def test_flash_kernel_takes_every_ported_head_dim():
-    """The port runs the four dense archs and the two MoE archs, and each
-    has a head dimension the card's flash_attention kernel is built for,
-    so its prefill launches there."""
+    """The port runs the four dense archs, the two MoE archs, hymba and
+    xlstm; each with an attention block has a head dimension the card's
+    flash_attention kernel is built for, so its prefill launches there
+    (xlstm-350m has none, and launches no kernel)."""
     def runs(arch):
         try:
             lm.check_ported(arch)
@@ -303,8 +318,12 @@ def test_flash_kernel_takes_every_ported_head_dim():
     ported = [get_config(n) for n in list_archs() if runs(get_config(n))]
     assert sorted(a.name for a in ported) == sorted(
         ["llama3-8b", "tinyllama-1.1b", "qwen1.5-4b", "stablelm-12b",
-         "mixtral-8x7b", "granite-moe-1b-a400m"])
-    for arch in ported:
+         "mixtral-8x7b", "granite-moe-1b-a400m", "hymba-1.5b",
+         "xlstm-350m"])
+    with_attention = [a for a in ported if lm.has_attention(a)]
+    assert [a.name for a in ported if a not in with_attention] == \
+        ["xlstm-350m"]
+    for arch in with_attention:
         assert arch.head_dim_ in dispatch.FLASH_HEAD_DIMS, arch.name
 
 
