@@ -64,7 +64,8 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    CPU solves within 1e-8;
 7. holds ``flash_attention`` against its plain version at every case of
    tests/test_kernels.py's ATTN_CASES and more (ragged lengths, windows,
-   decode-like Sq = 1, bidirectional, strided views, stablelm-12b's
+   decode-like Sq = 1, bidirectional, bidirectional at ragged lengths
+   (whisper's 1500 x 1500 and 448 x 1500), strided views, stablelm-12b's
    D = 160), at f32 (atol 2e-3) and bf16 (atol 2e-2), checking that each
    call took the body ``dispatch.flash_attention_route`` names (bf16 at
    D = 64 and 128: ``wgmma``; the rest: ``simt``), checks both bodies'
@@ -276,7 +277,8 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    and depth (24 layers, mLSTM and sLSTM in turn, d 1024, 4 heads of
    256, vocab 50,304, bf16; 0.2416 B parameters): the prefill at B 1, S
    2048 (cut from 8192: the sLSTM's steps are launched one by one), no
-   kernel, finite logits, the median of three, tokens/s, the split
+   kernel, finite logits, one steady prefill (three prefills in all,
+   cut from five for the run's time), tokens/s, the split
    (mLSTM intra-chunk, inter-chunk, the sLSTM scan, the projections), the
    device operations of an sLSTM step; serving as in (a); (c) f32 at
    hymba and xlstm widths, 2 layers, B 2, S 512, the card against the
@@ -285,7 +287,41 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    through its ring of 32): the card's tokens equal the CPU's; (d)
    ``python -m repro_torch.launch.serve --arch hymba-1.5b --smoke
    --prompt-len 40 --gen-len 16`` and the same for xlstm-350m exit 0 on
-   the card.
+   the card;
+19. (run after phase 18, before phase 16) the encoder-decoder and the
+   vision stub: (a) whisper-large-v3 at full width and depth (32 encoder
+   and 32 decoder layers, d 1280, 20 heads of 64, ``mlp2`` with gelu,
+   vocab 51,866, tied embeddings, sinusoidal positions, bf16;
+   1,536,522,240 parameters), random from a seed: ``LM.prefill`` of 8
+   clips of 1,500 stub frames and 448 decoder tokens (Whisper's
+   published decoder context), exactly 96 K5 launches (the encoder's,
+   the decoder's causal self-attention and its cross-attention, 32
+   each), all ``wgmma``, no other kernel, finite logits; the median of
+   three, tokens/s, the split by CUDA events (the encoder, the cross
+   steps, the decoder's K5 and rest, each K5 part told apart), the busy
+   share, the copies K5's wrapper makes; K5 on the encoder's layer 0 and
+   on the first cross call against its plain version (the prefill's
+   bar, and the same q/k/v in f32 within atol 2e-4), each timed with
+   the plain version, its simt body, its wgmma body without ping-pong
+   and non-causal SDPA, with the bound from its live pairs; then
+   ``BatchedServer.generate`` batch 8, prompt 128, generate 32 with the
+   cross cache filled from the 8 clips (32 K5 launches in the fill, none
+   in decode), ms per step against the bytes a step reads, the split,
+   the idle share; decode against prefill at the last prompt position
+   logged at bf16 and held to repro's bar (atol 0.12, rtol 0.05) in f32,
+   at full depth; (b) pixtral-12b at full width and depth (40 layers, d
+   5120, 32/8 heads of 128, d_ff 14,336, vocab 131,072; 24.50 GB bf16):
+   the prefill at B 1, S 8192 (1,024 random patch rows, then 7,168
+   tokens), exactly 40 K5 launches, all ``wgmma``, the median of three,
+   peak memory, the split, the busy share, K5 on layer 0's q/k/v against
+   its plain version; serving as in (a), without patches; (c) f32 at
+   whisper widths (2 + 2 layers, B 2, 1,500 frames, S 64) and pixtral
+   widths (2 layers, B 2, S 512 with 128 patches), the card against the
+   CPU (logits rel 1e-4), then whisper-smoke (with frames) and
+   pixtral-smoke serving prompt 40 + 16: the card's tokens equal the
+   CPU's; (d) ``python -m repro_torch.launch.serve --arch pixtral-12b
+   --smoke --prompt-len 40 --gen-len 16`` exits 0 on the card, and the
+   same for whisper-large-v3 exits 1 with repro's refusal.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
@@ -294,7 +330,9 @@ phase 12 path's shape: its launches on its main path (``flash_attention``
 also its launches per training step and its error and times at the
 training shape, phase 16, and its launches per mixtral prefill, error,
 times, bound and SDPA's time at mixtral's windowed shape, with the time
-at window 0, phase 17, and the same at hymba's, phase 18),
+at window 0, phase 17, and the same at hymba's, phase 18; and two rows of
+its own at whisper's bidirectional shapes, the encoder's and the cross
+call's, phase 19),
 its error against the plain version, its time through the wrapper
 (``ms``, CUDA events over back-to-back calls, host work included), its
 device time alone (``device_ms``: the summed kernel durations of a
@@ -364,7 +402,11 @@ TINY, TINY_LAYERS, TINY_B, TINY_S = "tinyllama-1.1b", 2, 2, 512
 # D = 16 at the training launcher's default batch and length, and
 # hymba-1.5b's 25 query heads over 5 (group 5, D = 64) at its window of
 # 1024 (640 positions: the f32 check's 512 tokens + 128 meta tokens) and
-# at a ragged length under a narrower window.
+# at a ragged length under a narrower window; then bidirectional calls at
+# ragged lengths: whisper-large-v3's encoder (20 heads of 64, 1500 =
+# 11 x 128 + 92 frames) and its cross-attention (448 decoder positions
+# over the 1500), 4:1 GQA at D = 128 over a partial last key tile, and
+# D = 32 (the simt body) at 200 x 200.
 ATTN_CASES = [
     (2, 4, 2, 128, 128, 64, True, 0),
     (1, 8, 2, 256, 256, 64, True, 64),
@@ -380,6 +422,10 @@ ATTN_CASES = [
     (8, 4, 2, 128, 128, 16, True, 0),
     (1, 25, 5, 640, 640, 64, True, 1024),
     (1, 25, 5, 650, 650, 64, True, 300),
+    (1, 20, 20, 1500, 1500, 64, False, 0),
+    (2, 20, 20, 448, 1500, 64, False, 0),
+    (1, 4, 1, 100, 228, 128, False, 0),
+    (1, 2, 2, 200, 200, 32, False, 0),
 ]
 
 
@@ -3717,13 +3763,14 @@ def live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return n
 
 
-def flash_row(args, kw):
+def flash_row(args, kw, what="layer 0's q/k/v of the prefill"):
     """The flash_attention kernel row on the q/k/v that the prefill's first
-    layer gave it: error and time against the plain version (run one KV
-    head group at a time: all 32 heads at once would hold ~35 GB of f32
-    scores), its simt body at bf16 (forced through ``_launch``'s route),
-    its wgmma body without ping-pong and SDPA, and the bound from this
-    call's live pairs.
+    layer gave it (or ``what`` other call): error and time against the
+    plain version (run one KV head group at a time: all 32 heads at once
+    would hold ~35 GB of f32 scores), its simt body at bf16 (forced
+    through ``_launch``'s route), its wgmma body without ping-pong and
+    SDPA (causal or not, as the call), and the bound from this call's live
+    pairs.
 
     Outputs here are means of v over up to 8192 keys, ~0.02-0.03 in most
     rows, so repro's bf16 bar of 2e-2 could not tell a dropped key tile
@@ -3742,6 +3789,7 @@ def flash_row(args, kw):
     q, k, v = args
     (B, Hq, Sq, D), (Hkv, Sk) = q.shape, k.shape[1:3]
     g = Hq // Hkv
+    causal = kw.get("causal", True)
 
     def plain():
         return torch.cat([attention_ref(q[:, i * g:(i + 1) * g],
@@ -3749,16 +3797,16 @@ def flash_row(args, kw):
                           for i in range(Hkv)], dim=1)
 
     def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
 
     def simt():
-        return _launch(q, k, v, kw.get("causal", True), kw.get("window", 0),
-                       D ** -0.5, route="simt")
+        return _launch(q, k, v, causal, kw.get("window", 0), D ** -0.5,
+                       route="simt")
 
     out = flash_attention(q, k, v, **kw)
     want = plain().float()
-    err = check_close(f"flash_attention on layer 0's q/k/v of the prefill "
+    err = check_close(f"flash_attention on {what} "
                       f"{tuple(q.shape)} / {tuple(k.shape)} {q.dtype} "
                       f"[{dispatch.flash_attention_route(q.dtype, D)}]",
                       out.float(), want, 2.0 ** -7, 4e-3)
@@ -3779,8 +3827,7 @@ def flash_row(args, kw):
         f"|plain| {err32 / float(want32.abs().mean()):.3e}")
     del q32, k32, v32, want32
     lib_err = float((sdpa().float() - out.float()).abs().max())
-    pairs = B * live_pairs(Sq, Sk, kw.get("causal", True),
-                           kw.get("window", 0))
+    pairs = B * live_pairs(Sq, Sk, causal, kw.get("window", 0))
     flops = 4.0 * Hq * D * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     b, why = bound_ms(nbytes, flops, BF16_FLOPS)
@@ -3790,8 +3837,8 @@ def flash_row(args, kw):
     timed = {"ms": lambda: flash_attention(q, k, v, **kw),
              "library_ms": sdpa,
              "no_pingpong_ms": lambda: _launch(
-                 q, k, v, kw.get("causal", True), kw.get("window", 0),
-                 D ** -0.5, pingpong=False)}
+                 q, k, v, causal, kw.get("window", 0), D ** -0.5,
+                 pingpong=False)}
     rounds = {name: [] for name in timed}
     for _ in range(3):
         for name, fn in timed.items():
@@ -4236,37 +4283,63 @@ def log_moe_split(what, total, split, n=1):
         log(f"    {name:58s} {ms / n:10.3f}  {100 * ms / total:5.1f}%")
 
 
-def moe_prefill(arch, model):
-    """Phase 17's prefill of ``arch``: launches, median of three, peak
-    memory, the split, and K5 on layer 0's q/k/v against its plain
-    version. Returns (launches of K5, its error, layer 0's (q, k, v),
-    kw)."""
+def prefill_inputs(arch, B, S, gen, dtype=None):
+    """(tokens, extras) of a prefill of S positions in ``repro``'s
+    ``input_specs`` split, drawn by ``gen`` on the card: S random tokens,
+    except that a vision-stub arch takes n = min(n_patches, S // 4) random
+    patch rows and S - n tokens, and an encoder-decoder arch adds (B,
+    encoder_seq, D) random frames; extras in ``dtype`` (default the
+    arch's)."""
+    import torch
+    dtype = dtype or arch.torch_dtype
+    n = min(arch.n_patches, S // 4) if arch.frontend == "vision_stub" else 0
+    toks = torch.randint(0, arch.vocab_size, (B, S - n), generator=gen,
+                         device="cuda")
+    rows = {"frames": arch.encoder_seq if arch.is_encdec else 0,
+            "patches": n}
+    return toks, {k: torch.randn(B, r, arch.d_model, generator=gen,
+                                 device="cuda").to(dtype)
+                  for k, r in rows.items() if r}
+
+
+def counted_prefill(arch, model, toks, extras=None, want_k5=None,
+                    steady=3):
+    """``model.prefill(toks, extras)`` counted and timed: exactly
+    ``want_k5`` K5 launches (default: one a layer with attention), all
+    wgmma, and no other kernel; finite (B, 1, V) logits; the first
+    prefill, peak memory and the median of ``steady`` more, with tokens/s
+    over the tokens and patch rows (and frames/s for an encoder-decoder
+    arch's frames). Returns (K5's launches, the median s)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-
-    B, S = PREFILL_B, PREFILL_S
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
-    toks = torch.randint(0, arch.vocab_size, (B, S), generator=gen,
-                         device="cuda")
+    from repro_torch.models import lm
+    extras = extras or {}
+    if want_k5 is None:
+        want_k5 = sum(arch.block_at(i) in lm.ATTENTION_KINDS
+                      for i in range(arch.n_layers))
+    B = toks.shape[0]
     with torch.no_grad():
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = model.prefill(toks)
+        logits = model.prefill(toks, extras)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         got = read_counts()
         routes = dict(flash_attention.route_launches)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         want = dict.fromkeys(got, 0)
-        want["flash_attention"] = arch.n_layers
-        want_routes = {"wgmma": arch.n_layers, "simt": 0}
-        log(f"  prefill B={B} S={S}: launches {got} (expected {want}); K5 by "
-            f"body {routes} (expected {want_routes}); first prefill "
-            f"{cold:.4f} s; peak device memory {peak:.3f} GiB")
+        want["flash_attention"] = want_k5
+        want_routes = {"wgmma": want_k5, "simt": 0}
+        shapes = {k: tuple(v.shape) for k, v in extras.items()}
+        meta = f", {arch.meta_tokens} meta rows first" \
+            if arch.meta_tokens else ""
+        log(f"  prefill tokens {tuple(toks.shape)}{meta}"
+            f"{f', extras {shapes}' if shapes else ''}: launches {got} "
+            f"(expected {want}); K5 by body {routes} (expected "
+            f"{want_routes}); first prefill {cold:.4f} s; peak device "
+            f"memory {peak:.3f} GiB")
         if got != want or routes != want_routes:
             raise AssertionError(f"{arch.name} prefill launches {got} "
                                  f"{routes}, expected {want} {want_routes}")
@@ -4275,31 +4348,65 @@ def moe_prefill(arch, model):
             raise AssertionError(f"{arch.name} prefill logits "
                                  f"{tuple(logits.shape)} not finite")
         walls = []
-        for _ in range(3):
+        for _ in range(steady):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.prefill(toks)
+            model.prefill(toks, extras)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        med = sorted(walls)[1]
-        log(f"  steady prefills: {' '.join(f'{w:.4f}' for w in walls)} s "
-            f"(median {med:.4f} s, {B * S / med:.1f} tokens/s)")
+    med = sorted(walls)[steady // 2]
+    tokens = toks.numel() + (extras["patches"].shape[0]
+                             * extras["patches"].shape[1]
+                             if "patches" in extras else 0)
+    frames = ""
+    if "frames" in extras:
+        n_frames = extras["frames"].shape[0] * extras["frames"].shape[1]
+        frames = f", {n_frames / med:.1f} frames/s"
+    log(f"  steady prefills: {' '.join(f'{w:.4f}' for w in walls)} s "
+        f"(median {med:.4f} s, {tokens / med:.1f} tokens/s{frames})")
+    return got["flash_attention"], med
+
+
+def k5_held(q, k, v, kw, what):
+    """K5 on ``what``'s q/k/v (a prefill's layer 0) against its plain
+    version, one KV head group at a time, at the prefill's bar (rtol
+    2^-7, atol 4e-3). Returns the error."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = q.shape[1] // k.shape[1]
+    with torch.no_grad():
+        want = torch.cat([attention_ref(q[:, i * g:(i + 1) * g],
+                                        k[:, i:i + 1], v[:, i:i + 1], **kw)
+                          for i in range(k.shape[1])], dim=1).float()
+        return check_close(f"K5 on layer 0's q/k/v of {what} "
+                           f"{tuple(q.shape)} / {tuple(k.shape)} {q.dtype} "
+                           f"{kw}", flash_attention(q, k, v, **kw).float(),
+                           want, 2.0 ** -7, 4e-3)
+
+
+def moe_prefill(arch, model):
+    """Phase 17's prefill of ``arch``: launches, median of three, peak
+    memory, the split, and K5 on layer 0's q/k/v against its plain
+    version. Returns (launches of K5, its error, layer 0's (q, k, v),
+    kw)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    toks = torch.randint(0, arch.vocab_size, (PREFILL_B, PREFILL_S),
+                         generator=gen, device="cuda")
+    launches, med = counted_prefill(arch, model, toks,
+                                    want_k5=arch.n_layers)
+    with torch.no_grad():
         total, tot, timer = timed_split(lambda: model.prefill(toks))
         log_moe_split("a prefill", total, moe_split(total, tot, "attn"))
         log_profile("one prefill", device_profile(
             lambda: model.prefill(toks)), med * 1e3, 1)
-        (q, k, v), kw = timer.first["kernel"]
-        del timer
-        g = q.shape[1] // k.shape[1]
-        want_o = torch.cat([attention_ref(q[:, i * g:(i + 1) * g],
-                                          k[:, i:i + 1], v[:, i:i + 1], **kw)
-                            for i in range(k.shape[1])], dim=1).float()
-        err = check_close(f"K5 on layer 0's q/k/v of the {arch.name} "
-                          f"prefill {tuple(q.shape)} / {tuple(k.shape)} "
-                          f"{q.dtype} {kw}", flash_attention(q, k, v, **kw)
-                          .float(), want_o, 2.0 ** -7, 4e-3)
-        del want_o
-    return got["flash_attention"], err, (q, k, v), kw
+    (q, k, v), kw = timer.first["kernel"]
+    del timer
+    err = k5_held(q, k, v, kw, f"the {arch.name} prefill")
+    return launches, err, (q, k, v), kw
 
 
 def moe_serve(arch, model, nbytes_read, patches=None, split=None):
@@ -4620,9 +4727,11 @@ def phase_moe():
 # positions with its 128 meta tokens); (b) xlstm-350m at full width and
 # depth, its prefill cut from S 8192 to 2048: the sLSTM is S dependent
 # steps of ~20 eager operations a layer, which the host launches one by
-# one (12 layers x 8192 steps would take ~20 s a prefill). Both serve as
-# phase 9 does.
-HYMBA, XLSTM, XLSTM_S = "hymba-1.5b", "xlstm-350m", 2048
+# one (12 layers x 8192 steps would take ~20 s a prefill); its steady
+# prefills cut from three to XLSTM_STEADY, three prefills in all with the
+# first and the split's (each takes ~6 s, and phase 19 needs the time).
+# Both serve as phase 9 does.
+HYMBA, XLSTM, XLSTM_S, XLSTM_STEADY = "hymba-1.5b", "xlstm-350m", 2048, 1
 # (c) f32 card against CPU at hymba and xlstm widths, 2 layers, B x S; the
 # smoke configs serve prompt RING_P + RING_G (hymba-smoke's ring of 32
 # wraps).
@@ -4729,75 +4838,36 @@ def unembed_ms(tot, timer):
                                for a, b in norms[per - 1::per])
 
 
-def recurrent_prefill(arch, model, S):
-    """Phase 18's prefill of ``arch`` at B 1, S: launches (K5 once a
-    layer with attention, all wgmma, nothing else), finite logits, the
-    median of three, tokens/s, peak memory, the split by CUDA events and
-    the busy share. Returns (K5's launches, layer 0's (q, k, v), kw) or
-    (0, None, None) without attention."""
+def traced_prefill(arch, model, toks, extras=None, steady=3):
+    """A prefill of ``toks`` (and ``extras``) through ``counted_prefill``
+    (K5 once a layer with attention, all wgmma, nothing else; the median
+    of ``steady``), then its split by CUDA events over
+    ``recurrent_patches`` and the busy share (phases 18 and 19). Returns
+    (K5's launches, layer 0's (q, k, v), kw), or (0, None, None) without
+    attention."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models import lm
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
-    toks = torch.randint(0, arch.vocab_size, (1, S), generator=gen,
-                         device="cuda")
-    attn_layers = sum(arch.block_at(i) in lm.ATTENTION_KINDS
-                      for i in range(arch.n_layers))
+    launches, med = counted_prefill(arch, model, toks, extras,
+                                    steady=steady)
     with torch.no_grad():
-        zero_counts()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits = model.prefill(toks)
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
-        got = read_counts()
-        routes = dict(flash_attention.route_launches)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        want = dict.fromkeys(got, 0)
-        want["flash_attention"] = attn_layers
-        want_routes = {"wgmma": attn_layers, "simt": 0}
-        log(f"  prefill B=1 S={S} ({S + arch.meta_tokens} positions): "
-            f"launches {got} (expected {want}); K5 by body {routes} "
-            f"(expected {want_routes}); first prefill {cold:.4f} s; peak "
-            f"device memory {peak:.3f} GiB")
-        if got != want or routes != want_routes:
-            raise AssertionError(f"{arch.name} prefill launches {got} "
-                                 f"{routes}, expected {want} {want_routes}")
-        if logits.shape != (1, 1, arch.vocab_size) \
-                or not torch.isfinite(logits).all():
-            raise AssertionError(f"{arch.name} prefill logits "
-                                 f"{tuple(logits.shape)} not finite")
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.prefill(toks)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        med = sorted(walls)[1]
-        log(f"  steady prefills: {' '.join(f'{w:.4f}' for w in walls)} s "
-            f"(median {med:.4f} s, {S / med:.1f} tokens/s)")
-        total, tot, timer = timed_split(lambda: model.prefill(toks),
+        total, tot, timer = timed_split(lambda: model.prefill(toks, extras),
                                         patches=recurrent_patches())
         log_moe_split("a prefill", total, recurrent_split(
             total, tot, unembed_ms(tot, timer)))
-        if attn_layers:
+        if launches:
             log_profile("one prefill", device_profile(
-                lambda: model.prefill(toks)), med * 1e3, 1)
+                lambda: model.prefill(toks, extras)), med * 1e3, 1)
             (q, k, v), kw = timer.first["kernel"]
-            return got["flash_attention"], (q, k, v), kw
+            return launches, (q, k, v), kw
     return 0, None, None
 
 
-def decode_vs_prefill(arch, model, what, hold=True):
+def decode_vs_prefill(arch, model, what, hold=True, extras=None):
     """Teacher-forced decode's logits at the last of 128 prompt positions
     (batch 8) against ``prefill``'s, with the meta tokens off: decode
     never sees them, in ``repro`` too, so with them the two differ by
-    design. Held to ``repro``'s bar (atol 0.12, rtol 0.05) if ``hold``,
-    else only logged."""
+    design. ``extras["frames"]`` (an encoder-decoder arch) fill decode's
+    cross cache and go to the prefill. Held to ``repro``'s bar (atol
+    0.12, rtol 0.05) if ``hold``, else only logged."""
     import dataclasses
     import numpy as np
     import torch
@@ -4810,9 +4880,11 @@ def decode_vs_prefill(arch, model, what, hold=True):
         with torch.no_grad():
             toks = torch.as_tensor(prompts, device="cuda")
             cache = lm.init_cache(model.arch, B, P, "cuda")
+            if extras:
+                model.fill_cross_cache(cache, extras["frames"])
             for t in range(P):
                 logits, cache = model.decode_step(toks[:, t:t + 1], cache, t)
-            last = model.prefill(toks)
+            last = model.prefill(toks, extras)
     finally:
         model.arch = arch
     name = (f"{arch.name}{what} decode logits at position {P - 1} vs "
@@ -4970,7 +5042,10 @@ def phase_recurrent():
     t0 = time.perf_counter()
     log(f"phase 18 (a): {HYMBA} at full width and depth")
     arch, model, nbytes = recurrent_model(HYMBA)
-    launches, (q, k, v), kw = recurrent_prefill(arch, model, PREFILL_S)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    toks, _ = prefill_inputs(arch, 1, PREFILL_S, gen)
+    launches, (q, k, v), kw = traced_prefill(arch, model, toks)
     if kw.get("window") != arch.window:
         raise AssertionError(f"hymba's K5 call took {kw}, not window "
                              f"{arch.window}")
@@ -4978,18 +5053,7 @@ def phase_recurrent():
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.flash_attention import flash_attention
-    g = q.shape[1] // k.shape[1]
-    with torch.no_grad():
-        want_o = torch.cat([attention_ref(q[:, i * g:(i + 1) * g],
-                                          k[:, i:i + 1], v[:, i:i + 1], **kw)
-                            for i in range(k.shape[1])], dim=1).float()
-        err = check_close(f"K5 on layer 0's q/k/v of the {HYMBA} prefill "
-                          f"{tuple(q.shape)} / {tuple(k.shape)} {q.dtype} "
-                          f"{kw}", flash_attention(q, k, v, **kw).float(),
-                          want_o, 2.0 ** -7, 4e-3)
-    del want_o
+    err = k5_held(q, k, v, kw, f"the {HYMBA} prefill")
     row = window_row(q, k, v, kw, launches, err, prefix="hymba",
                      what="hymba's")
     del q, k, v
@@ -4998,7 +5062,9 @@ def phase_recurrent():
     log(f"phase 18 (b): {XLSTM} at full width and depth, prefill cut to "
         f"S {XLSTM_S}")
     arch, model, nbytes = recurrent_model(XLSTM)
-    recurrent_prefill(arch, model, XLSTM_S)
+    gen.manual_seed(2)
+    traced_prefill(arch, model, prefill_inputs(arch, 1, XLSTM_S, gen)[0],
+                   steady=XLSTM_STEADY)
     slstm_step_ops(arch)
     recurrent_serve(arch, model, nbytes)
     del model
@@ -5009,6 +5075,399 @@ def phase_recurrent():
     recurrent_cli()
     log(f"phase 18 done in {time.perf_counter() - t0:.1f} s")
     return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the encoder-decoder (whisper) and the vision stub (pixtral).
+# ---------------------------------------------------------------------------
+
+# (a) whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+# layers): a prefill of WHISPER_B clips of encoder_seq = 1,500 stub frames
+# (repro's input_specs shape) and WHISPER_S decoder tokens (448: Whisper's
+# published decoder context, n_text_ctx in openai/whisper's
+# ModelDimensions); serving at phase 9's batch, prompt and length, with
+# the cross cache filled from the same clips.
+WHISPER, WHISPER_B, WHISPER_S = "whisper-large-v3", 8, 448
+# (b) pixtral-12b at full width and depth, prefilled at B 1, S 8192 in
+# input_specs' split at that length (min(n_patches, S // 4) = 1,024 patch
+# rows, then 7,168 tokens), and served as in (a) without patches: decode
+# carries none, as in repro.
+PIXTRAL = "pixtral-12b"
+# (c) f32, the card against the CPU: whisper widths at 2 + 2 layers, B 2,
+# its 1,500 frames and S 64 tokens; pixtral widths at 2 layers, B 2, S 512
+# positions in input_specs' split (128 patches, 384 tokens).
+ENC_F32_LAYERS, ENC_F32_B, WHISPER_F32_S, PIXTRAL_F32_S = 2, 2, 64, 512
+
+
+def stub_model(name):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    arch = get_config(name)
+    t0 = time.perf_counter()
+    model = lm.init_params(arch, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    enc = sum(p.numel() for p in model.encoder.parameters()) \
+        if arch.is_encdec else 0
+    encoder = (f" + {arch.encoder_layers} encoder layers over "
+               f"{arch.encoder_seq} frames") if enc else ""
+    log(f"  {arch.name}: {arch.n_layers} decoder layers{encoder}"
+        f", d_model {arch.d_model}, {arch.n_heads}/{arch.n_kv_heads} heads "
+        f"of {arch.head_dim_}, d_ff {arch.d_ff} ({arch.mlp_type}, "
+        f"{arch.act}), vocab {arch.vocab_size}, positions {arch.pos_embed}, "
+        f"frontend {arch.frontend}, {arch.dtype}: {n:,} parameters "
+        f"({nbytes / 1e9:.2f} GB{f'; the encoder {enc:,}' if enc else ''}),"
+        f" random from seed 0, made on the card in "
+        f"{time.perf_counter() - t0:.2f} s (device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    return arch, model, nbytes
+
+
+def whisper_prefill(arch, model, toks, extras, med):
+    """Phase 19 (a)'s split of a whisper prefill by CUDA events (the
+    encoder, the decoder's cross steps, its self-attention K5 and its
+    rest, K5's calls told apart by their order: the encoder's n_enc, then
+    each decoder layer's self and cross call), the busy share, the
+    copies ``_readable`` makes, and K5 on the encoder's layer 0 and the
+    first cross call against the plain version with their times (the
+    rows this phase adds to the kernels' line)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    n_enc, n_dec = arch.encoder_layers, arch.n_layers
+    patches = [(L, "flash_attention", "kernel"),
+               (lm.Encoder, "forward", "encoder"),
+               (lm.Block, "_cross", "cross"), (lm, "cross_kv", "cross_kv"),
+               (lm.LM, "_logits", "logits")]
+    with torch.no_grad():
+        total, tot, timer = timed_split(lambda: model.prefill(toks, extras),
+                                        keep=(), patches=patches)
+    k5 = [a.elapsed_time(b) for a, b in timer.events["kernel"]]
+    if len(k5) != n_enc + 2 * n_dec:
+        raise AssertionError(f"traced whisper prefill: {len(k5)} K5 calls")
+    enc_k5, self_k5, cross_k5 = (sum(k5[:n_enc]), sum(k5[n_enc::2]),
+                                 sum(k5[n_enc + 1::2]))
+    split = {
+        f"encoder ({n_enc} layers, pos_embed, final norm)": tot["encoder"],
+        f"  of which K5 (bidirectional, {arch.encoder_seq} x "
+        f"{arch.encoder_seq})": enc_k5,
+        f"decoder cross steps ({n_dec}: norm_x, q, k/v, K5, wo)":
+            tot["cross"],
+        "  of which the encoder output's k/v projections": tot["cross_kv"],
+        f"  of which K5 (bidirectional, {toks.shape[1]} x "
+        f"{arch.encoder_seq})": cross_k5,
+        "decoder K5 (causal self-attention)": self_k5,
+        "decoder rest (q/k/v, wo, MLP, norms, embed, sinusoid)":
+            total - tot["encoder"] - tot["cross"] - self_k5
+            - tot["logits"],
+        "final norm + unembed (last position)": tot["logits"],
+    }
+    log_moe_split("a prefill", total, split)
+    log_profile("one prefill", device_profile(
+        lambda: model.prefill(toks, extras)), med * 1e3, 1)
+
+    # One more prefill keeps the q/k/v of K5's first encoder call and
+    # first cross call, and counts the operands _readable copies.
+    kept, copies, calls = {}, [], [0]
+    keep_at = {0: "encoder", n_enc + 1: "cross"}
+    flash, readable = L.flash_attention, fa_ops._readable
+
+    def capture(*a, **kw):
+        if calls[0] in keep_at:
+            kept[keep_at[calls[0]]] = (a, kw)
+        calls[0] += 1
+        return flash(*a, **kw)
+
+    def counted(t, route):
+        out = readable(t, route)
+        if out is not t:
+            copies.append(tuple(t.shape))
+        return out
+
+    L.flash_attention, fa_ops._readable = capture, counted
+    try:
+        with torch.no_grad():
+            model.prefill(toks, extras)
+    finally:
+        L.flash_attention, fa_ops._readable = flash, readable
+    log(f"  operands K5's wrapper copied (_readable) in one prefill: "
+        f"{len(copies)} {sorted(set(copies))}: the cross k and v are "
+        f"transposed views of the (B, Se, Hkv Dh) projections, whose "
+        f"strides TMA reads in place")
+    if copies:
+        t = torch.empty(copies[0], dtype=arch.torch_dtype, device="cuda")
+        log(f"  one such copy {copies[0]}: "
+            f"{time_ms(lambda: t.clone(), 10):.4f} ms")
+    rows = []
+    for part, what, n in (("encoder", "whisper's encoder layer 0 "
+                           "(bidirectional)", n_enc),
+                          ("cross", "whisper's decoder layer 0 cross-"
+                           "attention (bidirectional)", n_dec)):
+        (q, k, v), kw = kept[part]
+        if kw.get("causal", True) or kw.get("window", 0):
+            raise AssertionError(f"whisper's {part} K5 call took {kw}")
+        with torch.no_grad():
+            row = flash_row((q, k, v), kw, what)
+        row["name"] = (f"flash_attention (whisper-large-v3 {part}, "
+                       f"bidirectional {q.shape[2]} x {k.shape[2]})")
+        row["launches"] = n
+        rows.append(row)
+    return rows
+
+
+def whisper_serve(arch, model, nbytes, frames):
+    """Phase 19 (a)'s serving: ``BatchedServer.generate`` at phase 9's
+    batch, prompt and length with the cross cache filled from ``frames``
+    (the fill launches K5 once an encoder layer, decode none); ms per
+    step against the bytes a step reads (the decoder's weights, the tied
+    embedding the unembedding reads among them, alone and with the cross
+    and self caches) at the HBM rate; a step's split and the idle share."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    B, P, G = SERVE_B, SERVE_P, SERVE_G
+    prompts = np.random.default_rng(0).integers(
+        0, arch.vocab_size, (B, P)).astype(np.int32)
+    server = BatchedServer(arch, model, max_seq=P + G)
+    extras = {"frames": frames}
+    server.generate(prompts[:, :4], 2, extras)          # warm-up
+    fill, fill_s = model.fill_cross_cache, []
+
+    def timed_fill(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fill(*a, **kw)
+        torch.cuda.synchronize()
+        fill_s.append(time.perf_counter() - t0)
+        return out
+
+    model.fill_cross_cache = timed_fill
+    try:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = server.generate(prompts, G, extras)
+        wall = time.perf_counter() - t0
+    finally:
+        del model.fill_cross_cache
+    got = read_counts()
+    routes = dict(flash_attention.route_launches)
+    want = dict.fromkeys(got, 0)
+    want["flash_attention"] = arch.encoder_layers
+    steps = P + G
+    step_ms = (wall - fill_s[0]) / steps * 1e3
+    enc = sum(p.numel() * p.element_size()
+              for p in model.encoder.parameters())
+    weights = nbytes - enc
+    item = torch.finfo(arch.torch_dtype).bits // 8
+    kv = arch.n_layers * 2 * B * arch.n_kv_heads * arch.head_dim_ * item
+    cross, self_kv = kv * arch.encoder_seq, kv * (P + G)
+    bound_w = weights / HBM_BYTES_PER_S * 1e3
+    bound = (weights + cross + self_kv) / HBM_BYTES_PER_S * 1e3
+    log(f"  serving batch {B}, prompt {P}, generate {G}, the cross cache "
+        f"filled from the {B} clips: launches {got} (expected {want}: the "
+        f"fill's encoder; decode none), K5 by body {routes}; the fill "
+        f"{fill_s[0] * 1e3:.2f} ms; {steps} decode steps in "
+        f"{wall - fill_s[0]:.4f} s: {step_ms:.4f} ms per step, "
+        f"{B * G / wall:.1f} generated tokens/s (fill included); a step "
+        f"reads {weights / 1e9:.3f} GB of decoder weights (bound "
+        f"{bound_w:.4f} ms at the HBM rate; the step at "
+        f"{step_ms / bound_w:.2f}x it), {cross / 1e9:.3f} GB of cross k/v "
+        f"and {self_kv / 1e9:.3f} GB of self k/v (all three: bound "
+        f"{bound:.4f} ms, the step at {step_ms / bound:.2f}x); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"sample {out[0][:8].tolist()}")
+    if got != want or routes != {"wgmma": arch.encoder_layers, "simt": 0}:
+        raise AssertionError(f"whisper generate launched {got} {routes}")
+    if out.shape != (B, G) or out.dtype != np.int32 \
+            or not ((out >= 0) & (out < arch.vocab_size)).all():
+        raise AssertionError(f"generate gave {out.dtype} {out.shape}")
+    # A decode step's split over 16 steps of another generate (prompt 8,
+    # generate 8) against a zero cross cache: decode's work does not
+    # depend on the cache's values, and the fill stays out of the steps.
+    patches = [(L, "attention_decode", "self"),
+               (L, "cross_attention_decode", "xattn"),
+               (L, "mlp", "mlp"), (L, "rmsnorm", "norm"),
+               (lm.LM, "_logits", "logits")]
+    t0 = time.perf_counter()
+    total, tot, timer = timed_split(
+        lambda: server.generate(prompts[:, :8], 8), keep=(),
+        patches=patches)
+    traced = time.perf_counter() - t0
+    log(f"  16 decode steps of another generate (prompt 8, generate 8) "
+        f"under CUDA events: traced wall {traced / 16 * 1e3:.3f} ms per "
+        f"step; where the device idles between launches these intervals "
+        f"are mostly host time")
+    unembed = unembed_ms(tot, timer)
+    log_moe_split("a decode step", total, {
+        "self-attention (q/k/v, cache write, softmax, wo)": tot["self"],
+        f"cross-attention (q, softmax over {arch.encoder_seq} keys, wo)":
+            tot["xattn"],
+        "MLP (up/down GEMVs, GELU)": tot["mlp"],
+        "rmsnorm (3 per layer + final)": tot["norm"],
+        "unembed (tied embedding)": unembed,
+        "rest (embed gather, sinusoid, residual adds, argmax)": total
+        - tot["self"] - tot["xattn"] - tot["mlp"] - tot["norm"] - unembed,
+    }, 16)
+    log_profile("16 decode steps", device_profile(
+        lambda: server.generate(prompts[:, :8], 8)), step_ms, 16)
+
+
+def encdec_f32_card_vs_cpu():
+    """Phase 19 (c): f32 at whisper widths (2 + 2 layers, 1,500 frames)
+    and pixtral widths (2 layers, with patches), the card against the CPU
+    from the same weights and inputs; then whisper-smoke (with frames)
+    and pixtral-smoke serving prompt 40 + 16 on both."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import lm
+
+    B = ENC_F32_B
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for name, S in ((WHISPER, WHISPER_F32_S), (PIXTRAL, PIXTRAL_F32_S)):
+        full = get_config(name)
+        over = dict(n_layers=ENC_F32_LAYERS, dtype="float32")
+        if full.is_encdec:
+            over["encoder_layers"] = ENC_F32_LAYERS
+        arch = dataclasses.replace(full, **over)
+        toks, extras = prefill_inputs(arch, B, S, gen, torch.float32)
+        encoder = f" + {ENC_F32_LAYERS} encoder layers" \
+            if arch.is_encdec else ""
+        log(f"phase 19 (c): f32 {name} widths at {ENC_F32_LAYERS} layers"
+            f"{encoder}, tokens {tuple(toks.shape)}, extras "
+            f"{ {k: tuple(v.shape) for k, v in extras.items()} }, the card "
+            f"against the CPU")
+        gpu = lm.init_params(arch, seed=0, device="cuda")
+        cpu = lm.LM(arch, "cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        want = arch.n_layers + (arch.encoder_layers + arch.n_layers
+                                if arch.is_encdec else 0)
+        with torch.no_grad():
+            flash_attention.launches = 0
+            lg = gpu.forward(toks, extras).cpu()
+            if flash_attention.launches != want:
+                raise AssertionError(f"f32 forward launched K5 "
+                                     f"{flash_attention.launches} times, "
+                                     f"not {want}")
+            lc = cpu.forward(toks.cpu(), {k: v.cpu()
+                                          for k, v in extras.items()})
+        rel = float((lg - lc).abs().max() / lc.abs().max())
+        log(f"  logits {tuple(lg.shape)}: max |card - cpu| / max |cpu| "
+            f"{rel:.3e} (bar 1e-4); K5 launches {want}")
+        if not rel <= 1e-4:
+            raise AssertionError(f"f32 {name}: card and CPU differ")
+        del gpu, cpu, lg, lc
+
+        smoke = dataclasses.replace(get_smoke_config(name), dtype="float32")
+        gpu = lm.init_params(smoke, seed=0, device="cuda")
+        cpu = lm.LM(smoke, "cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        rng = np.random.default_rng(6)
+        prompts = rng.integers(0, smoke.vocab_size,
+                               (4, RING_P)).astype(np.int32)
+        frames = rng.standard_normal(
+            (4, smoke.encoder_seq, smoke.d_model)).astype(np.float32)
+        ex = (lambda dev: {"frames": torch.as_tensor(frames, device=dev)}) \
+            if smoke.is_encdec else (lambda dev: None)
+        t_gpu = BatchedServer(smoke, gpu, RING_P + RING_G).generate(
+            prompts, RING_G, ex("cuda"))
+        t_cpu = BatchedServer(smoke, cpu, RING_P + RING_G).generate(
+            prompts, RING_G, ex("cpu"))
+        filled = " with the cross cache filled from 4 clips" \
+            if smoke.is_encdec else ""
+        log(f"  {smoke.name} f32 serving prompt {RING_P} + {RING_G}{filled}"
+            f": card tokens equal the CPU's: "
+            f"{bool((t_gpu == t_cpu).all())} ({t_gpu[0].tolist()})")
+        if not (t_gpu == t_cpu).all():
+            raise AssertionError(f"{smoke.name} serving: card and CPU "
+                                 f"differ")
+
+
+def encdec_cli():
+    """Phase 19 (d): the serving CLI on the card serves pixtral-smoke, and
+    refuses whisper with ``repro``'s message."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    for name, expect in ((PIXTRAL, "arch=pixtral-smoke generated (4, 16)"),
+                         (WHISPER, "use the audio pipeline for enc-dec "
+                          "archs")):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               name, "--smoke", "--prompt-len", "40", "--gen-len", "16"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=300)
+        text = (out.stdout + out.stderr).strip()
+        log(f"phase 19 (d): {' '.join(cmd[1:])}: exit {out.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s: {text[-300:]}")
+        ok = out.returncode == 0 if name == PIXTRAL else out.returncode == 1
+        if not ok or expect not in text:
+            raise AssertionError(f"(d) the CLI: {out.stdout[-2000:]} "
+                                 f"{out.stderr[-3000:]}")
+
+
+def phase_encdec():
+    """Phase 19: (a) whisper-large-v3 at full width and depth: a prefill
+    of 8 clips (96 K5 launches, all wgmma), its split, K5 at the
+    encoder's and the cross-attention's shapes, serving with the cross
+    cache, decode against prefill; (b) pixtral-12b at full width and
+    depth: prefill with 1,024 patches (40 launches), serving; (c) f32 card
+    against CPU; (d) the CLI. Returns K5's rows at whisper's two shapes."""
+    import dataclasses
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    log(f"phase 19 (a): {WHISPER} at full width and depth")
+    arch, model, nbytes = stub_model(WHISPER)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    toks, extras = prefill_inputs(arch, WHISPER_B, WHISPER_S, gen)
+    _, med = counted_prefill(arch, model, toks, extras,
+                             arch.encoder_layers + 2 * arch.n_layers)
+    rows = whisper_prefill(arch, model, toks, extras, med)
+    frames = extras["frames"][:SERVE_B]
+    whisper_serve(arch, model, nbytes, frames)
+    decode_vs_prefill(arch, model, " (full depth)", hold=False,
+                      extras={"frames": frames})
+    model.float()
+    decode_vs_prefill(dataclasses.replace(arch, dtype="float32"), model,
+                      " (full depth)", extras={"frames": frames.float()})
+    del model, toks, extras, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase 19 (b): {PIXTRAL} at full width and depth (device memory "
+        f"allocated before it: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB; mixtral's and llama3-8b's weights are freed)")
+    arch, model, nbytes = stub_model(PIXTRAL)
+    toks, extras = prefill_inputs(arch, PREFILL_B, PREFILL_S, gen)
+    _, (q, k, v), kw = traced_prefill(arch, model, toks, extras)
+    k5_held(q, k, v, kw, f"the {PIXTRAL} prefill "
+            f"({extras['patches'].shape[1]} patch rows first)")
+    del q, k, v
+    embed = model.embed.numel() * model.embed.element_size()
+    moe_serve(arch, model, nbytes - embed, patches=recurrent_patches(),
+              split=lambda total, tot, timer: recurrent_split(
+                  total, tot, unembed_ms(tot, timer), decode=True))
+    del model, toks, extras
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec_f32_card_vs_cpu()
+    torch.cuda.empty_cache()
+    encdec_cli()
+    log(f"phase 19 done in {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -5612,6 +6071,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hymba_row = phase_recurrent()
     torch.cuda.empty_cache()
+    encdec_rows = phase_encdec()
+    torch.cuda.empty_cache()
     train_row = phase_training()
     torch.cuda.empty_cache()
     phase_elastic()
@@ -5626,6 +6087,7 @@ def main() -> int:
         rows[name]["launches"] = n
     for name in svm_rows:
         rows[name]["launches"] = svm_launches[name]
+    rows.update((row["name"], row) for row in encdec_rows)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -345,11 +345,14 @@ def _head_dims(dispatch) -> List[int]:
 
 # (Sq, Sk, causal, window): the llama3-8b prefill, the mixtral-8x7b
 # prefill (window 4096: whole key tiles skipped), decode against a cache,
-# a ragged window, a bidirectional Sq < Sk, a partial last tile.
+# a ragged window, a bidirectional Sq < Sk, a partial last tile, and
+# whisper-large-v3's bidirectional calls at ragged lengths: its encoder
+# (1500 x 1500) and its cross-attention (448 decoder positions x 1500).
 FLASH_CASES = ((8192, 8192, True, 0), (8192, 8192, True, 4096),
                (1, 384, True, 128), (300, 300, True, 100),
                (128, 256, False, 0), (520, 520, True, 0),
-               (100, 228, True, 0))
+               (100, 228, True, 0), (1500, 1500, False, 0),
+               (448, 1500, False, 0))
 
 
 def _describe_flash_attention(dispatch) -> Tuple[List[Diagnostic], int]:

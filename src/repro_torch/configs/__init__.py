@@ -4,10 +4,9 @@
 The ten configuration modules are copies, as data, of ``repro.configs``'
 (the exact published hyperparameters plus a reduced smoke variant); the
 port keeps its own copies so that it never imports the JAX package.
-Eight of them run in the port so far: the dense archs, mixtral-8x7b,
-granite-moe-1b-a400m, hymba-1.5b and xlstm-350m
-(``repro_torch.models.lm.check_ported`` refuses the encoder-decoder
-whisper-large-v3 and pixtral-12b's vision frontend).
+All ten run in the port: the dense archs, mixtral-8x7b,
+granite-moe-1b-a400m, hymba-1.5b, xlstm-350m, the encoder-decoder
+whisper-large-v3 and pixtral-12b with its vision stub.
 """
 from __future__ import annotations
 

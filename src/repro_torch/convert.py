@@ -26,7 +26,11 @@ leaves travel as float32, which holds them exactly), and
 ``adamw_state_from_numpy`` / ``adamw_state_to_numpy`` the optimizer state
 (its moments are shaped like the params). ``lm_flat`` / ``lm_tree`` are
 the layout change itself, for numpy arrays or tensors: the trainer's
-checkpoints hold ``repro``'s tree.
+checkpoints hold ``repro``'s tree. An encoder-decoder arch's ``encoder``
+subtree stacks its layers along a leading axis too (``layers``, beside
+``pos_embed`` and ``final_norm``), and its cache's ``cross`` k and v
+stack the decoder's groups: the port holds ``encoder.layers.{j}`` and
+one ``cross_k`` / ``cross_v`` tensor a layer.
 """
 from __future__ import annotations
 
@@ -173,36 +177,60 @@ def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _unstack(flat, stacked_tree, name, leaf):
+    """Each leaf of ``stacked_tree`` (layer g along its leading axis) into
+    ``flat`` as ``name(g).path``."""
+    for path, stacked in _flatten(stacked_tree):
+        if not isinstance(stacked, torch.Tensor):
+            stacked = np.asarray(stacked)
+        for g in range(stacked.shape[0]):
+            flat[f"{name(g)}.{path}"] = leaf(stacked[g])
+
+
+def _stacked(flat, names, stack):
+    """The inverse of :func:`_unstack` for the layers ``names`` (in stack
+    order): their leaves' paths nested, each joined by ``stack``."""
+    prefix = f"{names[0]}."
+    return _nest({
+        path[len(prefix):]: stack([flat[f"{n}.{path[len(prefix):]}"]
+                                   for n in names])
+        for path in flat if path.startswith(prefix)})
+
+
 def lm_flat(arch: ArchConfig, tree, leaf=lambda a: a) -> Dict:
     """``repro``'s param-shaped tree (the params, or a moment of their
     optimizer state) as {port parameter name: ``leaf(layer's slice)``}:
     the stacked leaves of ``layers["slot{i}_{kind}"]`` split into layers
-    g * period + i. Leaves are numpy arrays or tensors."""
+    g * period + i, and those of ``encoder["layers"]`` into encoder
+    layers j. Leaves are numpy arrays or tensors."""
+    enc = tree.get("encoder", {})
     flat = {k: leaf(v) for k, v in _flatten(
-        {k: v for k, v in tree.items() if k != "layers"})}
+        {k: v for k, v in tree.items() if k not in ("layers", "encoder")})}
+    flat.update({f"encoder.{k}": leaf(v) for k, v in _flatten(
+        {k: v for k, v in enc.items() if k != "layers"})})
     for i, slot, period in _slots(arch):
-        for path, stacked in _flatten(tree["layers"][slot]):
-            if not isinstance(stacked, torch.Tensor):
-                stacked = np.asarray(stacked)
-            for g in range(stacked.shape[0]):
-                flat[f"layers.{g * period + i}.{path}"] = leaf(stacked[g])
+        _unstack(flat, tree["layers"][slot],
+                 lambda g: f"layers.{g * period + i}", leaf)
+    if "layers" in enc:
+        _unstack(flat, enc["layers"], lambda j: f"encoder.layers.{j}", leaf)
     return flat
 
 
 def lm_tree(arch: ArchConfig, flat, stack=np.stack):
     """The inverse of :func:`lm_flat`: {port parameter name: leaf} as
-    ``repro``'s tree, each slot's layers joined by ``stack``
-    (``np.stack`` or ``torch.stack``)."""
+    ``repro``'s tree, each slot's layers (and the encoder's) joined by
+    ``stack`` (``np.stack`` or ``torch.stack``)."""
     tree = _nest({k: v for k, v in flat.items()
-                  if not k.startswith("layers.")})
+                  if not k.startswith(("layers.", "encoder.layers."))})
     tree["layers"] = {}
     for i, slot, period in _slots(arch):
-        prefix = f"layers.{i}."
-        tree["layers"][slot] = _nest({
-            path[len(prefix):]: stack([
-                flat[f"layers.{g}.{path[len(prefix):]}"]
-                for g in range(i, arch.n_layers, period)])
-            for path in flat if path.startswith(prefix)})
+        tree["layers"][slot] = _stacked(
+            flat, [f"layers.{g}" for g in range(i, arch.n_layers, period)],
+            stack)
+    if arch.is_encdec:
+        tree["encoder"]["layers"] = _stacked(
+            flat, [f"encoder.layers.{j}"
+                   for j in range(arch.encoder_layers)], stack)
     return tree
 
 
@@ -254,8 +282,9 @@ def cache_from_numpy(arch: ArchConfig, tree, device="cuda"):
     tensor a layer, None where a layer lacks the entry}) from ``repro``'s
     (``{"slot{i}_{kind}": {entry: (G, ...)}}``, numpy leaves: "k" and "v"
     (G, B, Hkv, S_i, Dh) with S_i slot i's cache length, and the f32
-    recurrent states). k and v take the config dtype, the states stay
-    f32."""
+    recurrent states; for an encoder-decoder arch, ``"cross": {"k", "v"}``
+    (G, B, Hkv, Se, Dh), which group g's layers share). k, v and the
+    cross k and v take the config dtype, the states stay f32."""
     dev = resolve_device(device)
     out = {}
     for i, slot, period in _slots(arch):
@@ -266,13 +295,25 @@ def cache_from_numpy(arch: ArchConfig, tree, device="cuda"):
             for g, leaf in enumerate(np.asarray(stacked, dtype=np.float32)):
                 per_layer[g * period + i] = _f32(leaf).to(device=dev,
                                                           dtype=dtype)
+    period = len(arch.block_pattern)
+    for name, stacked in tree.get("cross", {}).items():
+        groups = [_f32(leaf).to(device=dev, dtype=arch.torch_dtype)
+                  for leaf in np.asarray(stacked, dtype=np.float32)]
+        out[f"cross_{name}"] = [groups[l // period]
+                                for l in range(arch.n_layers)]
     return out
 
 
 def cache_to_numpy(arch: ArchConfig, cache):
-    """``repro``'s decode cache tree from the port's, float32 leaves."""
-    return {slot: {name: np.stack([t.float().cpu().numpy()
-                                   for t in per_layer[i::period]])
-                   for name, per_layer in cache.items()
-                   if per_layer[i] is not None}
-            for i, slot, period in _slots(arch)}
+    """``repro``'s decode cache tree from the port's, float32 leaves (the
+    cross k and v from the first layer of each group)."""
+    host = lambda ts: np.stack([t.float().cpu().numpy() for t in ts])
+    out = {slot: {name: host(per_layer[i::period])
+                  for name, per_layer in cache.items()
+                  if name not in _lm.CROSS and per_layer[i] is not None}
+           for i, slot, period in _slots(arch)}
+    if "cross_k" in cache:
+        period = len(arch.block_pattern)
+        out["cross"] = {name[len("cross_"):]: host(cache[name][::period])
+                        for name in _lm.CROSS}
+    return out

@@ -201,19 +201,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (B, Hq, Sq, D) in q's dtype.
 
     ``causal`` masks the future; ``window`` > 0 adds a sliding window
-    (queries attend at most the last ``window`` keys). A bidirectional
-    call needs lengths that divide min(128, length), as ``repro``'s
-    kernel path does (its padding would unmask keys)."""
+    (queries attend at most the last ``window`` keys). Any lengths serve
+    every mask, a bidirectional call's too (whisper's encoder at 1500 x
+    1500, its cross-attention at Sq x 1500): ``repro`` refuses ragged
+    bidirectional lengths only on its Pallas path, whose padding would
+    unmask keys; the kernel here masks keys past Sk by bounds checks, and
+    the plain version pads nothing."""
     _check(q, k, v)
-    Sq, Sk = q.shape[2], k.shape[2]
-    if not causal and window == 0 and (Sq % min(128, Sq) or
-                                       Sk % min(128, Sk)):
-        raise ValueError("bidirectional attention needs sequence lengths "
-                         "divisible by min(128, length) (padding would "
-                         "unmask)")
     if scale is None:
         scale = 1.0 / (q.shape[3] ** 0.5)
-    if q.device.type == "cpu" and Sq >= CHUNKED_THRESHOLD:
+    if q.device.type == "cpu" and q.shape[2] >= CHUNKED_THRESHOLD:
         return attention_chunked(q, k, v, causal=causal, window=window,
                                  scale=scale)
     return _Flash.apply(q, k, v, causal, window, scale)

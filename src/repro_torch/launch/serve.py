@@ -8,8 +8,11 @@ Every arch ``lm.check_ported`` accepts runs: the dense and MoE archs
 (``--arch mixtral-8x7b`` or ``granite-moe-1b-a400m``; mixtral's
 sliding-window layers decode through a ring cache), hymba-1.5b (a ring
 of k and v beside the SSM heads' f32 state; its decode sees no meta
-tokens, as in ``repro``) and xlstm-350m (the mLSTM and sLSTM states).
-Runs on the card
+tokens, as in ``repro``) and xlstm-350m (the mLSTM and sLSTM states),
+and pixtral-12b (decode carries no patches, as in ``repro``). As
+``repro``'s, the CLI refuses an encoder-decoder arch (whisper-large-v3);
+``BatchedServer.generate`` serves one, against a cross cache filled from
+the frames it is given, or against ``repro``'s zeros. Runs on the card
 unless ``--device cpu`` is given. As in ``repro``, the
 prompt is fed through the decode path one token at a time (teacher
 forcing: correct, though not the fast path; the bulk prefill is
@@ -29,8 +32,8 @@ from repro_torch.models import lm
 
 class BatchedServer:
     """Greedy batched decoding with a shared cache (``lm.init_cache``: k
-    and v linear, or a ring for a sliding-window layer, and the
-    recurrent layers' states)."""
+    and v linear, or a ring for a sliding-window layer, the recurrent
+    layers' states, and an encoder-decoder arch's cross k and v)."""
 
     def __init__(self, arch, model, max_seq: int):
         self.arch = arch
@@ -38,11 +41,18 @@ class BatchedServer:
         self.max_seq = max_seq
 
     @torch.inference_mode()
-    def generate(self, prompts: np.ndarray, gen_len: int) -> np.ndarray:
-        """prompts: (B, P) int32. Returns (B, gen_len) int32."""
+    def generate(self, prompts: np.ndarray, gen_len: int,
+                 extras=None) -> np.ndarray:
+        """prompts: (B, P) int32. Returns (B, gen_len) int32. With
+        ``extras["frames"]`` (B, encoder_seq, D) an encoder-decoder arch's
+        cross cache is filled from them first (the encoder runs, and K5
+        with it); without, it stays zeros, as ``repro``'s server leaves
+        it. Other extras (patches) are not decoded, as in ``repro``."""
         B, P = prompts.shape
         dev = self.model.embed.device
         cache = lm.init_cache(self.arch, B, self.max_seq, dev)
+        if extras and "frames" in extras and self.arch.is_encdec:
+            self.model.fill_cross_cache(cache, extras["frames"])
         toks = torch.as_tensor(np.asarray(prompts), device=dev)
         logits = None
         for t in range(P):
@@ -75,6 +85,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     arch = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
+    if arch.is_encdec:
+        raise SystemExit("use the audio pipeline for enc-dec archs")
     model = lm.init_params(arch, args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, arch.vocab_size,

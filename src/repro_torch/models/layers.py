@@ -1,7 +1,8 @@
 """Model layers (the port of ``repro/models/layers.py``): RMSNorm,
-rotary embeddings, GQA attention (full / sliding-window, the full-sequence
-path through ``flash_attention`` and the cached single-token decode path,
-whose sliding-window cache is a ring), the SwiGLU / 2-matrix MLP and the
+rotary embeddings, GQA attention (causal, sliding-window or
+bidirectional, self- or cross-attention: the full-sequence path through
+``flash_attention``, and the cached single-token decode path, whose
+sliding-window cache is a ring), the SwiGLU / 2-matrix MLP and the
 capacity-based top-k MoE.
 
 The arithmetic lives in plain functions that take tensors, as ``repro``'s
@@ -100,16 +101,27 @@ def project_qkv(p, x, n_heads, n_kv_heads, head_dim):
 
 
 def attention_train(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
-                    window: int = 0, causal: bool = True, positions=None):
+                    window: int = 0, causal: bool = True, positions=None,
+                    kv_override=None):
     """Full-sequence attention (training / prefill) through
-    ``flash_attention``. Returns (out, (k, v))."""
+    ``flash_attention``. Returns (out, (k, v)). ``kv_override`` supplies
+    (k, v) (B, Hkv, Sk, Dh) computed elsewhere (cross-attention): then
+    only q is projected, and no rope is applied. ``repro`` projects k and
+    v there too and drops them, so the values are the same."""
     B, S, _ = x.shape
-    q, k, v = project_qkv(p, x, n_heads, n_kv_heads, head_dim)
-    if rope_theta > 0:
-        if positions is None:
-            positions = torch.arange(S, device=x.device)
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+    if kv_override is not None:
+        q = x @ p["wq"]
+        if p.get("bq") is not None:
+            q = q + p["bq"]
+        q = q.reshape(B, S, n_heads, head_dim).transpose(1, 2)
+        k, v = kv_override
+    else:
+        q, k, v = project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+        if rope_theta > 0:
+            if positions is None:
+                positions = torch.arange(S, device=x.device)
+            q = apply_rope(q, positions, rope_theta)
+            k = apply_rope(k, positions, rope_theta)
     o = flash_attention(q, k, v, causal=causal, window=window)
     o = o.transpose(1, 2).reshape(B, S, n_heads * head_dim)
     return o @ p["wo"], (k, v)
@@ -152,15 +164,38 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, *, n_heads,
     return o @ p["wo"], cache_k, cache_v
 
 
+def cross_attention_decode(p, x, cross_k, cross_v, *, n_heads, n_kv_heads,
+                           head_dim, **_):
+    """One token's cross-attention over the cached k and v of the encoder
+    output, plain PyTorch with an f32 softmax (``repro``'s ``xattn``
+    step of ``_block_decode``; no kernel, no mask, no rope, no bias).
+    x: (B, 1, D); cross_k/v: (B, Hkv, Se, Dh). Returns (B, 1, D)."""
+    B = x.shape[0]
+    q = (x @ p["wq"]).reshape(B, 1, n_heads, head_dim).transpose(1, 2)
+    group = n_heads // n_kv_heads
+    scores = torch.einsum(
+        "bhqd,bhkd->bhqk", q.float(),
+        torch.repeat_interleave(cross_k.float(), group, dim=1)) \
+        / (head_dim ** 0.5)
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", probs,
+                     torch.repeat_interleave(cross_v.float(), group, dim=1))
+    o = o.to(x.dtype).transpose(1, 2).reshape(B, 1, n_heads * head_dim)
+    return o @ p["wo"]
+
+
 class Attention(nn.Module):
     """GQA attention weights: wq (D, H Dh), wk/wv (D, Hkv Dh), wo
     (H Dh, D), and bq/bk/bv with a QKV bias. ``window`` > 0 makes it
-    sliding-window attention, whose decode cache is a ring."""
+    sliding-window attention, whose decode cache is a ring;
+    ``causal=False`` makes its full-sequence pass bidirectional (an
+    encoder's, or cross-attention with ``kv``)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int, qkv_bias: bool, rope_theta: float, dtype,
-                 device=None, window: int = 0):
+                 device=None, window: int = 0, causal: bool = True):
         super().__init__()
+        self.causal = causal
         self.shape = dict(n_heads=n_heads, n_kv_heads=n_kv_heads,
                           head_dim=head_dim, rope_theta=rope_theta,
                           window=window)
@@ -176,12 +211,18 @@ class Attention(nn.Module):
     def params(self):
         return dict(self.named_parameters())
 
-    def forward(self, x):
-        return attention_train(self.params(), x, **self.shape)
+    def forward(self, x, kv=None):
+        """(out, (k, v)) over the sequence; ``kv`` is ``kv_override``."""
+        return attention_train(self.params(), x, causal=self.causal,
+                               kv_override=kv, **self.shape)
 
     def decode(self, x, cache_k, cache_v, pos: int):
         return attention_decode(self.params(), x, cache_k, cache_v, pos,
                                 **self.shape)
+
+    def cross_decode(self, x, cross_k, cross_v):
+        return cross_attention_decode(self.params(), x, cross_k, cross_v,
+                                      **self.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -12,13 +12,23 @@ is a block of kind ``arch.block_at(i)``, one of
     mlstm      the xLSTM matrix-memory cell, no MLP
     slstm      the xLSTM scalar-memory cell, no MLP  (xlstm-350m: both)
 
+An encoder-decoder arch (whisper-large-v3) adds an :class:`Encoder` of
+bidirectional ``attn_mlp`` blocks without rope over the frames plus a
+learned ``pos_embed``, and a cross-attention step (``norm_x``, ``xattn``)
+in each decoder block after its self-attention; its tokens take
+sinusoidal positions. A vision-stub arch (pixtral-12b) prepends the
+patch rows it is given to the embedded tokens.
+
     model = init_params(arch, seed=0)             # an LM on the card
     logits = model.forward(tokens)                # (B, M + S, V)
+    logits = model.forward(tokens, {"frames": f}) # whisper: f (B, Se, D)
+    logits = model.forward(tokens, {"patches": p})  # pixtral: (B, N + S, V)
     logits, aux = model.forward_aux(tokens)       # + the summed MoE aux
     loss = train_loss(model, {"tokens": tokens, "targets": targets},
                       remat="none")               # K5 runs here
     last = model.prefill(tokens)                  # (B, 1, V); K5 runs here
     cache = init_cache(arch, B, max_seq)
+    model.fill_cross_cache(cache, frames)         # whisper; K5 runs here
     logits, cache = model.decode_step(tok, cache, pos)
 
 ``repro`` scans stacked per-slot params over layer groups (for the TPU
@@ -45,15 +55,20 @@ window) for a sliding-window layer), the SSM state, the mLSTM state and
 normaliser, the sLSTM's c, n, h, m; the recurrent states in f32. The MoE
 routes the tokens of each call together: all B S of a prefill, the B of a
 decode step (at batch 8 a capacity of 4 a expert, so decode drops tokens
-a prefill would keep, as in ``repro``). Encoder-decoder archs and the
-modality frontends raise ``NotImplementedError``; so do ``repro``'s
-``shard_acts`` (no device mesh, ROADMAP Queue 1, item 7) and
-``unroll_layers`` (only the roofline's cost extraction needs it), which
-are not ported.
+a prefill would keep, as in ``repro``). An encoder-decoder arch's cache
+also holds each decoder layer's cross-attention k and v of the encoder
+output, ``repro``'s ``cache["cross"]``: zeros from ``init_cache`` (what
+``repro``'s server decodes against) until ``fill_cross_cache`` writes
+them; decode's cross-attention is plain PyTorch with an f32 softmax, as
+in ``repro``. As in ``repro`` too, decode carries no patches. ``repro``'s
+``shard_acts`` (no device mesh, ROADMAP Queue 1, item 7) raises
+``NotImplementedError``, and ``unroll_layers`` (only the roofline's cost
+extraction needs it) is not ported.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, List
 
 import torch
@@ -101,22 +116,42 @@ SSM_KINDS = ("mamba_mlp", "hybrid")
 WINDOWED_KINDS = ("swa_mlp", "moe", "hybrid")
 # An sLSTM layer's decode-cache entries, its state (c, n, h, m).
 SLSTM_STATE = ("slstm_c", "slstm_n", "slstm_h", "slstm_m")
+# An encoder-decoder arch's decode-cache entries: each decoder layer's
+# cross-attention k and v of the encoder output.
+CROSS = ("cross_k", "cross_v")
 
 
 def check_ported(arch: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
+    """Raise ``NotImplementedError`` for a block kind the port cannot
+    run."""
     for kind in arch.block_pattern:
         if kind not in PORTED_KINDS:
             raise NotImplementedError(
                 f"{arch.name}: block kind {kind!r} is not ported to "
                 f"repro_torch yet (only {', '.join(PORTED_KINDS)}; see "
                 f"ROADMAP Queue 1)")
-    if arch.is_encdec:
-        raise NotImplementedError(
-            f"{arch.name}: encoder-decoder archs are not ported yet")
-    if arch.frontend != "none":
-        raise NotImplementedError(
-            f"{arch.name}: frontend {arch.frontend!r} is not ported yet")
+
+
+def sinusoid(positions, d: int):
+    """``repro``'s ``_sinusoid``: for positions (S,), the f32 (S, d) rows
+    [sin(p f) | cos(p f)], concatenated (not interleaved), with f_i =
+    10000 ** (-i / (d / 2)), i < d / 2."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[:, None].float() * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def cross_kv(xattn: L.Attention, enc_out):
+    """``repro``'s ``_cross_kv``: the encoder output (B, Se, D) projected
+    by ``xattn``'s wk and wv to k and v (B, Hkv, Se, Dh), no rope; both
+    are transposed views of the projections."""
+    B, Se, _ = enc_out.shape
+    Hkv, Hd = xattn.shape["n_kv_heads"], xattn.shape["head_dim"]
+    k = (enc_out @ xattn.wk).reshape(B, Se, Hkv, Hd).transpose(1, 2)
+    v = (enc_out @ xattn.wv).reshape(B, Se, Hkv, Hd).transpose(1, 2)
+    return k, v
 
 
 def has_attention(arch: ArchConfig) -> bool:
@@ -143,9 +178,13 @@ class Block(nn.Module):
     ``norm1``, then ``attn`` (attention kinds) and / or ``ssm``
     (``mamba_mlp``, ``hybrid``), then ``norm2`` and the FFN, an ``MLP``
     (``mlp``) or, for ``moe``, an ``MoE`` (``moe``); an ``mlstm`` or
-    ``slstm`` block is ``norm1`` and its cell alone."""
+    ``slstm`` block is ``norm1`` and its cell alone. A decoder block of an
+    encoder-decoder arch adds ``norm_x`` and ``xattn`` (bidirectional,
+    no rope, no QKV bias); an ``encoder`` block's attention is
+    bidirectional and takes no rope, as ``_encoder_forward``'s."""
 
-    def __init__(self, arch: ArchConfig, kind: str, device=None):
+    def __init__(self, arch: ArchConfig, kind: str, device=None,
+                 encoder: bool = False):
         super().__init__()
         dt, D = arch.torch_dtype, arch.d_model
         self.kind = kind
@@ -153,8 +192,9 @@ class Block(nn.Module):
         if kind in ATTENTION_KINDS:
             self.attn = L.Attention(D, arch.n_heads, arch.n_kv_heads,
                                     arch.head_dim_, arch.qkv_bias,
-                                    arch.rope_theta, dt, device,
-                                    window=block_window(arch, kind))
+                                    0.0 if encoder else arch.rope_theta, dt,
+                                    device, window=block_window(arch, kind),
+                                    causal=not encoder)
         if kind in SSM_KINDS:
             self.ssm = R.SSMHeads(D, arch.ssm_heads or arch.n_heads,
                                   arch.ssm_state, dt, device)
@@ -170,6 +210,16 @@ class Block(nn.Module):
             else:
                 self.mlp = L.MLP(D, arch.d_ff, dt, device, arch.mlp_type,
                                  arch.act)
+        if arch.is_encdec and not encoder:
+            self.norm_x = L.RMSNorm(D, dt, device)
+            self.xattn = L.Attention(D, arch.n_heads, arch.n_kv_heads,
+                                     arch.head_dim_, False, 0.0, dt, device,
+                                     causal=False)
+
+    def _cross(self, x, enc_out):
+        """x plus the cross-attention of norm_x(x) over ``enc_out``."""
+        kv = cross_kv(self.xattn, enc_out)
+        return x + self.xattn(self.norm_x(x), kv=kv)[0]
 
     def _ffn(self, x):
         """(ffn(norm2 x), the MoE's aux or None)."""
@@ -178,8 +228,10 @@ class Block(nn.Module):
             return self.moe(h)
         return self.mlp(h), None
 
-    def forward(self, x):
-        """(x after the block, the MoE's aux or None)."""
+    def forward(self, x, enc_out=None):
+        """(x after the block, the MoE's aux or None); with ``enc_out``,
+        a decoder block's cross step runs after its self-attention (or
+        SSM) residual, before ``norm2``."""
         h = self.norm1(x)
         if self.kind == "mlstm":
             return x + self.mlstm(h)[0], None
@@ -191,6 +243,8 @@ class Block(nn.Module):
             x = x + self.ssm(h)[0]
         else:
             x = x + self.attn(h)[0]
+        if enc_out is not None and hasattr(self, "xattn"):
+            x = self._cross(x, enc_out)
         f, aux = self._ffn(x)
         return x + f, aux
 
@@ -217,14 +271,43 @@ class Block(nn.Module):
             cache["ssm_state"][i].copy_(state)
             a = 0.5 * (a + s) if self.kind == "hybrid" else s
         x = x + a
+        if hasattr(self, "xattn"):
+            x = x + self.xattn.cross_decode(self.norm_x(x),
+                                            cache["cross_k"][i],
+                                            cache["cross_v"][i])
         return x + self._ffn(x)[0]
+
+
+class Encoder(nn.Module):
+    """The encoder of an encoder-decoder arch, ``repro``'s ``encoder``
+    leaves and ``_encoder_forward``: ``layers.{j}`` (``attn_mlp``
+    blocks, bidirectional, no rope, no cross step), ``pos_embed``
+    (encoder_seq, D), added to the frames, and ``final_norm``."""
+
+    def __init__(self, arch: ArchConfig, device=None):
+        super().__init__()
+        dt, D = arch.torch_dtype, arch.d_model
+        self.layers = nn.ModuleList(
+            Block(arch, "attn_mlp", device, encoder=True)
+            for _ in range(arch.encoder_layers))
+        self.final_norm = L.RMSNorm(D, dt, device)
+        self.pos_embed = L.empty_param((arch.encoder_seq, D), dt, device)
+
+    def forward(self, frames, remat: str = "none"):
+        """frames (B, encoder_seq, D), cast to the model dtype -> the
+        encoder output (B, encoder_seq, D); each block under ``remat``."""
+        x = frames.to(self.pos_embed.dtype) + self.pos_embed[None]
+        for blk in self.layers:
+            x = _checkpointed(blk, x, remat)[0]
+        return self.final_norm(x)
 
 
 class LM(nn.Module):
     """Parameters under ``repro``'s names: ``embed`` (V, D),
     ``layers.{i}.*`` (see :class:`Block`), ``final_norm.scale``,
-    ``unembed`` (D, V) (absent with tied embeddings) and ``meta`` (M, D)
-    with M = ``arch.meta_tokens`` > 0."""
+    ``unembed`` (D, V) (absent with tied embeddings), ``meta`` (M, D)
+    with M = ``arch.meta_tokens`` > 0 and, for an encoder-decoder arch,
+    ``encoder.*`` (see :class:`Encoder`)."""
 
     def __init__(self, arch: ArchConfig, device=None):
         super().__init__()
@@ -239,11 +322,23 @@ class LM(nn.Module):
             self.unembed = L.empty_param((D, V), dt, device)
         if arch.meta_tokens:
             self.meta = L.empty_param((arch.meta_tokens, D), dt, device)
+        if arch.is_encdec:
+            self.encoder = Encoder(arch, device)
 
-    def _embed(self, tokens, prefix: bool = True):
-        """The tokens' embedding rows, after the ``meta`` rows broadcast
-        over the batch where the arch has them and ``prefix`` is set."""
+    def _embed(self, tokens, extras=None, pos0: int = 0,
+               prefix: bool = True):
+        """The tokens' embedding rows plus the sinusoid at positions pos0
+        + [0, S) where the arch takes sinusoidal positions; then, where
+        ``prefix`` is set, ``extras["patches"]`` prepended for a
+        vision-stub arch, then the ``meta`` rows broadcast over the batch
+        where the arch has them (``repro``'s ``_embed``, in its order)."""
         x = self.embed[tokens.long()]
+        if self.arch.pos_embed == "sinusoidal":
+            pos = pos0 + torch.arange(tokens.shape[1], device=x.device)
+            x = x + sinusoid(pos, self.arch.d_model)[None].to(x.dtype)
+        if prefix and self.arch.frontend == "vision_stub" and extras \
+                and "patches" in extras:
+            x = torch.cat([extras["patches"].to(x.dtype), x], dim=1)
         if prefix and self.arch.meta_tokens:
             meta = self.meta[None].expand(x.shape[0], -1, -1)
             x = torch.cat([meta.to(x.dtype), x], dim=1)
@@ -254,42 +349,72 @@ class LM(nn.Module):
         unembed = self.embed.T if self.arch.tie_embeddings else self.unembed
         return x @ unembed
 
-    def _hidden(self, tokens, remat: str = "none"):
+    def _hidden(self, tokens, extras=None, remat: str = "none"):
         """(last hidden state, the MoE layers' aux summed in f32)."""
-        x = self._embed(tokens)
+        extras = {k: torch.as_tensor(v, device=self.embed.device)
+                  for k, v in (extras or {}).items()}
+        enc_out = None
+        if self.arch.is_encdec:
+            if "frames" not in extras:
+                raise ValueError(
+                    f"{self.arch.name} is an encoder-decoder arch: its "
+                    f"forward needs extras['frames'] (B, "
+                    f"{self.arch.encoder_seq}, {self.arch.d_model})")
+            enc_out = self.encoder(extras["frames"], remat)
+        x = self._embed(tokens, extras)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
-            x, a = _checkpointed(blk, x, remat)
+            fn = blk if enc_out is None else functools.partial(
+                blk, enc_out=enc_out)
+            x, a = _checkpointed(fn, x, remat)
             if a is not None:
                 aux = aux + a
         return x, aux
 
-    def forward_aux(self, tokens, remat: str = "none"):
-        """Full-sequence forward: tokens (B, S) -> (logits (B, M + S, V),
-        aux), M the arch's meta tokens (0 but for hymba), each block under
-        the checkpointing policy ``remat`` (one of :data:`REMAT`); aux is
-        the sum of the MoE layers' load-balancing losses (0 without MoE
-        layers), as ``repro``'s ``forward`` returns it."""
-        x, aux = self._hidden(tokens, remat)
+    def forward_aux(self, tokens, extras=None, remat: str = "none"):
+        """Full-sequence forward: tokens (B, S) and ``extras``
+        (``{"frames": (B, encoder_seq, D)}`` for an encoder-decoder arch,
+        ``{"patches": (B, N, D)}`` for a vision-stub arch, else none) ->
+        (logits (B, N + M + S, V), aux), N the patch rows and M the arch's
+        meta tokens (0 but for hymba), each block under the checkpointing
+        policy ``remat`` (one of :data:`REMAT`); aux is the sum of the MoE
+        layers' load-balancing losses (0 without MoE layers), as
+        ``repro``'s ``forward`` returns it."""
+        x, aux = self._hidden(tokens, extras, remat)
         return self._logits(x), aux
 
-    def forward(self, tokens, remat: str = "none"):
+    def forward(self, tokens, extras=None, remat: str = "none"):
         """``forward_aux``'s logits alone."""
-        return self.forward_aux(tokens, remat)[0]
+        return self.forward_aux(tokens, extras, remat)[0]
 
-    def prefill(self, tokens):
-        """Forward over the prompt -> the last position's logits (B, 1, V).
-        Only that position is normed and unembedded: the values are
-        ``forward``'s, without the (B, S, V) logits."""
-        return self._logits(self._hidden(tokens)[0][:, -1:])
+    def prefill(self, tokens, extras=None):
+        """Forward over the prompt (and ``extras``) -> the last position's
+        logits (B, 1, V). Only that position is normed and unembedded: the
+        values are ``forward``'s, without the (B, S, V) logits."""
+        return self._logits(self._hidden(tokens, extras)[0][:, -1:])
+
+    def fill_cross_cache(self, cache: Dict[str, List], frames):
+        """Runs the encoder over ``frames`` (B, encoder_seq, D) and writes
+        each decoder layer's cross-attention k and v of its output
+        (``cross_kv``) into ``cache["cross_k"]`` / ``["cross_v"]`` IN
+        PLACE: what ``repro``'s ``decode_step`` reads from
+        ``cache["cross"]``. Returns ``cache``."""
+        enc_out = self.encoder(torch.as_tensor(frames,
+                                               device=self.embed.device))
+        for i, blk in enumerate(self.layers):
+            k, v = cross_kv(blk.xattn, enc_out)
+            cache["cross_k"][i].copy_(k)
+            cache["cross_v"][i].copy_(v)
+        return cache
 
     def decode_step(self, tokens, cache: Dict[str, List[torch.Tensor]],
                     pos: int):
         """One decode step: tokens (B, 1) at position ``pos`` against
         ``cache`` (from ``init_cache``), which is updated IN PLACE; an
-        MoE layer routes the B tokens together. Returns (logits (B, 1,
-        V), cache)."""
-        x = self._embed(tokens, prefix=False)
+        MoE layer routes the B tokens together; an encoder-decoder arch's
+        layers attend to their ``cross_k`` / ``cross_v``. Returns (logits
+        (B, 1, V), cache)."""
+        x = self._embed(tokens, pos0=pos, prefix=False)
         for i, blk in enumerate(self.layers):
             x = blk.decode(x, cache, i, pos)
         return self._logits(x), cache
@@ -299,13 +424,15 @@ def train_loss(model: LM, batch: Dict, aux_weight: float = 0.01,
                remat: str = "none", shard_acts: bool = False):
     """The mean next-token cross-entropy of ``batch`` (``{"tokens": (B,
     S), "targets": (B, S)}``, tensors or numpy arrays, moved to the
-    model's device), as ``repro``'s ``train_loss`` computes it: f32
-    logits, logsumexp minus the gold logit, the mean. The gold logit is a
-    ``torch.gather``, the same function as ``repro``'s masked reduction
-    over the vocabulary (which exists for a sharded vocabulary, which the
-    port does not have). Plus ``aux_weight`` times the MoE layers' summed
-    load-balancing loss (0 without MoE layers), as in ``repro``. The
-    meta-token positions that ``forward`` prepends carry no loss."""
+    model's device; every other key, ``frames`` or ``patches``, goes to
+    the forward as an extra), as ``repro``'s ``train_loss`` computes it:
+    f32 logits, logsumexp minus the gold logit, the mean. The gold logit
+    is a ``torch.gather``, the same function as ``repro``'s masked
+    reduction over the vocabulary (which exists for a sharded vocabulary,
+    which the port does not have). Plus ``aux_weight`` times the MoE
+    layers' summed load-balancing loss (0 without MoE layers), as in
+    ``repro``. The positions that ``forward`` prepends (patches, meta
+    tokens) carry no loss."""
     if shard_acts:
         raise NotImplementedError(
             "shard_acts needs a device mesh, which the port does not have "
@@ -313,7 +440,9 @@ def train_loss(model: LM, batch: Dict, aux_weight: float = 0.01,
     dev = model.embed.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev).long()
-    logits, aux = model.forward_aux(tokens, remat=remat)
+    extras = {k: v for k, v in batch.items()
+              if k not in ("tokens", "targets")}
+    logits, aux = model.forward_aux(tokens, extras, remat=remat)
     logits = logits[:, logits.shape[1] - targets.shape[1]:].float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
@@ -330,8 +459,9 @@ def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:
     f32 times fan_in ** -0.5 for the dense matrices (shape[0]; the MoE
     router and the recurrent gates' f32 matrices), shape[1] ** -0.5 for the
     (E, ., .) expert weights, dh ** -0.5 for the sLSTM's (H, dh, dh)
-    recurrent ``r_*``, 0.02 for ``embed`` and ``meta``, d_model ** -0.5
-    for ``unembed``, then cast to each parameter's dtype; norm scales 1,
+    recurrent ``r_*``, 0.02 for ``embed``, ``meta`` and
+    ``encoder.pos_embed``, d_model ** -0.5 for ``unembed``, then cast to
+    each parameter's dtype; norm scales 1,
     QKV biases 0, the SSM decay bias ``b_decay`` 2 and the mLSTM forget
     bias ``b_f`` 3, as ``repro``'s inits fill them. (Not
     ``jax.random``'s numbers: weights cross from ``repro`` through
@@ -357,6 +487,7 @@ def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:
                 else:
                     fan_in = p.shape[0]
                 std = {"embed": 0.02, "meta": 0.02,
+                       "encoder.pos_embed": 0.02,
                        "unembed": arch.d_model ** -0.5}.get(
                     name, fan_in ** -0.5)
                 p.copy_(torch.randn(p.shape, generator=gen, device=dev,
@@ -374,7 +505,10 @@ def init_cache(arch: ArchConfig, batch: int, seq_len: int,
     ring's min(seq_len, window); and, in f32, "ssm_state" (B, Hs,
     ssm_state, d_model / Hs), "mlstm_state" (B, H, head_dim, dh),
     "mlstm_norm" (B, H, head_dim) and "slstm_c" / "_n" / "_h" / "_m" (B,
-    H, dh), dh = d_model / H."""
+    H, dh), dh = d_model / H; for an encoder-decoder arch, "cross_k" and
+    "cross_v" (B, Hkv, encoder_seq, head_dim) in the config dtype on every
+    layer (``repro``'s ``cache["cross"]``; ``LM.fill_cross_cache`` fills
+    them)."""
     check_ported(arch)
     dev = resolve_device(device)
     H, Hd = arch.n_heads, arch.head_dim_
@@ -397,6 +531,10 @@ def init_cache(arch: ArchConfig, batch: int, seq_len: int,
         elif kind == "slstm":
             for name in SLSTM_STATE:
                 shapes[name] = ((batch, H, dh), f32)
+        if arch.is_encdec:
+            shapes["cross_k"] = shapes["cross_v"] = (
+                (batch, arch.n_kv_heads, arch.encoder_seq, Hd),
+                arch.torch_dtype)
         for name, (shape, dtype) in shapes.items():
             cache.setdefault(name, [None] * arch.n_layers)[i] = torch.zeros(
                 shape, dtype=dtype, device=dev)

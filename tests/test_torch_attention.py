@@ -12,6 +12,8 @@ path, the dispatch, the backward, and the wrapper's refusals.
 * Gradients of the port's flash_attention against jax.grad of repro's
   (interpret mode) at atol 2e-3, test_flash_attention_backward_matches_ref's
   bar.
+* A bidirectional call at ragged lengths runs (repro refuses it only on
+  its Pallas path) and equals repro's non-Pallas flash_attention.
 * The CUDA kernel runs only on a card: chip_smoke.py holds it against the
   plain version there. Here the wrapper must refuse what it cannot launch.
 """
@@ -114,12 +116,18 @@ def test_cpu_dispatch_takes_chunked_path_from_threshold(monkeypatch):
 
 
 def test_bidirectional_ragged_lengths_raise():
+    """repro's Pallas path (interpret mode) refuses a bidirectional call
+    at 200 x 200, since its padding would unmask keys; its non-Pallas path
+    runs it, and so does the port (whose kernel pads nothing): the port's
+    plain path equals repro's there (f32, atol 2e-3)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 200, 200, 32))
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
     with pytest.raises(ValueError, match="bidirectional"):
-        flash_attention(q, k, v, causal=False)
-    with pytest.raises(ValueError, match="bidirectional"):
-        j_flash(*(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=False,
-                interpret=True)
+        j_flash(jq, jk, jv, causal=False, interpret=True)
+    got = flash_attention(q, k, v, causal=False)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(j_flash(jq, jk, jv, causal=False)),
+                               atol=2e-3)
     flash_attention(q, k, v, causal=True)           # causal: fine
     flash_attention(q, k, v, causal=False, window=16)
 

@@ -12,12 +12,13 @@ the same numpy inputs and weights.
   equal to repro's; at bf16 the logits within repro's own train/serve
   bar (atol 0.12, rtol 0.05).
 * The port's own decode-vs-forward consistency, init_params' names,
-  shapes and dtypes against repro's param_specs, the refusals (no card,
-  encoder-decoder, the vision frontend), the recurrent kinds building,
-  the kernel's head dimensions against every ported arch with attention,
-  and the serving CLI. The MoE and sliding-window blocks are held to
-  repro in test_torch_moe.py, the recurrent ones in
-  test_torch_recurrent.py.
+  shapes and dtypes against repro's param_specs, the refusal without a
+  card, the recurrent kinds, the encoder-decoder and the vision stub
+  building, the kernel's head dimensions against every ported arch with
+  attention, and the serving CLI. The MoE and sliding-window blocks are
+  held to repro in test_torch_moe.py, the recurrent ones in
+  test_torch_recurrent.py, the encoder-decoder and the vision stub in
+  test_torch_encdec.py.
 """
 import dataclasses
 
@@ -299,15 +300,32 @@ def test_recurrent_kinds_build_and_run(name, pattern, kind):
 @pytest.mark.parametrize("name,kind", [
     ("whisper-large-v3", "encoder-decoder"), ("pixtral-12b", "vision_stub")])
 def test_unported_archs_raise(name, kind):
-    with pytest.raises(NotImplementedError, match=kind):
-        lm.init_params(get_smoke_config(name), seed=0, device="cpu")
+    """The two archs once refused (the encoder-decoder, the vision stub)
+    now build and run a forward on the CPU with their extras (they are
+    held to repro in test_torch_encdec.py); none is refused any more."""
+    arch = get_smoke_config(name)
+    assert kind == ("encoder-decoder" if arch.is_encdec else arch.frontend)
+    model = lm.init_params(arch, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    extras = {"frames": rng.standard_normal(
+        (2, arch.encoder_seq, arch.d_model))} if arch.is_encdec else \
+        {"patches": rng.standard_normal((2, arch.n_patches, arch.d_model))}
+    toks = torch.as_tensor(_tokens(arch.vocab_size, S=8))
+    extras = {k: torch.as_tensor(v, dtype=torch.float32)
+              for k, v in extras.items()}
+    with torch.inference_mode():
+        logits = model.forward(toks, extras)
+    n_prefix = 0 if arch.is_encdec else arch.n_patches
+    assert logits.shape == (2, 8 + n_prefix, arch.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
 
 
 def test_flash_kernel_takes_every_ported_head_dim():
-    """The port runs the four dense archs, the two MoE archs, hymba and
-    xlstm; each with an attention block has a head dimension the card's
-    flash_attention kernel is built for, so its prefill launches there
-    (xlstm-350m has none, and launches no kernel)."""
+    """The port runs all ten archs: the four dense archs, the two MoE
+    archs, hymba, xlstm, whisper and pixtral; each with an attention
+    block has a head dimension the card's flash_attention kernel is built
+    for, so its prefill launches there (xlstm-350m has none, and
+    launches no kernel)."""
     def runs(arch):
         try:
             lm.check_ported(arch)
@@ -319,7 +337,7 @@ def test_flash_kernel_takes_every_ported_head_dim():
     assert sorted(a.name for a in ported) == sorted(
         ["llama3-8b", "tinyllama-1.1b", "qwen1.5-4b", "stablelm-12b",
          "mixtral-8x7b", "granite-moe-1b-a400m", "hymba-1.5b",
-         "xlstm-350m"])
+         "xlstm-350m", "whisper-large-v3", "pixtral-12b"])
     with_attention = [a for a in ported if lm.has_attention(a)]
     assert [a.name for a in ported if a not in with_attention] == \
         ["xlstm-350m"]

@@ -495,9 +495,8 @@ def test_recurrent_archs_are_ported():
     hymba, xlstm = get_config("hymba-1.5b"), get_config("xlstm-350m")
     assert lm.has_attention(hymba) and not lm.has_attention(xlstm)
     assert lm.cache_len(hymba, "hybrid", 8192) == 1024
-    for name in ("whisper-large-v3", "pixtral-12b"):
-        with pytest.raises(NotImplementedError):
-            lm.check_ported(get_config(name))
+    for name in ("whisper-large-v3", "pixtral-12b"):    # ported since
+        lm.check_ported(get_config(name))
 
 
 @pytest.mark.parametrize("name", RECURRENT)
