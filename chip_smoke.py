@@ -321,7 +321,25 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    pixtral-smoke serving prompt 40 + 16: the card's tokens equal the
    CPU's; (d) ``python -m repro_torch.launch.serve --arch pixtral-12b
    --smoke --prompt-len 40 --gen-len 16`` exits 0 on the card, and the
-   same for whisper-large-v3 exits 1 with repro's refusal.
+   same for whisper-large-v3 exits 1 with repro's refusal;
+20. (run after phase 16, before phase 15) the dry run against the card:
+   ``repro_torch.launch.dryrun.run_cell`` on a one-card mesh, on the meta
+   device, at the own arch and shape of five paths measured above (phase
+   8's llama3-8b prefill, 16 (a)'s tinyllama-1.1b training step, 17 (a)'s
+   mixtral-8x7b prefill at 16 layers, 19 (a)'s whisper prefill of 8
+   clips, 19 (b)'s pixtral-12b prefill; nothing is run again): the
+   argument bytes equal the bytes of the card's model, inputs and (the
+   training step) AdamW state exactly; the predicted peak (argument +
+   temp) within [0.8, 1.25] of the card's peak device memory in the
+   path's first run (what was allocated before it and is not the path's
+   taken out); at llama3-8b's prefill, the
+   ``analysis.record.Recorder``'s FLOPs of a prefill on the card (phase 8
+   counts one) equal the meta count exactly; the bound on ``HW_H100``,
+   its share of the measured time and model_flops / (s x peak) printed;
+   mixtral-8x7b's prefill_32k cell at full depth, and phase 17's path at
+   full depth, do not fit one card, and the path at 16 layers does; the
+   one-card ``DeviceMesh`` over NCCL at world size 1 places a tensor by
+   the port's partition specs.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
@@ -364,11 +382,22 @@ PROBE = {}
 LOCAL = {}
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, TF32 and bf16 on the dense tensor cores, and HBM3 bandwidth.
+# cores and TF32 on the dense tensor cores here; bf16 on the dense tensor
+# cores and HBM3 bandwidth from the port's roofline (``HW_H100``), which
+# the dry run (phase 20) reads too.
 F32_FLOPS = 67e12
 TF32_FLOPS = 494.7e12
-BF16_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
+if os.path.isdir(os.path.join(SRC, "repro_torch")):
+    sys.path.insert(0, SRC)
+    from repro_torch.roofline import HW_H100
+    BF16_FLOPS, HBM_BYTES_PER_S = HW_H100.peak_flops, HW_H100.hbm_bw
+# What phases 8, 16 (a), 17 (a) and 19 measured of each path, by arch
+# name, for phase 20: the arch and shape run, the steady seconds, the
+# peak device memory of the first run less what was allocated before it
+# that is not the path's ("peak"), the bytes of the model, its inputs and
+# (training) the AdamW state ("args"), and (phase 8) the Recorder's FLOPs
+# of a prefill on the card.
+MEASURED = {}
 
 M_EPS, N_EPS = 400_000, 2_000           # LIBSVM epsilon
 K0_ROUNDS = 33          # K0's dependent rounds: 32 power iterations + 1
@@ -3958,15 +3987,17 @@ def phase_prefill(arch, model):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     toks = torch.randint(0, arch.vocab_size, (B, S), generator=gen,
-                         device="cuda")
+                         device="cuda", dtype=torch.int32)
     with torch.no_grad():
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         logits = model.prefill(toks)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
+        measured = measured_peak(before, path_bytes(model, toks))
         got = read_counts()
         routes = dict(flash_attention.route_launches)
         want = dict.fromkeys(got, 0)
@@ -3993,6 +4024,9 @@ def phase_prefill(arch, model):
         med = sorted(walls)[1]
         log(f"  steady prefills: {' '.join(f'{w:.4f}' for w in walls)} s "
             f"(median {med:.4f} s, {B * S / med:.1f} tokens/s)")
+        measured["card_flops"] = recorded_flops(lambda: model.prefill(toks))
+        MEASURED[arch.name] = dict(measured, arch=arch, seconds=med,
+                                   shape=path_shape(toks))
 
         timer = PhaseTimer()
         patches = [(L, "flash_attention", "kernel"),
@@ -4294,12 +4328,61 @@ def prefill_inputs(arch, B, S, gen, dtype=None):
     dtype = dtype or arch.torch_dtype
     n = min(arch.n_patches, S // 4) if arch.frontend == "vision_stub" else 0
     toks = torch.randint(0, arch.vocab_size, (B, S - n), generator=gen,
-                         device="cuda")
+                         device="cuda", dtype=torch.int32)
     rows = {"frames": arch.encoder_seq if arch.is_encdec else 0,
             "patches": n}
     return toks, {k: torch.randn(B, r, arch.d_model, generator=gen,
                                  device="cuda").to(dtype)
                   for k, r in rows.items() if r}
+
+
+def path_bytes(*parts) -> int:
+    """Bytes of the tensors of ``parts``: modules (their parameters),
+    tensors, and dicts, lists or tuples of them (an AdamW state)."""
+    import torch
+    total = 0
+    for p in parts:
+        if isinstance(p, torch.nn.Module):
+            total += path_bytes(*p.parameters())
+        elif isinstance(p, torch.Tensor):
+            total += p.numel() * p.element_size()
+        elif isinstance(p, dict):
+            total += path_bytes(*p.values())
+        elif isinstance(p, (list, tuple)):
+            total += path_bytes(*p)
+    return total
+
+
+def measured_peak(before: int, resident: int) -> dict:
+    """The path's peak device memory since the last reset of the peak
+    statistics: the peak less what was allocated at ``before`` that is not
+    the path's (``before`` less its ``resident`` bytes: the model, its
+    inputs, the AdamW state); and ``args``, those resident bytes."""
+    import torch
+    other = before - resident
+    return {"peak": torch.cuda.max_memory_allocated() - other,
+            "args": resident, "other": other}
+
+
+def path_shape(toks, extras=None):
+    """The ``ShapeConfig`` of a prefill's inputs, as ``input_specs`` splits
+    it (a vision-stub arch's patch rows count in its length)."""
+    from repro_torch.configs import ShapeConfig
+    patches = (extras or {}).get("patches")
+    n = 0 if patches is None else patches.shape[1]
+    return ShapeConfig("prefill_32k", "prefill", toks.shape[1] + n,
+                       toks.shape[0])
+
+
+def recorded_flops(fn) -> float:
+    """The FLOPs ``analysis.record.Recorder`` counts of one ``fn()`` on
+    the card (products at dispatch, K5 by its seam's event)."""
+    import torch
+    from repro_torch.analysis.record import Recorder
+    with torch.no_grad(), Recorder() as rec:
+        fn()
+    torch.cuda.synchronize()
+    return sum(t.flops for t in rec.spans())
 
 
 def counted_prefill(arch, model, toks, extras=None, want_k5=None,
@@ -4322,10 +4405,12 @@ def counted_prefill(arch, model, toks, extras=None, want_k5=None,
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         logits = model.prefill(toks, extras)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
+        measured = measured_peak(before, path_bytes(model, toks, extras))
         got = read_counts()
         routes = dict(flash_attention.route_launches)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4364,6 +4449,8 @@ def counted_prefill(arch, model, toks, extras=None, want_k5=None,
         frames = f", {n_frames / med:.1f} frames/s"
     log(f"  steady prefills: {' '.join(f'{w:.4f}' for w in walls)} s "
         f"(median {med:.4f} s, {tokens / med:.1f} tokens/s{frames})")
+    MEASURED[arch.name] = dict(measured, arch=arch, seconds=med,
+                               shape=path_shape(toks, extras))
     return got["flash_attention"], med
 
 
@@ -4395,7 +4482,7 @@ def moe_prefill(arch, model):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     toks = torch.randint(0, arch.vocab_size, (PREFILL_B, PREFILL_S),
-                         generator=gen, device="cuda")
+                         generator=gen, device="cuda", dtype=torch.int32)
     launches, med = counted_prefill(arch, model, toks,
                                     want_k5=arch.n_layers)
     with torch.no_grad():
@@ -5543,6 +5630,7 @@ def train_step_split(timer, k: int, layers: int, n: int):
 
 def phase_train_full():
     """Phase 16 (a): full-width, full-depth tinyllama-1.1b training."""
+    import dataclasses
     import shutil
     import tempfile
     import torch
@@ -5627,6 +5715,8 @@ def phase_train_full():
             setattr(o, a, fn)
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        resident = path_bytes(model, tr.opt_state)
         try:
             with linalg.count_reductions() as red, \
                     CallTimes(ckpt, "save_checkpoint") as save, \
@@ -5639,6 +5729,7 @@ def phase_train_full():
                 setattr(o, a, fn)
         got, routes = read_counts(), dict(flash_attention.route_launches)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        measured = measured_peak(before, resident)
         per_step = arch.n_layers * k
         want = dict.fromkeys(got, 0)
         want["flash_attention"] = per_step * n
@@ -5660,6 +5751,12 @@ def phase_train_full():
             f"steady (median after the first) {steady:.4f} s, "
             f"{tokens / steady:.1f} tokens/s; peak device memory "
             f"{peak:.3f} GiB")
+        # the step's batch, tokens and targets (B, S) int32, is made in the
+        # step: in the peak, and an argument of the dry run's step.
+        MEASURED[arch.name] = dict(
+            measured, args=resident + 2 * B * S * 4, arch=arch,
+            seconds=steady, shape=dataclasses.replace(full, global_batch=B),
+            opts={"remat": tr.cfg.remat, "microbatches": k})
         ckpt_dir = os.path.join(tmp, f"step_{n:08d}")
         log(f"  the checkpoint at step {n}: {dir_bytes(ckpt_dir) / 1e9:.3f} "
             f"GB on disk; host copy {host_copy.seconds[-1]:.3f} s, write "
@@ -6016,6 +6113,136 @@ def phase_training():
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the dry run against the card.
+# ---------------------------------------------------------------------------
+
+# The paths phase 20 holds the dry run to, by the arch name each measured
+# path recorded in MEASURED: phase 8, 16 (a), 17 (a), 19 (a) and (b).
+DRY_PATHS = (LLAMA, "tinyllama-1.1b", "mixtral-8x7b", "whisper-large-v3",
+             "pixtral-12b")
+PEAK_RATIO = (0.8, 1.25)
+
+
+def phase_dryrun(smi: str):
+    """Phase 20: ``repro_torch.launch.dryrun.run_cell`` on a one-card mesh
+    at each measured path's own arch and shape (on the meta device, on
+    this machine's CPU): (a) its argument bytes equal the card's model,
+    inputs and AdamW state, exactly; (b) its predicted peak (argument +
+    temp) within PEAK_RATIO of the card's measured peak; (c) at llama3-8b's
+    prefill, the Recorder's FLOPs on the card equal the meta count
+    exactly; (d) the bound on HW_H100, its share of the measured time and
+    model_flops / (s x peak), printed; (e) mixtral-8x7b's prefill_32k cell
+    at full depth does not fit one card, nor its phase 17 path at full
+    depth, which at 16 layers does. Then the one-card ``DeviceMesh`` over
+    NCCL at world size 1 places a small tensor by the port's specs."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import distributed
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.roofline import HW_H100
+
+    t0 = time.perf_counter()
+    one = make_mesh((1, 1), ("data", "model"))
+    log(f"phase 20: the dry run on the meta device against the card's own "
+        f"runs ({smi}; HW_H100: {HW_H100.peak_flops / 1e12:.0f} TFLOP/s "
+        f"bf16, {HW_H100.hbm_bw / 1e12:.2f} TB/s, hbm_bytes "
+        f"{HW_H100.hbm_bytes}; the card reports "
+        f"{torch.cuda.get_device_properties(0).total_memory})")
+    rows = []
+    for name in DRY_PATHS:
+        got = MEASURED[name]
+        arch, shape = got["arch"], got["shape"]
+        opts = dryrun.DryrunOptions(cost_fit=False, **got.get("opts", {}))
+        t1 = time.perf_counter()
+        r = dryrun.run_cell(arch.name, shape.name, mesh=one, arch=arch,
+                            shape=shape, opts=opts, verbose=False)
+        if r["status"] != "ok":
+            raise AssertionError(f"phase 20: the dry run of {name} failed: "
+                                 f"{r.get('traceback')}")
+        mem, terms = r["memory"], r["roofline"]
+        ratio = mem["total_bytes"] / got["peak"]
+        sec = got["seconds"]
+        mfu = r["model_flops"] / (sec * HW_H100.peak_flops)
+        opts_note = f" {got['opts']}" if "opts" in got else ""
+        log(f"  {name} ({arch.n_layers} layers) {shape.kind} B "
+            f"{shape.global_batch} S {shape.seq_len}{opts_note}: "
+            f"(a) argument bytes {mem['argument_bytes']} predicted, "
+            f"{got['args']} on the card; (b) peak {mem['total_bytes']} B "
+            f"predicted (temp {mem['temp_bytes']}), {got['peak']} B "
+            f"measured ({got['other']} B allocated before it not the "
+            f"path's, taken out), ratio {ratio:.4f}; (d) bound "
+            f"{terms['bound_s'] * 1e3:.3f} ms by {terms['dominant']} "
+            f"(compute {terms['compute_s'] * 1e3:.3f}, memory "
+            f"{terms['memory_s'] * 1e3:.3f}), measured {sec * 1e3:.3f} ms: "
+            f"the bound's share {terms['bound_s'] / sec:.4f}; model_flops "
+            f"{r['model_flops']:.4e}: {mfu:.4f} of the peak; dry run "
+            f"{time.perf_counter() - t1:.1f} s")
+        if mem["argument_bytes"] != got["args"]:
+            raise AssertionError(f"phase 20 (a) {name}: argument bytes "
+                                 f"{mem['argument_bytes']} != {got['args']}")
+        if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+            raise AssertionError(f"phase 20 (b) {name}: peak ratio {ratio}")
+        if "card_flops" in got:
+            meta = r["per_device"]["flops_macs"]
+            log(f"  (c) {name}: the Recorder's FLOPs of a prefill on the "
+                f"card {got['card_flops']:.6e}, on the meta device "
+                f"{meta:.6e}")
+            if got["card_flops"] != meta:
+                raise AssertionError(f"phase 20 (c) {name}: card "
+                                     f"{got['card_flops']} != meta {meta}")
+        rows.append((name, terms["bound_s"] / sec, mfu))
+    if not any("card_flops" in MEASURED[n] for n in DRY_PATHS):
+        raise AssertionError("phase 20 (c): no path carried card FLOPs")
+
+    full = get_config("mixtral-8x7b")
+    path = MEASURED["mixtral-8x7b"]
+    fits = {}
+    for what, arch, shape in (
+            ("prefill_32k, full depth", full, SHAPES["prefill_32k"]),
+            ("prefill_32k, 16 layers", path["arch"], SHAPES["prefill_32k"]),
+            ("phase 17's path, full depth", full, path["shape"]),
+            ("phase 17's path, 16 layers", path["arch"], path["shape"])):
+        r = dryrun.run_cell(full.name, shape.name, mesh=one, arch=arch,
+                            shape=shape, opts=dryrun.DryrunOptions(
+                                cost_fit=False), verbose=False)
+        fits[what] = r["memory"]["fits_hbm"]
+        log(f"  (e) mixtral-8x7b {what} (B {shape.global_batch}, S "
+            f"{shape.seq_len}, {arch.n_layers} layers): "
+            f"{r['memory']['total_bytes'] / 1e9:.2f} GB predicted, fits_hbm "
+            f"{fits[what]}")
+    want = {"prefill_32k, full depth": False,
+            "phase 17's path, full depth": False,
+            "phase 17's path, 16 layers": True}
+    if any(fits[k] != v for k, v in want.items()):
+        raise AssertionError(f"phase 20 (e): fits_hbm {fits}, expected "
+                             f"{want}")
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{distributed.free_port()}",
+        world_size=1, rank=0)
+    try:
+        dm = one.device_mesh("cuda")
+        w = torch.arange(24, dtype=torch.float32, device="cuda").reshape(4, 6)
+        spec = sharding.param_partition_specs({"layers.0.attn.wq": w},
+                                              one)["layers.0.attn.wq"]
+        placed = sharding.named_shardings(None, {"wq": spec}, dm)["wq"]
+        d = distribute_tensor(w, dm, placed)
+        log(f"  the one-card DeviceMesh {dm}: spec {spec}, placements "
+            f"{d.placements}, local {tuple(d.to_local().shape)}")
+        if not torch.equal(d.to_local(), w):
+            raise AssertionError("phase 20: the placed tensor differs")
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 20 done in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: run it from the root of a checkout "
@@ -6075,6 +6302,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_row = phase_training()
     torch.cuda.empty_cache()
+    phase_dryrun(smi)
     phase_elastic()
 
     rows.update(svm_rows)

@@ -3,10 +3,11 @@
 
 Every architecture is a frozen ``ArchConfig``; every workload shape is a
 ``ShapeConfig``. The fields are ``repro``'s; ``torch_dtype`` takes the
-place of ``jnp_dtype``. ``repro``'s ``input_specs`` (ShapeDtypeStruct
-stand-ins for the TPU dry-run) and its analytical parameter counts
-(``param_count``, ``active_param_count``) are not ported: nothing in the
-port calls them yet.
+place of ``jnp_dtype``. ``input_specs(arch, shape)`` yields meta-device
+stand-ins for every model input of a workload (no allocation), which the
+dry run (``repro_torch.launch.dryrun``) runs against; ``param_count`` and
+``active_param_count`` are ``repro``'s analytical counts, formulas and
+approximations as they are.
 """
 from __future__ import annotations
 
@@ -75,6 +76,63 @@ class ArchConfig:
     def block_at(self, layer: int) -> str:
         return self.block_pattern[layer % len(self.block_pattern)]
 
+    # repro's analytical counts, kept as they are: a gated 3 D F MLP for
+    # every arch (whisper's 2 D F "mlp2" included) and an approximate
+    # xLSTM cell; ``lm.param_count`` counts the leaves.
+    def param_count(self) -> int:
+        """Analytical parameter count (embeddings included)."""
+        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        Hd = self.head_dim_
+        qkv = D * (self.n_heads * Hd) + 2 * D * (self.n_kv_heads * Hd) \
+            + (self.n_heads * Hd) * D
+        mlp = 3 * D * F                          # gate/up/down (SwiGLU)
+        total = 0
+        for layer in range(self.n_layers):
+            blk = self.block_at(layer)
+            if blk in ("attn_mlp", "swa_mlp"):
+                total += qkv + mlp
+            elif blk == "moe":
+                total += qkv + self.n_experts * 3 * D * F + D * self.n_experts
+            elif blk == "mamba_mlp":
+                total += self._ssm_params() + mlp
+            elif blk == "hybrid":
+                total += qkv + self._ssm_params() + mlp
+            elif blk in ("mlstm", "slstm"):
+                total += self._xlstm_params(blk)
+            total += 2 * D                       # two norms
+        total += V * D                           # embed
+        if not self.tie_embeddings:
+            total += D * V                       # unembed
+        if self.is_encdec:
+            enc = self.encoder_layers * (qkv + mlp + 2 * D)
+            cross = self.n_layers * (qkv + D)    # cross-attn per dec layer
+            total += enc + cross
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        D, F = self.d_model, self.d_ff
+        inactive = (self.n_experts - self.top_k) * 3 * D * F
+        n_moe_layers = sum(1 for layer in range(self.n_layers)
+                           if self.block_at(layer) == "moe")
+        return self.param_count() - n_moe_layers * inactive
+
+    def _ssm_params(self) -> int:
+        H = self.ssm_heads or self.n_heads
+        dk = self.ssm_state
+        dv = self.d_model // H
+        D = self.d_model
+        return D * H * (2 * dk + 2 * dv) + H * dv * D   # q,k,v,gate + out
+
+    def _xlstm_params(self, kind: str) -> int:
+        D = self.d_model
+        if kind == "mlstm":
+            up = 2 * D
+            return D * up * 2 + up * D + 4 * up * up // 4
+        return 4 * D * D + 4 * D * D // 4               # slstm approx
+
 
 # ---------------------------------------------------------------------------
 # Shape configs
@@ -95,3 +153,49 @@ SHAPES: Dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
 }
 
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig,
+                device="meta") -> Dict[str, object]:
+    """Stand-ins for every model input of this workload, ``repro``'s
+    shapes and dtypes, zeros on ``device`` (on the meta device nothing is
+    allocated):
+
+    train:   {tokens, targets [, frames | patches]}
+    prefill: {tokens [, frames | patches]}
+    decode:  {tokens (B, 1), cache, pos (a 0-dim int32) [, frames]}
+
+    The decode cache is the port's layout, ``lm.init_cache``'s {entry:
+    one tensor a layer}, where ``repro`` stacks each slot's layers.
+    """
+    from repro_torch.core.types import resolve_device
+    dev = resolve_device(device)
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    dt = arch.torch_dtype
+
+    def zeros(dims, dtype):
+        return torch.zeros(dims, dtype=dtype, device=dev)
+
+    extras: Dict[str, object] = {}
+    text_len = S
+    if arch.frontend == "vision_stub" and shape.kind != "decode":
+        n_patch = min(arch.n_patches, S // 4)
+        text_len = S - n_patch
+        extras["patches"] = zeros((B, n_patch, arch.d_model), dt)
+    if arch.frontend == "audio_stub":
+        extras["frames"] = zeros((B, arch.encoder_seq, arch.d_model), dt)
+
+    if shape.kind == "train":
+        return {"tokens": zeros((B, text_len), i32),
+                "targets": zeros((B, text_len), i32), **extras}
+    if shape.kind == "prefill":
+        return {"tokens": zeros((B, text_len), i32), **extras}
+    # decode: one new token against a cache of length S.
+    from repro_torch.models import lm as lm_lib     # deferred, avoids cycle
+    out = {"tokens": zeros((B, 1), i32),
+           "cache": lm_lib.init_cache(arch, B, S, device=dev),
+           "pos": zeros((), i32)}
+    if arch.frontend == "audio_stub":
+        # cross-attention reads the (stub) encoder output each step.
+        out["frames"] = extras["frames"]
+    return out

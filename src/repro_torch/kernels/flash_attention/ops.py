@@ -17,6 +17,14 @@ first (``_readable``), and the kernel runs on the copy. Backward: the
 plain version's VJP, as ``repro``'s ``_flash_bwd``; no backward kernel
 exists there. ``flash_attention.launches`` counts kernel launches and
 ``flash_attention.route_launches`` the launches of each body.
+
+``flash_attention`` is a kernel seam (``repro_torch.seams``): a recorder
+sees one event a call, whose flops are ``repro``'s cost-exact count,
+4 B Hq D Sq Sk (the QK^T and PV products over every query-key pair,
+masked pairs included), whatever path the call takes. On a meta tensor
+(the dry run, ``repro_torch.launch.dryrun``) the forward makes its output
+and computes nothing; the backward there is the same plain VJP as on the
+card, so a dry-run training step carries that VJP's work and memory.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import ctypes
 
 import torch
 
+from repro_torch import seams
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -98,8 +107,9 @@ def _launch(q, k, v, causal: bool, window: int, scale: float,
     taking turns: ``chip_smoke.py`` times both beside the default that
     way."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, not "
-                         f"{q.device}")
+        raise ValueError(f"flash_attention's kernel runs on cuda tensors "
+                         f"(cpu takes the plain version, meta a shape-only "
+                         f"output), not {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention's kernel takes float32 or "
                         f"bfloat16, not {q.dtype}")
@@ -131,7 +141,8 @@ def _launch(q, k, v, causal: bool, window: int, scale: float,
 
 
 class _Flash(torch.autograd.Function):
-    """Kernel (CUDA) or plain (CPU) forward; the plain version's VJP."""
+    """Kernel (CUDA), plain (CPU) or shape-only (meta) forward; the plain
+    version's VJP."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -140,6 +151,8 @@ class _Flash(torch.autograd.Function):
         if q.device.type == "cpu":
             return _ref.attention_ref(q, k, v, causal=causal, window=window,
                                       scale=scale)
+        if q.device.type == "meta":
+            return torch.empty(q.shape, dtype=q.dtype, device=q.device)
         return _launch(q, k, v, causal, window, scale)
 
     @staticmethod
@@ -195,6 +208,20 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.cat(chunks, dim=3).reshape(B, Hq, Sq, D)
 
 
+def _event(q, k, v, **_):
+    """The seam event of one call: 4 B Hq D Sq Sk flops and, off the CPU,
+    the body ``dispatch.flash_attention_route`` picks (the card's, which
+    the dry run's meta tensors stand for)."""
+    B, Hq, Sq, D = q.shape
+    route = "plain" if q.device.type == "cpu" \
+        else dispatch.flash_attention_route(q.dtype, D)
+    return seams.KernelEvent(
+        "flash_attention", "flash_attention",
+        tuple(tuple(t.shape) for t in (q, k, v)), q.dtype, q.dtype, route,
+        4.0 * B * Hq * D * Sq * k.shape[2])
+
+
+@seams.kernel_seam(_event)
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None):
     """Blocked GQA attention. q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) ->

@@ -12,9 +12,11 @@ under ``repro``'s names and call them. Matmuls run in the config dtype
 f32 and cast back, at the same points as ``repro``. The MoE is plain
 PyTorch, as ``repro``'s is plain ``jnp`` outside any Pallas kernel: its
 expert products are three ``torch.bmm`` over (E, C, D) buffers. Not
-ported: ``maybe_shard`` and the MoE's expert-parallel buffer sharding (no
-device mesh yet), and the perf flags (``DECODE_GROUPED_GQA`` stays at its
-default, the repeat of the cache's heads; ``MOE_BUF_2D`` only shards).
+ported: ``maybe_shard`` and the MoE's expert-parallel buffer sharding
+(ROADMAP Queue 1, item 7: ``repro_torch.parallel`` describes the specs,
+no model code runs them), and the perf flags (``DECODE_GROUPED_GQA``
+stays at its default, the repeat of the cache's heads; ``MOE_BUF_2D``
+only shards).
 """
 from __future__ import annotations
 

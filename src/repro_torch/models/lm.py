@@ -60,10 +60,16 @@ also holds each decoder layer's cross-attention k and v of the encoder
 output, ``repro``'s ``cache["cross"]``: zeros from ``init_cache`` (what
 ``repro``'s server decodes against) until ``fill_cross_cache`` writes
 them; decode's cross-attention is plain PyTorch with an f32 softmax, as
-in ``repro``. As in ``repro`` too, decode carries no patches. ``repro``'s
-``shard_acts`` (no device mesh, ROADMAP Queue 1, item 7) raises
-``NotImplementedError``, and ``unroll_layers`` (only the roofline's cost
-extraction needs it) is not ported.
+in ``repro``. As in ``repro`` too, decode carries no patches.
+``param_specs`` gives the parameters on the meta device and
+``param_count`` counts the leaves, for the dry run
+(``repro_torch.launch.dryrun``; ``init_cache(..., device="meta")`` is
+``repro``'s ``cache_specs``). ``repro``'s ``shard_acts`` raises
+``NotImplementedError``: the port's sharding rules
+(``repro_torch.parallel``) describe a mesh, but no model code runs tensor
+or expert parallelism or ``shard_acts`` yet (ROADMAP Queue 1, item 7).
+``unroll_layers`` is not ported: a layer here is a module, and the dry
+run counts each one as it runs.
 """
 from __future__ import annotations
 
@@ -435,8 +441,8 @@ def train_loss(model: LM, batch: Dict, aux_weight: float = 0.01,
     tokens) carry no loss."""
     if shard_acts:
         raise NotImplementedError(
-            "shard_acts needs a device mesh, which the port does not have "
-            "(ROADMAP Queue 1, item 7)")
+            "shard_acts (sequence-parallel activations over a mesh's 'model' "
+            "axis) is not ported (ROADMAP Queue 1, item 7)")
     dev = model.embed.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev).long()
@@ -539,3 +545,17 @@ def init_cache(arch: ArchConfig, batch: int, seq_len: int,
             cache.setdefault(name, [None] * arch.n_layers)[i] = torch.zeros(
                 shape, dtype=dtype, device=dev)
     return cache
+
+
+def param_specs(arch: ArchConfig) -> LM:
+    """An :class:`LM` of ``arch`` on the meta device: every parameter's
+    name, shape and dtype, nothing allocated (``repro``'s
+    ``param_specs``)."""
+    return LM(arch, torch.device("meta"))
+
+
+def param_count(arch: ArchConfig, include_embed: bool = True) -> int:
+    """The parameters of ``arch``'s leaves; without ``embed`` and
+    ``unembed`` when ``include_embed`` is False (``repro``'s)."""
+    return sum(p.numel() for name, p in param_specs(arch).named_parameters()
+               if include_embed or name not in ("embed", "unembed"))

@@ -10,8 +10,8 @@ tensors and each product rounds where ``repro``'s does. The update runs
 in place, one leaf at a time, so its f32 temporaries are one leaf's size.
 
 A tree is a dict or a list of tensors (the trainer passes the model's
-``named_parameters`` as a dict). ``repro``'s ``state_specs`` needs a
-device mesh and is not ported (ROADMAP Queue 1, item 7).
+``named_parameters`` as a dict). ``state_specs`` gives the state's
+partition specs (``repro_torch.parallel.sharding``) from the parameters'.
 """
 from __future__ import annotations
 
@@ -71,6 +71,12 @@ class AdamW:
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=first.device),
             mu=_map(zeros, params), nu=_map(zeros, params))
+
+    def state_specs(self, param_specs_tree) -> AdamWState:
+        """PartitionSpecs for the state, mirroring the param specs."""
+        from repro_torch.parallel.sharding import P
+        return AdamWState(step=P(), mu=param_specs_tree,
+                          nu=_map(lambda s: s, param_specs_tree))
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params

@@ -25,9 +25,10 @@ collective. With ``group=None`` one process trains on the whole batch and
 nothing is reduced. Only the lowest rank in use writes checkpoints; every
 rank reads the one directory (a shared filesystem across machines).
 
-Not ported: tensor parallelism (``model_axis > 1``, ``repro``'s
-``parallel/sharding.py``) and ``shard_acts``, which need a device mesh
-(ROADMAP Queue 1, item 7); both raise ``NotImplementedError``.
+Not ported (ROADMAP Queue 1, item 7): tensor parallelism (``model_axis >
+1``), expert parallelism and ``shard_acts``. ``repro_torch.parallel``
+gives their partition specs, but no model code runs them; ``model_axis >
+1`` and ``shard_acts`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -55,8 +56,9 @@ from repro_torch.runtime.stragglers import StragglerMonitor
 __all__ = ["TrainerConfig", "Trainer", "make_train_step", "check_config"]
 
 MODEL_AXIS_UNPORTED = (
-    "model_axis > 1 (tensor parallelism) needs repro's parallel/sharding.py, "
-    "which is not ported (ROADMAP Queue 1, item 7)")
+    "model_axis > 1 (tensor parallelism) is not ported: the partition specs "
+    "exist (repro_torch.parallel), the model code does not run them "
+    "(ROADMAP Queue 1, item 7)")
 
 
 def _default_ckpt_dir() -> str:
@@ -83,8 +85,8 @@ def check_config(cfg: TrainerConfig) -> None:
         raise NotImplementedError(MODEL_AXIS_UNPORTED)
     if cfg.shard_acts:
         raise NotImplementedError(
-            "shard_acts needs a device mesh, which the port does not have "
-            "(ROADMAP Queue 1, item 7)")
+            "shard_acts (sequence-parallel activations over a mesh's 'model' "
+            "axis) is not ported (ROADMAP Queue 1, item 7)")
     if cfg.remat not in lm.REMAT:
         raise ValueError(f"remat must be one of {lm.REMAT}, not "
                          f"{cfg.remat!r}")
@@ -98,9 +100,11 @@ def make_train_step(arch: ArchConfig, optimizer: AdamW, cfg: TrainerConfig,
                     group=None):
     """``step(model, opt_state, batch) -> loss``: one optimizer step of
     ``model`` (its parameters must require grad) IN PLACE on this rank's
-    ``batch`` ({"tokens", "targets"}: (B, S), split into
-    ``cfg.microbatches`` microbatches of B / k rows), returning the mean
-    loss over the group's global batch (an f32 0-dim tensor).
+    ``batch`` ({"tokens", "targets"}: (B, S), and an encoder-decoder or
+    vision-stub arch's "frames" or "patches": (B, ., D); every entry split
+    into ``cfg.microbatches`` microbatches of B / k rows, as ``repro``'s
+    step splits every leaf), returning the mean loss over the group's
+    global batch (an f32 0-dim tensor).
 
     Each microbatch's gradients (in the parameters' dtype) are added into
     one f32 buffer, as ``repro``'s microbatch scan adds them into f32
@@ -115,20 +119,21 @@ def make_train_step(arch: ArchConfig, optimizer: AdamW, cfg: TrainerConfig,
         named = list(model.named_parameters())
         params = [p for _, p in named]
         dev = params[0].device
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        targets = torch.as_tensor(batch["targets"], device=dev)
-        if tokens.shape[0] % k:
-            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
+        batch = {name: torch.as_tensor(v, device=dev)
+                 for name, v in batch.items()}
+        rows_in = batch["tokens"].shape[0]
+        if rows_in % k:
+            raise ValueError(f"a batch of {rows_in} rows does not "
                              f"split into {k} microbatches")
-        mb = tokens.shape[0] // k
+        mb = rows_in // k
         sizes = [p.numel() for p in params]
         buf = torch.zeros(sum(sizes) + 1, dtype=torch.float32, device=dev)
         grads = [v.view(p.shape) for v, p in zip(buf[:-1].split(sizes),
                                                   params)]
         for j in range(k):
             rows = slice(j * mb, (j + 1) * mb)
-            loss = lm.train_loss(model, {"tokens": tokens[rows],
-                                         "targets": targets[rows]},
+            loss = lm.train_loss(model, {name: v[rows]
+                                         for name, v in batch.items()},
                                  remat=cfg.remat)
             for acc, g in zip(grads, torch.autograd.grad(loss, params)):
                 acc.add_(g)

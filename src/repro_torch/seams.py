@@ -10,10 +10,11 @@ trace, so the port marks the same structure where it runs:
     yields is one outer iteration;
   * :func:`kernel_seam` wraps the public entry of each kernel wrapper
     (``gram``, ``spmm`` and its scatter companions, ``sa_inner``,
-    ``svm_inner``): it reports one :class:`KernelEvent` before the call
-    routes to the plain version (a CPU tensor) or the kernel (a CUDA
-    tensor), and the recorder ignores the operations inside, so the
-    card and the CPU count the same work;
+    ``svm_inner``, ``flash_attention``): it reports one
+    :class:`KernelEvent` before the call routes to the plain version (a
+    CPU tensor) or the kernel (a CUDA tensor), and the recorder ignores
+    the operations inside, so the card, the CPU and the dry run's meta
+    tensors count the same work;
   * :func:`gathering` marks the end-of-solve gathers of the sharded
     backend (``linalg.pgather``).
 
@@ -35,14 +36,14 @@ class KernelEvent(NamedTuple):
     """One call of a kernel wrapper, as a recorder sees it.
 
     kernel: the wrapper's package ("gram", "spmm", "sa_inner",
-        "svm_inner"); entry: the function called ("gram_fused",
+        "svm_inner", "flash_attention"); entry: the function called ("gram_fused",
         "scatter_add", ...); shapes: its operands' shapes; dtype_in /
         dtype_out: the floating types it reads and returns; route: the
         body the call takes on a card (``dispatch``'s choice, "torch" for
         a companion that is plain PyTorch there too), or "plain" on the
         CPU; flops: the work in ``repro.analysis``'s convention (2 x
         output x contraction for a product, the update elements for a
-        scatter-add).
+        scatter-add, 4 B Hq D Sq Sk for an attention call).
     """
 
     kernel: str

@@ -149,9 +149,14 @@ def test_flash_attention_gradient_matches_repro(window):
 
 
 def test_wrapper_refuses_what_it_cannot_launch():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 8, 8, 32))
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    # meta tensors (the dry run) take a shape-only path; the kernel itself
+    # takes only cuda tensors
+    out = flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
+    with pytest.raises(ValueError, match="runs on cuda tensors"):
+        fa_ops._launch(q, k, v, True, 0, 1.0)
     with pytest.raises(ValueError, match="multiple of Hkv"):
         flash_attention(q[:, :3], k, v)
     with pytest.raises(ValueError):
