@@ -4669,8 +4669,8 @@ def moe_f32_card_vs_cpu():
     outs = {"cuda": [], "cpu": []}
     route, combine = L.moe_route, L.moe_combine
 
-    def recorded(router, xf, top_k):
-        out = route(router, xf, top_k)
+    def recorded(router, xf, top_k, dp=None):
+        out = route(router, xf, top_k, dp)
         picks[xf.device.type].append((router, xf, out[1]))
         return out
 
@@ -4751,27 +4751,14 @@ def moe_f32_card_vs_cpu():
                              "differ")
 
 
-def moe_cli():
-    """Phase 17 (e): the serving CLI on the card."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           MIXTRAL, "--smoke", "--prompt-len", "40", "--gen-len", "16"]
-    env = dict(os.environ, PYTHONPATH=SRC)
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                         cwd=ROOT, timeout=300)
-    log(f"phase 17 (e): {' '.join(cmd[1:])}: exit {out.returncode} in "
-        f"{time.perf_counter() - t0:.1f} s: {out.stdout.strip()[-300:]}")
-    if out.returncode != 0 or "arch=mixtral-smoke generated (4, 16)" \
-            not in out.stdout:
-        raise AssertionError(f"(e) the CLI: {out.stdout[-2000:]} "
-                             f"{out.stderr[-3000:]}")
 
 
 def phase_moe():
     """Phase 17: (a) mixtral-8x7b at full width (16 layers): prefill,
     serving; (b) K5's windowed call at its shape; (c) granite-moe-1b at
     full width and depth: prefill, serving; (d) f32 card against CPU;
-    (e) the CLI. Returns what K5's row gains."""
+    (e) the CLI (run with phase 16's, ``phase_launchers``). Returns
+    what K5's row gains."""
     import gc
     import torch
     t0 = time.perf_counter()
@@ -4801,7 +4788,6 @@ def phase_moe():
     torch.cuda.empty_cache()
     moe_f32_card_vs_cpu()
     torch.cuda.empty_cache()
-    moe_cli()
     log(f"phase 17 done in {time.perf_counter() - t0:.1f} s")
     return row
 
@@ -5099,30 +5085,14 @@ def recurrent_f32_card_vs_cpu():
                                  f"differ")
 
 
-def recurrent_cli():
-    """Phase 18 (d): the serving CLI on the card, both archs' smoke
-    configs (decode only, so no kernel: hymba-smoke's heads of 20 are
-    not a K5 head dimension)."""
-    env = dict(os.environ, PYTHONPATH=SRC)
-    for name, smoke in ((HYMBA, "hymba-smoke"), (XLSTM, "xlstm-smoke")):
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-               name, "--smoke", "--prompt-len", "40", "--gen-len", "16"]
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                             cwd=ROOT, timeout=300)
-        log(f"phase 18 (d): {' '.join(cmd[1:])}: exit {out.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s: {out.stdout.strip()[-300:]}")
-        if out.returncode != 0 or f"arch={smoke} generated (4, 16)" \
-                not in out.stdout:
-            raise AssertionError(f"(d) the CLI: {out.stdout[-2000:]} "
-                                 f"{out.stderr[-3000:]}")
 
 
 def phase_recurrent():
     """Phase 18: (a) hymba-1.5b at full width and depth: prefill (K5 32
     times, windowed), K5 at its shape, serving; (b) xlstm-350m at full
     width and depth: prefill at S 2048 (no kernel), an sLSTM step's
-    operations, serving; (c) f32 card against CPU; (d) the CLI. Returns
+    operations, serving; (c) f32 card against CPU; (d) the CLI (run with
+    phase 16's, ``phase_launchers``). Returns
     what K5's row gains."""
     import gc
     import torch
@@ -5159,7 +5129,6 @@ def phase_recurrent():
     torch.cuda.empty_cache()
     recurrent_f32_card_vs_cpu()
     torch.cuda.empty_cache()
-    recurrent_cli()
     log(f"phase 18 done in {time.perf_counter() - t0:.1f} s")
     return row
 
@@ -5483,25 +5452,6 @@ def encdec_f32_card_vs_cpu():
                                  f"differ")
 
 
-def encdec_cli():
-    """Phase 19 (d): the serving CLI on the card serves pixtral-smoke, and
-    refuses whisper with ``repro``'s message."""
-    env = dict(os.environ, PYTHONPATH=SRC)
-    for name, expect in ((PIXTRAL, "arch=pixtral-smoke generated (4, 16)"),
-                         (WHISPER, "use the audio pipeline for enc-dec "
-                          "archs")):
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-               name, "--smoke", "--prompt-len", "40", "--gen-len", "16"]
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                             cwd=ROOT, timeout=300)
-        text = (out.stdout + out.stderr).strip()
-        log(f"phase 19 (d): {' '.join(cmd[1:])}: exit {out.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s: {text[-300:]}")
-        ok = out.returncode == 0 if name == PIXTRAL else out.returncode == 1
-        if not ok or expect not in text:
-            raise AssertionError(f"(d) the CLI: {out.stdout[-2000:]} "
-                                 f"{out.stderr[-3000:]}")
 
 
 def phase_encdec():
@@ -5510,7 +5460,8 @@ def phase_encdec():
     encoder's and the cross-attention's shapes, serving with the cross
     cache, decode against prefill; (b) pixtral-12b at full width and
     depth: prefill with 1,024 patches (40 launches), serving; (c) f32 card
-    against CPU; (d) the CLI. Returns K5's rows at whisper's two shapes."""
+    against CPU; (d) the CLI (run with phase 16's, ``phase_launchers``).
+    Returns K5's rows at whisper's two shapes."""
     import dataclasses
     import gc
     import torch
@@ -5552,7 +5503,6 @@ def phase_encdec():
     torch.cuda.empty_cache()
     encdec_f32_card_vs_cpu()
     torch.cuda.empty_cache()
-    encdec_cli()
     log(f"phase 19 done in {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -5562,18 +5512,19 @@ def phase_encdec():
 # ---------------------------------------------------------------------------
 
 # (a) tinyllama-1.1b at full width and depth, bf16, at train_4k's sequence
-# length; the global batch cut from train_4k's 256 to 8, in 8 microbatches
+# length; the global batch cut from train_4k's 256 to 2, in 2 microbatches
 # of one sequence (a second sequence would double the plain-VJP backward's
 # f32 score tensors).
-TRAIN_ARCH, TRAIN_GB, TRAIN_K, TRAIN_STEPS = "tinyllama-1.1b", 8, 8, 8
+TRAIN_ARCH, TRAIN_GB, TRAIN_K, TRAIN_STEPS = "tinyllama-1.1b", 2, 2, 8
 # (b)-(d): tinyllama-1.1b widths cut to 2 layers at f32 (~219 M
 # parameters): (b) B x S for the card against the CPU; (c) microbatches 1
-# against 4; (d) four gloo ranks, a checkpoint every 4 steps, ranks 2 and 3
-# killed at step 6.
+# against 4; (d) four gloo ranks, a checkpoint every 2 steps, ranks 2 and 3
+# killed at step 3 (the survivors resume at 2; (d) ran 12 steps, every 4,
+# killed at 6, before phase 21 took their time).
 TT_B, TT_S = 2, 512
 TT_MB = (8, 256, 3)                     # global batch, length, steps
-TT_GLOO = (8, 256, 12, 4)               # global batch, length, steps, every
-TT_KILL = (6, [2, 3])
+TT_GLOO = (8, 256, 4, 2)                # global batch, length, steps, every
+TT_KILL = (3, [2, 3])
 
 
 class CallTimes:
@@ -5642,11 +5593,9 @@ def phase_train_full():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.checkpoint import ckpt
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.optim import AdamW, cosine_schedule
-    from repro_torch.runtime import driver
     from repro_torch.runtime.driver import Trainer, TrainerConfig
 
     arch = get_config(TRAIN_ARCH)
@@ -5662,8 +5611,6 @@ def phase_train_full():
         world_size=1, rank=0)
     tmp = tempfile.mkdtemp(prefix="phase16_")
     try:
-        log(f"  free space where the checkpoint goes: "
-            f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB")
         t0 = time.perf_counter()
         model = lm.init_params(arch, seed=0, device="cuda")
         torch.cuda.synchronize()
@@ -5675,6 +5622,10 @@ def phase_train_full():
                      TrainerConfig(steps=n, ckpt_dir=tmp, ckpt_every=n,
                                    microbatches=k),
                      group=dist.group.WORLD, device="cuda", model=model)
+        # no checkpoint at full width (an 11 GB host copy and write, ~21 s;
+        # left out to make room for phase 21): phase 16 (d) writes, times and
+        # restores the trainer's checkpoints at 2 layers
+        tr._save = lambda: None
         timer = PhaseTimer()
         walls = []
         inner = tr.step_fn
@@ -5718,9 +5669,7 @@ def phase_train_full():
         before = torch.cuda.memory_allocated()
         resident = path_bytes(model, tr.opt_state)
         try:
-            with linalg.count_reductions() as red, \
-                    CallTimes(ckpt, "save_checkpoint") as save, \
-                    CallTimes(driver.Trainer, "_save") as host_copy:
+            with linalg.count_reductions() as red:
                 t0 = time.perf_counter()
                 out = tr.run()
                 run_s = time.perf_counter() - t0
@@ -5757,11 +5706,7 @@ def phase_train_full():
             measured, args=resident + 2 * B * S * 4, arch=arch,
             seconds=steady, shape=dataclasses.replace(full, global_batch=B),
             opts={"remat": tr.cfg.remat, "microbatches": k})
-        ckpt_dir = os.path.join(tmp, f"step_{n:08d}")
-        log(f"  the checkpoint at step {n}: {dir_bytes(ckpt_dir) / 1e9:.3f} "
-            f"GB on disk; host copy {host_copy.seconds[-1]:.3f} s, write "
-            f"(npz, fsync, rename; async) {save.seconds[-1]:.3f} s; "
-            f"run() {run_s:.1f} s")
+        log(f"  run() {run_s:.1f} s")
         total, split = train_step_split(timer, k, arch.n_layers, n - 1)
         log(f"  where a step's time goes (device time by CUDA events, ms, "
             f"mean of steps 2-{n}; the step {total:.1f} ms):")
@@ -6024,6 +5969,7 @@ def phase_train_gloo():
 
     B, S, n, every = TT_GLOO
     step, dead = TT_KILL
+    back = step // every * every        # the checkpoint the survivors resume
     log(f"phase 16 (d): {TINY} widths at {TINY_LAYERS} layers, f32, {P_GLOO} "
         f"gloo ranks on the one card, global batch {B}, S={S}, {n} steps, a "
         f"checkpoint every {every}: undisturbed, then ranks {dead} killed at "
@@ -6057,15 +6003,15 @@ def phase_train_gloo():
         f = ranks[r]["failure"]
         resumed = [e for e in f["events"] if "re-meshed" in e]
         ok = (not f["lost"] and f["final_step"] == n and f["live"] == [0, 1]
-              and resumed and resumed[0].endswith("resumed at step 4")
+              and resumed and resumed[0].endswith(f"resumed at step {back}")
               and f["losses"][:step] == und["losses"][:step]
-              and len(f["losses"]) == step + n - 4)
+              and len(f["losses"]) == step + n - back)
         if not ok:
             raise AssertionError(f"(d) survivor {r}: {f}")
         rel = max(abs(a - b) / abs(b)
-                  for a, b in zip(f["losses"][step:], und["losses"][4:]))
+                  for a, b in zip(f["losses"][step:], und["losses"][back:]))
         worst = max(worst, rel)
-        log(f"  survivor {r}: events {f['events']}; losses from step 4 "
+        log(f"  survivor {r}: events {f['events']}; losses from step {back} "
             f"{' '.join(f'{x:.5f}' for x in f['losses'][step:])}; max rel "
             f"to the undisturbed run {rel:.3e} (bar 1e-5); restore "
             f"{' '.join(f'{s:.3f}' for s in f['restore_s'])} s; wall "
@@ -6074,41 +6020,98 @@ def phase_train_gloo():
         raise AssertionError("(d) the recovered losses differ")
 
 
-def phase_train_cli():
-    """Phase 16 (e): the training launcher on the card."""
+def launcher_cmd(module, arch, *args):
+    return [sys.executable, "-m", f"repro_torch.launch.{module}", "--arch",
+            arch, "--smoke", *args]
+
+
+def phase_launchers():
+    """Phases 17 (e), 18 (d), 19 (d) and 16 (e): the serving and training
+    launchers on the card, each a process of its own, started together
+    (the kernels are built; the smoke models share the card) and each
+    held to its own check: mixtral-smoke, hymba-smoke and xlstm-smoke
+    decode (hymba-smoke's heads of 20 are not a K5 head dimension, so
+    decode only), pixtral-smoke serves and whisper is refused with
+    ``repro``'s message; tinyllama-smoke trains 20 steps and writes its
+    checkpoint. Together they take about the longest one's time, where
+    one after another took their sum (they run so to make room for
+    phase 21)."""
     import re
-    import subprocess as sp
     import tempfile
+    serve = ("--prompt-len", "40", "--gen-len", "16")
     with tempfile.TemporaryDirectory(prefix="phase16_cli_") as tmp:
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               TRAIN_ARCH, "--smoke", "--steps", "20", "--ckpt-dir", tmp]
+        ckpt = os.path.join(tmp, "ckpt")
+
+        def trained(rc, text):
+            m = re.search(r"arch=tinyllama-smoke steps=20 loss (\S+) -> "
+                          r"(\S+)", text)
+            return rc == 0 and m is not None \
+                and sorted(os.listdir(ckpt)) == ["step_00000020"]
+        runs = [
+            ("phase 17 (e)", launcher_cmd("serve", MIXTRAL, *serve),
+             lambda rc, text: rc == 0
+             and "arch=mixtral-smoke generated (4, 16)" in text),
+            ("phase 18 (d)", launcher_cmd("serve", HYMBA, *serve),
+             lambda rc, text: rc == 0
+             and "arch=hymba-smoke generated (4, 16)" in text),
+            ("phase 18 (d)", launcher_cmd("serve", XLSTM, *serve),
+             lambda rc, text: rc == 0
+             and "arch=xlstm-smoke generated (4, 16)" in text),
+            ("phase 19 (d)", launcher_cmd("serve", PIXTRAL, *serve),
+             lambda rc, text: rc == 0
+             and "arch=pixtral-smoke generated (4, 16)" in text),
+            ("phase 19 (d)", launcher_cmd("serve", WHISPER, *serve),
+             lambda rc, text: rc == 1
+             and "use the audio pipeline for enc-dec archs" in text),
+            ("phase 16 (e)", launcher_cmd("train", TRAIN_ARCH, "--steps",
+                                          "20", "--ckpt-dir", ckpt),
+             trained)]
+        env = dict(os.environ, PYTHONPATH=SRC)
         t0 = time.perf_counter()
-        out = sp.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
-                     capture_output=True, text=True, timeout=600)
-        ckpts = sorted(os.listdir(tmp))
-    log(f"phase 16 (e): python -m repro_torch.launch.train --arch "
-        f"{TRAIN_ARCH} --smoke --steps 20 --ckpt-dir <tmp>: exit "
-        f"{out.returncode} in {time.perf_counter() - t0:.1f} s; checkpoints "
-        f"{ckpts}")
-    for ln in out.stdout.strip().splitlines():
-        log(f"    {ln}")
-    m = re.search(r"arch=tinyllama-smoke steps=20 loss (\S+) -> (\S+)",
-                  out.stdout)
-    if out.returncode != 0 or m is None or ckpts != ["step_00000020"]:
-        raise AssertionError(f"(e) the CLI: {out.stdout[-2000:]} "
-                             f"{out.stderr[-3000:]}")
+        procs = []
+        for label, cmd, check in runs:
+            out = tempfile.TemporaryFile(mode="w+")
+            procs.append((label, cmd, check, out, subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=out,
+                stderr=subprocess.STDOUT, text=True)))
+        ends = {}
+        while len(ends) < len(procs):
+            for i, (*_, p) in enumerate(procs):
+                if i not in ends and p.poll() is not None:
+                    ends[i] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 600:
+                for *_, p in procs:
+                    p.kill()
+                raise AssertionError("the launchers ran past 600 s")
+            time.sleep(0.05)
+        failed = []
+        for i, (label, cmd, check, out, p) in enumerate(procs):
+            out.seek(0)
+            text = out.read()
+            out.close()
+            shown = " ".join(cmd[1:]).replace(ckpt, "<tmp>")
+            log(f"{label}: {shown}: exit {p.returncode} in {ends[i]:.1f} s "
+                f"(started together): {text.strip()[-300:]}")
+            if not check(p.returncode, text):
+                failed.append(f"{label} {shown}: {text[-3000:]}")
+    log(f"  the {len(procs)} launchers together in "
+        f"{max(ends.values()):.1f} s")
+    if failed:
+        raise AssertionError(f"the launchers: {failed}")
+
 
 
 def phase_training():
     """Phase 16: (a) full width, (b) card against CPU, (c) microbatches,
-    (d) the checkpoint and a failure over gloo ranks, (e) the CLI. Returns
-    what K5's row gains."""
+    (d) the checkpoint and a failure over gloo ranks, (e) the CLI, run
+    with phases 17-19's launchers (``phase_launchers``). Returns what
+    K5's row gains."""
     t0 = time.perf_counter()
     row = phase_train_full()
     phase_train_card_vs_cpu()
     phase_train_microbatches()
     phase_train_gloo()
-    phase_train_cli()
+    phase_launchers()
     log(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
     return row
 
@@ -6243,6 +6246,322 @@ def phase_dryrun(smi: str):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: tensor, expert and sequence parallelism over the model axis.
+# ---------------------------------------------------------------------------
+
+# Two gloo ranks share the card as one model group (data 1 x model 2):
+# NCCL refuses two ranks on one card. (a) tinyllama-1.1b at full width and
+# depth, bf16, S 2048, global batch 2 in 2 microbatches, phase 16 (a)'s
+# learning-rate schedule, 3 steps with shard_acts. (b) granite-moe-1b-
+# a400m at full width and depth, bf16, S 2048, global batch 2 in 2
+# microbatches, 2 steps (EP: 16 of 32 experts a rank; the vocabulary of
+# 49,155 whole). Each against the same steps in one process on the card.
+# (c) f32 at 2 layers, tinyllama and granite
+# widths, B 4, S 256, 3 steps, m = 2 with and without shard_acts against m
+# = 1: the losses and step 1's reduced gradients within TP_BAR.
+TP_M = 2
+TP_FULL = {"tinyllama-1.1b": dict(B=2, S=2048, k=2, steps=3, sp=True),
+           "granite-moe-1b-a400m": dict(B=2, S=2048, k=2, steps=2,
+                                        sp=False)}
+TP_F32 = dict(B=4, S=256, steps=3, layers=2)
+TP_BAR = 1e-5                    # phase 16 (c)'s bar (f32)
+# bf16 losses, rel to one rank: sound runs read 3.1e-4 / 4.4e-4 (an H100
+# 80GB HBM3 at 700 W), a wrong split reads the loss of other weights
+TP_BF16_BAR = 5e-3
+
+
+def tp_schedule():
+    from repro_torch.optim import AdamW, cosine_schedule
+    return AdamW(learning_rate=cosine_schedule(3e-4, 2, TRAIN_STEPS))
+
+
+class TpRecording:
+    """An optimizer that keeps its first update's gradients (on the host),
+    then updates as AdamW does."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, **kw):
+        if self.grads is None:
+            self.grads = {n: g.detach().float().cpu().clone()
+                          for n, g in grads.items()}
+        return self.opt.update(grads, state, params, **kw)
+
+
+def tp_f32_arch(name):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), n_layers=TP_F32["layers"],
+                               dtype="float32")
+
+
+def tp_trainer(arch, B, S, steps, k=1, sp=False, m=1, group=None, opt=None):
+    """A trainer that keeps no checkpoint (its save is a no-op: a
+    full-width gather and write is phase 16's to time)."""
+    import tempfile
+    from repro_torch.data import TokenPipeline
+    from repro_torch.runtime.driver import Trainer, TrainerConfig
+    tr = Trainer(arch, opt or tp_schedule(),
+                 TokenPipeline(arch.vocab_size, B, S, seed=0),
+                 TrainerConfig(steps=steps, ckpt_dir=tempfile.mkdtemp(
+                     prefix="phase21_"), ckpt_every=steps + 1,
+                     microbatches=k, model_axis=m, shard_acts=sp),
+                 group=group, device="cuda")
+    tr._save = lambda: None
+    return tr
+
+
+def tp_full_run(name, group):
+    """One full-width path on this rank (``group``: the two ranks, or None
+    for one process): losses, step walls, launches, peak and argument
+    bytes, the last step's collectives by group, K5 on layer 0's q/k/v."""
+    import torch
+    from repro_torch.analysis.record import Recorder
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers as L
+
+    c = TP_FULL[name]
+    arch = get_config(name)
+    m = 1 if group is None else TP_M
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = tp_trainer(arch, c["B"], c["S"], c["steps"], c["k"], c["sp"], m,
+                    group)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    resident = path_bytes(tr.model, tr.opt_state)
+    inner, walls, kept = tr.step_fn, [], {}
+    real_fa = L.flash_attention
+
+    def first_call(q, k, v, **kw):
+        kept.setdefault("qkv", ((q.detach(), k.detach(), v.detach()), kw))
+        return real_fa(q, k, v, **kw)
+    rec = Recorder()
+
+    def step(*args):
+        last = len(walls) == c["steps"] - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if last:
+            with rec:
+                out = inner(*args)
+        else:
+            out = inner(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+    tr.step_fn = step
+    zero_counts()
+    L.flash_attention = first_call
+    try:
+        res = tr.run()
+    finally:
+        L.flash_attention = real_fa
+    got = dict(read_counts(), **{"k5 " + b: n for b, n in
+                                 flash_attention.route_launches.items()})
+    peak = measured_peak(before, resident)
+    groups = rec.collectives_by_group()
+    grid = tr.grid
+    by = {"data": groups.get(grid.data.group.group_name, {})
+          if grid.data.group is not None else {},
+          "model": groups.get(grid.model.group.group_name, {})
+          if grid.model.group is not None else {}}
+    (q, k, v), kw = kept["qkv"]
+    with torch.no_grad():
+        o = flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw).float()
+    err = float((o.float() - want).abs().max())
+    ok = torch.allclose(o.float(), want, rtol=2.0 ** -7, atol=4e-3)
+    out = {"losses": res["losses"], "walls": walls, "launches": got,
+           "args": peak["args"] + 2 * c["B"] * c["S"] * 4,
+           "peak": peak["peak"], "other": peak["other"],
+           "collectives": by, "k5_shape": (tuple(q.shape), tuple(k.shape)),
+           "k5_err": err, "k5_ok": bool(ok),
+           "params": sum(p.numel() for p in tr.model.parameters()),
+           "events": res["events"], "lost": res["lost"]}
+    del tr, q, k, v, o, want, kept
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_f32_run(name, sp, group, tmp, rank):
+    """(c) on this rank: 3 f32 steps at 2 layers; the losses and the
+    largest relative error of step 1's reduced gradients against the
+    one-rank reference's (its shards, cut as this rank holds them)."""
+    import torch
+    from repro_torch.parallel import tensor as par
+    arch = tp_f32_arch(name)
+    opt = TpRecording(tp_schedule())
+    tr = tp_trainer(arch, TP_F32["B"], TP_F32["S"], TP_F32["steps"],
+                    sp=sp, m=TP_M, group=group, opt=opt)
+    res = tr.run()
+    ref = torch.load(os.path.join(tmp, f"ref_{name}.pt"), weights_only=False)
+    lay = par.layout(arch, TP_M)
+    worst = 0.0
+    for n, g in opt.grads.items():
+        want = par.cut(ref["grads"][n], lay[n], tr.grid.model)
+        worst = max(worst, leaf_err(g, want))
+    del tr, opt, ref
+    torch.cuda.empty_cache()
+    return {"losses": res["losses"], "grad_err": worst}
+
+
+def tp_rank(rank, world, tmp):
+    """Phase 21 on one of the two gloo ranks sharing the card."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    for name in TP_FULL:
+        out[name] = tp_full_run(name, dist.group.WORLD)
+    for name in TP_FULL:
+        for sp in (False, True):
+            out[(name, sp)] = tp_f32_run(name, sp, dist.group.WORLD, tmp,
+                                         rank)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def tp_rel(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def phase_tp(smi: str):
+    """Phase 21: tensor, expert and sequence parallelism over two gloo
+    ranks sharing the card (see TP_FULL, TP_F32), with the dry run's 1x2
+    prediction of each rank's argument bytes (exact) and peak (within
+    phase 20's PEAK_RATIO)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import distributed
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    log(f"phase 21: tensor, expert and sequence parallelism, {TP_M} gloo "
+        f"ranks on the one card as one model group (data 1 x model {TP_M}; "
+        f"gloo reduces CUDA tensors through the host, not NCCL over NVLink); "
+        f"{smi}")
+    with tempfile.TemporaryDirectory(prefix="phase21_") as tmp:
+        one = {name: tp_full_run(name, None) for name in TP_FULL}
+        for name in TP_FULL:
+            arch = tp_f32_arch(name)
+            opt = TpRecording(tp_schedule())
+            tr = tp_trainer(arch, TP_F32["B"], TP_F32["S"], TP_F32["steps"],
+                            opt=opt)
+            losses = tr.run()["losses"]
+            torch.save({"grads": opt.grads}, os.path.join(tmp,
+                                                         f"ref_{name}.pt"))
+            one[("f32", name)] = losses
+            del tr, opt
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        distributed.run_ranks(tp_rank, TP_M, "gloo", device="cuda",
+                              args=(tmp,))
+        ranks = {r: torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                               weights_only=False) for r in range(TP_M)}
+        log(f"  {TP_M} ranks done in {time.perf_counter() - t1:.1f} s")
+    mesh = make_mesh((1, TP_M), ("data", "model"))
+    for name, c in TP_FULL.items():
+        arch = get_config(name)
+        part = "(a)" if name == TRAIN_ARCH else "(b)"
+        want = one[name]["losses"]
+        shape = dataclasses.replace(SHAPES["train_4k"], global_batch=c["B"],
+                                    seq_len=c["S"])
+        cell = dryrun.run_cell(arch.name, shape.name, mesh=mesh, arch=arch,
+                               shape=shape, opts=dryrun.DryrunOptions(
+                                   cost_fit=False, remat="none",
+                                   microbatches=c["k"]),
+                               verbose=False)
+        if cell["status"] != "ok":
+            raise AssertionError(f"phase 21 {part}: the dry run failed: "
+                                 f"{cell.get('traceback')}")
+        mem = cell["memory"]
+        layers, k = arch.n_layers, c["k"]
+        log(f"  {part} {name}: full width and depth ({layers} layers, "
+            f"{arch.dtype}), S {c['S']}, global batch {c['B']} in {k} "
+            f"microbatch(es), {c['steps']} steps, shard_acts {c['sp']}, "
+            f"cosine_schedule(3e-4, 2, {TRAIN_STEPS}); one-rank losses "
+            f"{' '.join(f'{x:.4f}' for x in want)}")
+        o = one[name]
+        log(f"    one rank: step walls (s) "
+            f"{' '.join(f'{w:.4f}' for w in o['walls'])}; peak "
+            f"{o['peak'] / 2 ** 30:.3f} GiB; arguments {o['args']} B; "
+            f"launches {o['launches']}")
+        for r in range(TP_M):
+            got = ranks[r][name]
+            rel = tp_rel(got["losses"], want)
+            per = layers * k * c["steps"]
+            ratio = mem["total_bytes"] / got["peak"]
+            log(f"    rank {r}: losses "
+                f"{' '.join(f'{x:.4f}' for x in got['losses'])} (max rel to "
+                f"one rank {rel:.3e}, bar {TP_BF16_BAR}); step walls (s) "
+                f"{' '.join(f'{w:.4f}' for w in got['walls'])}; "
+                f"{got['params']} parameters; peak "
+                f"{got['peak'] / 2 ** 30:.3f} GiB; arguments {got['args']} "
+                f"B, the dry run's 1x2 prediction {mem['argument_bytes']} B; "
+                f"predicted peak {mem['total_bytes']} B, ratio {ratio:.4f}")
+            log(f"    rank {r}: launches {got['launches']} (K5 at local "
+                f"heads {got['k5_shape']}; expected {per} wgmma); the last "
+                f"step's collectives by group {got['collectives']}; K5 "
+                f"against its plain version on layer 0's q/k/v max_abs_err "
+                f"{got['k5_err']:.3e} (rtol 2^-7, atol 4e-3)")
+            if got["lost"] or got["events"] or rel > TP_BF16_BAR \
+                    or not all(math.isfinite(x) for x in got["losses"]):
+                raise AssertionError(f"phase 21 {part} rank {r}: {got}")
+            if got["launches"]["flash_attention"] != per \
+                    or got["launches"]["k5 wgmma"] != per \
+                    or got["launches"]["k5 simt"] != 0 \
+                    or got["k5_shape"][0][1] != arch.n_heads // TP_M \
+                    or not got["k5_ok"]:
+                raise AssertionError(f"phase 21 {part} rank {r}: K5 "
+                                     f"{got['launches']} {got['k5_shape']}")
+            if got["collectives"]["data"] != {"all-reduce": 1} \
+                    or not got["collectives"]["model"]:
+                raise AssertionError(f"phase 21 {part} rank {r}: "
+                                     f"collectives {got['collectives']}")
+            if got["args"] != mem["argument_bytes"]:
+                raise AssertionError(f"phase 21 {part} rank {r}: argument "
+                                     f"bytes {got['args']} != "
+                                     f"{mem['argument_bytes']}")
+            if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+                raise AssertionError(f"phase 21 {part} rank {r}: peak "
+                                     f"ratio {ratio}")
+    for name in TP_FULL:
+        want = one[("f32", name)]
+        for sp in (False, True):
+            for r in range(TP_M):
+                got = ranks[r][(name, sp)]
+                rel = tp_rel(got["losses"], want)
+                log(f"  (c) f32 {name} widths at {TP_F32['layers']} layers, "
+                    f"B {TP_F32['B']}, S {TP_F32['S']}, shard_acts {sp}, "
+                    f"rank {r}: losses "
+                    f"{' '.join(f'{x:.7f}' for x in got['losses'])}, max rel "
+                    f"to one rank {rel:.3e}; step 1's reduced gradients, max "
+                    f"|m2 - m1| / max |m1| per leaf {got['grad_err']:.3e} "
+                    f"(bar {TP_BAR})")
+                if not rel <= TP_BAR or not got["grad_err"] <= TP_BAR:
+                    raise AssertionError(f"phase 21 (c) {name} sp={sp} rank "
+                                         f"{r}: {got}")
+    log(f"phase 21 done in {time.perf_counter() - t0:.1f} s")
+    # K5's launches a step on each rank of the model axis, as counted
+    per_step = {}
+    for name, c in TP_FULL.items():
+        counts = {ranks[r][name]["launches"]["k5 wgmma"] for r in ranks}
+        if len(counts) != 1:
+            raise AssertionError(f"phase 21 {name}: K5 launches differ "
+                                 f"between the ranks: {counts}")
+        per_step[name] = counts.pop() // c["steps"]
+    return {"tp_launches_per_step": per_step}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: run it from the root of a checkout "
@@ -6303,12 +6622,15 @@ def main() -> int:
     train_row = phase_training()
     torch.cuda.empty_cache()
     phase_dryrun(smi)
+    tp_row = phase_tp(smi)
+    torch.cuda.empty_cache()
     phase_elastic()
 
     rows.update(svm_rows)
     rows.update(family_rows)
     rows["flash_attention"]["launches"] = fa_launches
     rows["flash_attention"].update(train_row)
+    rows["flash_attention"].update(tp_row)
     rows["flash_attention"].update(window_row)
     rows["flash_attention"].update(hymba_row)
     for name, n in launches.items():
@@ -6320,8 +6642,9 @@ def main() -> int:
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     # K5's row: the training step, the windowed calls at mixtral's and
-    # hymba's shapes
-    extra = tuple(train_row) + tuple(window_row) + tuple(hymba_row)
+    # hymba's shapes, the launches a step on a rank of phase 21's grid
+    extra = tuple(train_row) + tuple(window_row) + tuple(hymba_row) \
+        + tuple(tp_row)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows.values()]}))
     print(smi)

@@ -8,7 +8,8 @@ end-of-solve gathers (``seams.gathering``):
 
   * collectives: the ``c10d`` operations ``torch.distributed`` dispatches
     (:data:`COLLECTIVE_PRIMS` maps them to ``repro``'s HLO names), with
-    the all-reduces' payload elements and bytes;
+    the all-reduces' payload elements and bytes, and by process group
+    (``collectives_by_group``: a trainer's data group and model group);
   * flops in ``repro.analysis``'s convention: 2 x output x contraction
     for each matrix product (``mm``, ``addmm``, ``bmm``, ``baddbmm``,
     ``mv``, ``addmv``, ``dot``, ``vdot``), the update elements of each
@@ -138,6 +139,21 @@ class Tally:
     allreduce_elements: float = 0.0
     allreduce_bytes: float = 0.0
     gather_bytes: float = 0.0
+    # (process group name, kind) -> count
+    by_group: Dict[Tuple[str, str], int] = dataclasses.field(
+        default_factory=collections.Counter)
+
+
+def _group_name(args) -> str:
+    """The name of the process group a ``c10d`` operation's arguments
+    carry (``ProcessGroup.group_name``), or "?"."""
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return torch.distributed.ProcessGroup.unbox(a).group_name
+            except (RuntimeError, AttributeError, TypeError):
+                continue
+    return "?"
 
 
 def _tensors(x):
@@ -242,6 +258,7 @@ class Recorder(TorchDispatchMode):
     def _collective(self, kind: str, args) -> None:
         tally = self._tally()
         tally.collectives[kind] += 1
+        tally.by_group[(_group_name(args), kind)] += 1
         if kind == "all-reduce":
             for t in _tensors(args[0]):
                 tally.allreduce_elements += t.numel()
@@ -265,6 +282,15 @@ class Recorder(TorchDispatchMode):
     def spans(self):
         """Every tally: setup, each outer iteration, the end gathers."""
         return [self.setup, *self.outer, self.end]
+
+    def collectives_by_group(self) -> Dict[str, Dict[str, int]]:
+        """{process group name: {kind: count}} over every span."""
+        out: Dict[str, Dict[str, int]] = {}
+        for tally in self.spans():
+            for (group, kind), n in tally.by_group.items():
+                per = out.setdefault(group, {})
+                per[kind] = per.get(kind, 0) + n
+        return out
 
     def kernel_flops(self) -> Dict[str, float]:
         """Flops of the seam events by entry, "kernel.entry"."""

@@ -30,7 +30,10 @@ checkpoints hold ``repro``'s tree. An encoder-decoder arch's ``encoder``
 subtree stacks its layers along a leading axis too (``layers``, beside
 ``pos_embed`` and ``final_norm``), and its cache's ``cross`` k and v
 stack the decoder's groups: the port holds ``encoder.layers.{j}`` and
-one ``cross_k`` / ``cross_v`` tensor a layer.
+one ``cross_k`` / ``cross_v`` tensor a layer. Given a model ``axis``
+(``parallel.tensor.Axis``), ``lm_params_from_numpy`` and
+``adamw_state_from_numpy`` cut each leaf to that model rank's shard
+(``parallel.tensor.cut`` by the port's layout).
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from repro_torch.core.types import (LassoProblem, LogRegProblem, SolveState,
                                     resolve_device)
 from repro_torch.models import lm as _lm
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.parallel import tensor as _par
 
 _ELL_FIELDS = ("row_cols", "row_vals", "row_blocks",
                "col_rows", "col_vals", "col_blocks")
@@ -234,12 +238,27 @@ def lm_tree(arch: ArchConfig, flat, stack=np.stack):
     return tree
 
 
-def lm_params_from_numpy(arch: ArchConfig, tree, device="cuda") -> _lm.LM:
+def _cut(arch: ArchConfig, axis):
+    """numpy leaf -> f32 tensor of rank ``axis.index``'s shard of it, by
+    name (``parallel.tensor``'s layout; the leaf itself without a model
+    axis)."""
+    if axis is None or axis.size == 1:
+        return lambda name, a: _f32(a)
+    lay = _par.layout(arch, axis.size)
+    return lambda name, a: _f32(_par.cut(np.asarray(a), lay[name], axis))
+
+
+def lm_params_from_numpy(arch: ArchConfig, tree, device="cuda",
+                         axis=None) -> _lm.LM:
     """An :class:`~repro_torch.models.lm.LM` holding ``repro``'s weights:
     ``tree`` is ``repro``'s param tree (``lm.init_params``) with every leaf
-    as a numpy array. Raises on a missing, extra or misshapen leaf."""
-    model = _lm.LM(arch, resolve_device(device))
-    model.load_state_dict(lm_flat(arch, tree, _f32), strict=True)
+    as a numpy array. Raises on a missing, extra or misshapen leaf. With a
+    model ``axis`` (``parallel.tensor.Axis``), the LM built for it,
+    holding rank ``axis.index``'s shards (``parallel.tensor.cut``)."""
+    model = _lm.LM(arch, resolve_device(device), axis)
+    cut = _cut(arch, axis)
+    model.load_state_dict({k: cut(k, v) for k, v in
+                           lm_flat(arch, tree).items()}, strict=True)
     return model
 
 
@@ -250,19 +269,21 @@ def lm_params_to_numpy(model: _lm.LM):
                                 for k, v in model.state_dict().items()})
 
 
-def adamw_state_from_numpy(arch: ArchConfig, state,
-                           device="cuda") -> AdamWState:
+def adamw_state_from_numpy(arch: ArchConfig, state, device="cuda",
+                           axis=None) -> AdamWState:
     """The port's :class:`~repro_torch.optim.AdamWState` (moments keyed
     by parameter name, as the trainer's ``named_parameters``) from
     ``repro``'s ``AdamWState`` (``step``, ``mu``, ``nu``; numpy leaves in
-    the stacked per-slot layout)."""
+    the stacked per-slot layout); with a model ``axis``, the rank's
+    shards of the moments."""
     dev = resolve_device(device)
-    moment = lambda a: _f32(a).to(dev)
+    cut = _cut(arch, axis)
+    moments = lambda tree: {k: cut(k, v).to(dev)
+                            for k, v in lm_flat(arch, tree).items()}
     return AdamWState(
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
                           device=dev),
-        mu=lm_flat(arch, state.mu, moment),
-        nu=lm_flat(arch, state.nu, moment))
+        mu=moments(state.mu), nu=moments(state.nu))
 
 
 def adamw_state_to_numpy(arch: ArchConfig, state: AdamWState) -> AdamWState:

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -153,7 +154,8 @@ def preduce(x, group=None, counted: bool = True):
     (``all_reduce`` takes only dense tensors) is copied first.
     ``counted=False`` leaves the open :func:`count_reductions` blocks
     alone: the tuner's microbenchmark (``tune.microbench``) times
-    reductions that belong to no solve."""
+    reductions that belong to no solve, and the model axis's reductions
+    (``parallel.tensor``) are not the step's one gradient reduction."""
     if group is None:
         return x
     x = _all_reduce(x, dist.ReduceOp.SUM, group)
@@ -163,19 +165,49 @@ def preduce(x, group=None, counted: bool = True):
     return x
 
 
-def pmax(x, group=None):
+def pmax(x, group=None, counted: bool = True):
     """The max-reduction seam: the elementwise max of ``x`` over the ranks
     of ``group``, or ``x`` itself when ``group`` is None. Reduced in place
     when ``x`` is contiguous, as :func:`preduce` does. Counted in the open
     :func:`count_reductions` blocks' ``max``, apart from their sums:
     int8 gradient compression (``optim.compress``) takes the max of its
-    scales before it sums the payload."""
+    scales before it sums the payload. ``counted=False``, as for
+    :func:`preduce`."""
     if group is None:
         return x
     x = _all_reduce(x, dist.ReduceOp.MAX, group)
-    for c in _OPEN_COUNTS:
-        c.max += 1
+    if counted:
+        for c in _OPEN_COUNTS:
+            c.max += 1
     return x
+
+
+def pall_gather(x, group):
+    """Every rank's ``x`` (the same shape on each) concatenated along the
+    first axis in rank order, in one ``all_gather_into_tensor``: the
+    seam of the model axis's gathers (``parallel.tensor``). Not counted,
+    and not an end gather: it runs inside a training step."""
+    x = x.contiguous()
+    out = x.new_empty((x.shape[0] * dist.get_world_size(group),)
+                      + tuple(x.shape[1:]))
+    with warnings.catch_warnings():     # deprecated by name in torch 2.13
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x, group=group)
+    return out
+
+
+def preduce_scatter(x, group):
+    """The sum of ``x`` over the ranks of ``group``, of which this rank
+    keeps its block of the first axis (block r of ``size`` equal blocks
+    for rank r), in one ``reduce_scatter_tensor``: the seam of the model
+    axis's scatters (``parallel.tensor``). Not counted."""
+    x = x.contiguous()
+    out = x.new_empty((x.shape[0] // dist.get_world_size(group),)
+                      + tuple(x.shape[1:]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, x, group=group)
+    return out
 
 
 def pgather(x, group=None):

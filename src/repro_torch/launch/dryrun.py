@@ -10,7 +10,11 @@ counted as it runs:
     / n (``flops_split: "even"``);
   * argument bytes per device, exact: what each leaf's sanitized partition
     spec (``repro_torch.parallel``) leaves on a device, over the
-    parameters, the AdamW state (train) and the batch or decode cache;
+    parameters, the AdamW state (train) and the batch or decode cache. On
+    a mesh whose 'model' axis is m > 1 the parameters' specs are the
+    port's own layout (``parallel.tensor.partition_specs``: whole heads,
+    whole recurrent mixers, replicated over 'data'), what each rank of
+    the trainer's grid holds;
   * temp bytes: the peak of the meta storage that the step made and that
     was alive at once, tracked by storage identity with weak references,
     so the step's own frees (autograd's saved tensors included) count as
@@ -28,8 +32,10 @@ there are none. With ``cost_fit`` the cell is also counted at 1 and 2
 layer groups (``_reduced``) and fit to full depth (``two_point_fit``), as
 ``repro`` does; for an arch without attention (xlstm), whose sLSTM scan
 is S host-launched steps, a train or prefill cell is counted at three
-short lengths and fit over S instead (``fit_over_seq``). ``shard_acts``
-and ``unroll_layers`` are not ported (ROADMAP Queue 1, item 7). Results
+short lengths and fit over S instead (``fit_over_seq``). The step it
+runs is one process's whole step, without ``shard_acts`` (the trainer's
+sequence parallelism); ``unroll_layers`` is not ported (a layer is a
+module, counted as it runs). Results
 cache as JSON under ``results/dryrun_torch/``. The numbers are
 predictions on ``HW_H100``'s data-sheet peaks.
 
@@ -71,6 +77,7 @@ from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel.sharding import (batch_partition_specs,
                                            param_partition_specs,
                                            shard_shape)
+from repro_torch.parallel.tensor import partition_specs
 from repro_torch.roofline.analysis import (HW_H100, model_flops,
                                            roofline_terms, two_point_fit)
 from repro_torch.runtime import driver
@@ -187,7 +194,7 @@ class _Frozen:
     off: the state is still an argument, as in ``repro``)."""
 
     @staticmethod
-    def update(grads, state, params):
+    def update(grads, state, params, **_):
         return params, state
 
 
@@ -197,7 +204,10 @@ def build_step(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh,
     device; ``specs`` are the partition specs of ``args``, leaf for leaf."""
     batch = input_specs(arch, shape, META)
     model = lm.param_specs(arch)
-    ppart = param_partition_specs(model, mesh)
+    # on a model axis, the port's own layout (whole heads, whole
+    # recurrent mixers, the data axis replicated)
+    ppart = param_partition_specs(model, mesh) \
+        if mesh.shape.get("model", 1) == 1 else partition_specs(arch, mesh)
     bpart = batch_partition_specs(batch, mesh, kind=shape.kind)
 
     if shape.kind == "train":

@@ -11,7 +11,11 @@ hosts are the ranks of the default process group: under
 ``python -m torch.distributed.run --standalone --nproc-per-node P`` the P
 ranks train data parallel; run plainly, a group of one rank is made here
 (NCCL on the card, gloo on the CPU), so each step still makes its one
-gradient reduction. ``--model-axis`` > 1 (tensor parallelism) is refused.
+gradient reduction. ``--model-axis m`` splits the ranks into ``repro``'s
+(data, model) grid, m ranks a model group (tensor, expert and sequence
+parallelism, ``repro_torch.parallel.tensor``): run it under torchrun with
+a world size that m divides; one process with m > 1 raises ``repro``'s
+"no usable device configuration".
 """
 from __future__ import annotations
 

@@ -11,12 +11,20 @@ under ``repro``'s names and call them. Matmuls run in the config dtype
 (bf16); norms, rotary embeddings, attention and the MoE router compute in
 f32 and cast back, at the same points as ``repro``. The MoE is plain
 PyTorch, as ``repro``'s is plain ``jnp`` outside any Pallas kernel: its
-expert products are three ``torch.bmm`` over (E, C, D) buffers. Not
-ported: ``maybe_shard`` and the MoE's expert-parallel buffer sharding
-(ROADMAP Queue 1, item 7: ``repro_torch.parallel`` describes the specs,
-no model code runs them), and the perf flags (``DECODE_GROUPED_GQA``
-stays at its default, the repeat of the cache's heads; ``MOE_BUF_2D``
-only shards).
+expert products are three ``torch.bmm`` over (E, C, D) buffers.
+
+Built for a model axis (``tp``, a ``parallel.tensor.Axis`` of size m
+> 1), ``Attention`` holds its rank's Hq / m query and Hkv / m kv heads
+where m divides both (else it stays whole), ``MLP`` its d_ff / m hidden
+columns, and ``MoE`` its E / m experts where m divides E (EP, ``repro``'s
+``_moe_buffer_spec`` branch) or else each expert's d_ff / m (expert-TP);
+such a module's output is the rank's partial sum, which the block sums
+over the model group (``models.lm``). The MoE's router, top-k, capacity
+and aux loss stay replicated and equal to ``repro``'s; under EP each rank
+fills only its experts' rows of the dispatch buffer and takes only their
+picks in the combine. Not ported: ``maybe_shard`` (the layouts are the
+modules' own) and the perf flags (``DECODE_GROUPED_GQA`` stays at its
+default, the repeat of the cache's heads; ``MOE_BUF_2D`` only shards).
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.parallel import tensor as par
 
 
 # ---------------------------------------------------------------------------
@@ -191,12 +200,21 @@ class Attention(nn.Module):
     (H Dh, D), and bq/bk/bv with a QKV bias. ``window`` > 0 makes it
     sliding-window attention, whose decode cache is a ring;
     ``causal=False`` makes its full-sequence pass bidirectional (an
-    encoder's, or cross-attention with ``kv``)."""
+    encoder's, or cross-attention with ``kv``). With a model axis ``tp``
+    of size m that divides H and Hkv, it holds heads [i H / m, (i + 1) H
+    / m) and kv heads [i Hkv / m, ...) of rank i (``self.tp`` is set);
+    else it is whole (``self.tp`` None)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int, qkv_bias: bool, rope_theta: float, dtype,
-                 device=None, window: int = 0, causal: bool = True):
+                 device=None, window: int = 0, causal: bool = True,
+                 tp=None):
         super().__init__()
+        m = tp.size if tp is not None else 1
+        self.tp = tp if m > 1 and n_heads % m == 0 \
+            and n_kv_heads % m == 0 else None
+        if self.tp is not None:
+            n_heads, n_kv_heads = n_heads // m, n_kv_heads // m
         self.causal = causal
         self.shape = dict(n_heads=n_heads, n_kv_heads=n_kv_heads,
                           head_dim=head_dim, rope_theta=rope_theta,
@@ -240,9 +258,17 @@ def mlp(p, x, act: str = "silu"):
 
 
 class MLP(nn.Module):
+    """w_gate (swiglu) and w_up (D, F), w_down (F, D); with a model axis
+    ``tp`` of size m that divides F, rank i's F / m hidden columns
+    (``self.tp`` set)."""
+
     def __init__(self, d_model: int, d_ff: int, dtype, device=None,
-                 mlp_type: str = "swiglu", act: str = "silu"):
+                 mlp_type: str = "swiglu", act: str = "silu", tp=None):
         super().__init__()
+        m = tp.size if tp is not None else 1
+        self.tp = tp if m > 1 and d_ff % m == 0 else None
+        if self.tp is not None:
+            d_ff //= m
         self.act = act
         if mlp_type == "swiglu":
             self.w_gate = empty_param((d_model, d_ff), dtype, device)
@@ -262,25 +288,38 @@ class MLP(nn.Module):
 MOE_CHUNK_TOKENS = 1 << 17
 
 
-def moe_route(router, xf, top_k: int):
+def moe_route(router, xf, top_k: int, dp=None):
     """Router and top-k of a flat token block xf (T, D): f32 logits
     ``xf.float() @ router``, softmax, the top_k experts of each token in
     descending weight (``torch.topk``'s sorted order is ``lax.top_k``'s;
     ties are where the two may differ), their weights renormalised by
     max(sum, 1e-9), and the Switch load-balancing loss E * sum_e
-    mean-prob_e * share_e, where share_e is the fraction of the T K picks
-    that went to e (added up as ``repro``'s scatter-add does). Returns
-    (topw (T, K) f32, tope (T, K) int64, aux)."""
+    mean-prob_e * share_e, where share_e is the fraction of the picks
+    that went to e. ``dp``: a data axis (``parallel.tensor.Axis``) whose
+    ranks' blocks (T tokens each, in rank order) route as one, as
+    ``repro``'s jitted step routes its global batch: the aux is that of
+    the d T tokens, the mean probabilities summed over the axis
+    (``reduce_from``) and the shares from every rank's pick counts
+    (``gather_rows``); each rank back-propagates d times the replicated
+    aux, since the trainer averages its ranks' gradients. Without a split
+    axis both collectives return their input. Returns (topw (T, K) f32,
+    tope (T, K) int64, aux, before): ``before`` (E,) the picks of each
+    expert on the ranks before this one, which offset its places (None
+    without a data axis)."""
     T = xf.shape[0]
     E = router.shape[1]
+    d = 1 if dp is None else dp.size
     probs = torch.softmax(xf.float() @ router, dim=-1)
     topw, tope = torch.topk(probs, top_k, dim=-1, sorted=True)
     topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
-    share = torch.zeros(E, dtype=torch.float32, device=xf.device).index_add_(
-        0, tope.reshape(-1), torch.full((T * top_k,), 1.0 / (T * top_k),
-                                        dtype=torch.float32,
+    counts = torch.zeros(E, dtype=torch.float32, device=xf.device).index_add_(
+        0, tope.reshape(-1), torch.ones(T * top_k, dtype=torch.float32,
                                         device=xf.device))
-    return topw, tope, E * torch.sum(probs.mean(0) * share)
+    every = par.gather_rows(counts[None], dp)                # (d, E)
+    mean = par.reduce_from(probs.sum(0), dp) / (T * d)
+    aux = E * torch.sum(mean * (every.sum(0) / (T * top_k * d)))
+    before = None if dp is None else every[:dp.index].sum(0).long()
+    return topw, tope, par.scale_grad(aux, float(d)), before
 
 
 def expert_places(e_flat, n_experts: int):
@@ -301,25 +340,37 @@ def expert_places(e_flat, n_experts: int):
         0, order, pick - first[key // n])
 
 
-def moe_dispatch(xf, tope, n_experts: int, capacity: int):
+def moe_dispatch(xf, tope, n_experts: int, capacity: int, first: int = 0,
+                 count: int | None = None, before=None):
     """The (E, C, D) expert buffers of xf (T, D) for the picks tope
     (T, K). The T K picks, token-major with slot k = 0 the highest
     weight, take places in their expert in that order
     (``expert_places``); a pick at place C or later is dropped. Only the
     kept rows are written (their (expert, place) are unique), which
-    equals ``repro``'s scatter-add of zeros for the dropped ones. Returns
-    (buf, row, keep): row e C + place of each pick in the flattened
-    buffer (E C for a dropped one), keep its mask, each (T K,)."""
+    equals ``repro``'s scatter-add of zeros for the dropped ones. With
+    ``count`` < E (EP) the buffers are those of experts [first, first +
+    count) only, and every other expert's pick is dropped here.
+    ``before`` (E,): the picks of each expert ahead of this block (routed
+    over a data axis), added to its places. Returns
+    (buf, row, keep): row (e - first) C + place of each pick in the
+    flattened buffer (count C for a dropped one), keep its mask, each
+    (T K,)."""
     T, D = xf.shape
     K = tope.shape[1]
+    count = n_experts if count is None else count
     e_flat = tope.reshape(T * K)
     place = expert_places(e_flat, n_experts)
+    if before is not None:
+        place = place + before[e_flat]
     keep = place < capacity
-    row = torch.where(keep, e_flat * capacity + place, n_experts * capacity)
+    if count != n_experts:
+        e_flat = e_flat - first
+        keep = keep & (e_flat >= 0) & (e_flat < count)
+    row = torch.where(keep, e_flat * capacity + place, count * capacity)
     # A spare last row takes the dropped picks and is cut off.
-    buf = xf.new_zeros((n_experts * capacity + 1, D)).index_copy(
+    buf = xf.new_zeros((count * capacity + 1, D)).index_copy(
         0, row, torch.repeat_interleave(xf, K, dim=0))
-    return buf[:-1].view(n_experts, capacity, D), row, keep
+    return buf[:-1].view(count, capacity, D), row, keep
 
 
 def expert_ffn(p, buf, act: str = "silu"):
@@ -342,30 +393,52 @@ def moe_combine(out_buf, row, keep, topw):
 
 
 def moe_tokens(p, xf, *, n_experts: int, top_k: int,
-               capacity_factor: float, act: str = "silu"):
+               capacity_factor: float, act: str = "silu", tp=None, sp=None,
+               dp=None):
     """Capacity-based top-k MoE over a flat token block xf (T, D), with
     capacity C = max(int(T K / E * capacity_factor), 4) a expert.
-    Returns (out (T, D), aux)."""
-    T = xf.shape[0]
-    topw, tope, aux = moe_route(p["router"], xf, top_k)
+    Returns (out (T, D), aux).
+
+    ``tp``: the model axis when ``p`` holds this rank's experts (EP:
+    ``w_gate`` has fewer than E rows) or each expert's share of d_ff
+    (expert-TP); ``out`` is then the rank's partial sum. ``sp``: the model
+    axis when xf is the sequence gathered under SP; each rank then
+    back-propagates 1 / m of the replicated aux, and its router's
+    gradient is a partial sum. Without ``sp``, a split MoE's input and
+    weights enter through ``copy_to``, so the router's gradient is whole
+    on every rank. ``dp``: a data axis (``parallel.tensor.Axis``) of d >
+    1 ranks whose blocks route together (``moe_route``), with the
+    capacity of their d T tokens."""
+    topw, tope, aux, before = moe_route(p["router"], xf, top_k, dp)
+    T = xf.shape[0] * (1 if dp is None else dp.size)
+    if sp is not None:
+        aux = par.scale_grad(aux, 1.0 / sp.size)
+    elif tp is not None:
+        xf, topw = par.copy_to(xf, tp), par.copy_to(topw, tp)
     C = max(int(T * top_k / n_experts * capacity_factor), 4)
-    buf, row, keep = moe_dispatch(xf, tope, n_experts, C)
+    count = p["w_gate"].shape[0]
+    first = tp.index * count if count < n_experts else 0
+    buf, row, keep = moe_dispatch(xf, tope, n_experts, C, first, count,
+                                  before)
     return moe_combine(expert_ffn(p, buf, act), row, keep, topw), aux
 
 
 def moe(p, x, *, n_experts: int, top_k: int, capacity_factor: float = 1.25,
-        act: str = "silu", chunk_tokens: int | None = None):
+        act: str = "silu", chunk_tokens: int | None = None, tp=None,
+        sp=None, dp=None):
     """GShard-style capacity-based top-k MoE of x (B, S, D) -> (out, aux).
     Token blocks of more than ``chunk_tokens`` (default
     ``MOE_CHUNK_TOKENS``) that it divides run chunk by chunk, capacity
-    per chunk, aux the mean over the chunks, as in ``repro``."""
+    per chunk, aux the mean over the chunks, as in ``repro``. ``tp``,
+    ``sp`` and ``dp``: see :func:`moe_tokens`."""
     B, S, D = x.shape
     T = B * S
     xf = x.reshape(T, D)
     if chunk_tokens is None:
         chunk_tokens = MOE_CHUNK_TOKENS
     kw = dict(n_experts=n_experts, top_k=top_k,
-              capacity_factor=capacity_factor, act=act)
+              capacity_factor=capacity_factor, act=act, tp=tp, sp=sp,
+              dp=dp)
     if chunk_tokens and T > chunk_tokens and T % chunk_tokens == 0:
         outs, auxs = zip(*(moe_tokens(p, xc, **kw)
                            for xc in xf.split(chunk_tokens)))
@@ -376,20 +449,33 @@ def moe(p, x, *, n_experts: int, top_k: int, capacity_factor: float = 1.25,
 
 class MoE(nn.Module):
     """MoE weights: ``router`` (D, E) in f32 whatever the config dtype,
-    ``w_gate`` and ``w_up`` (E, D, F), ``w_down`` (E, F, D)."""
+    ``w_gate`` and ``w_up`` (E, D, F), ``w_down`` (E, F, D). With a model
+    axis ``tp`` of size m: rank i's experts [i E / m, (i + 1) E / m)
+    where m divides E (EP), else each expert's F / m hidden columns where
+    m divides F (expert-TP), else whole (``self.tp`` None); the router
+    is whole on every rank."""
 
     def __init__(self, d_model: int, d_ff: int, n_experts: int, top_k: int,
                  capacity_factor: float, dtype, device=None,
-                 act: str = "silu"):
+                 act: str = "silu", tp=None):
         super().__init__()
+        m = tp.size if tp is not None else 1
+        ep = m > 1 and n_experts % m == 0
+        self.tp = tp if ep or (m > 1 and d_ff % m == 0) else None
+        experts = n_experts // m if ep else n_experts
+        if self.tp is not None and not ep:
+            d_ff //= m
         self.shape = dict(n_experts=n_experts, top_k=top_k,
                           capacity_factor=capacity_factor, act=act)
         self.router = empty_param((d_model, n_experts), torch.float32,
                                   device)
-        self.w_gate = empty_param((n_experts, d_model, d_ff), dtype, device)
-        self.w_up = empty_param((n_experts, d_model, d_ff), dtype, device)
-        self.w_down = empty_param((n_experts, d_ff, d_model), dtype, device)
+        self.w_gate = empty_param((experts, d_model, d_ff), dtype, device)
+        self.w_up = empty_param((experts, d_model, d_ff), dtype, device)
+        self.w_down = empty_param((experts, d_ff, d_model), dtype, device)
 
-    def forward(self, x):
-        """(out, aux) of x (B, S, D)."""
-        return moe(dict(self.named_parameters()), x, **self.shape)
+    def forward(self, x, sp=None, dp=None):
+        """(out, aux) of x (B, S, D); ``sp``: the model axis when x is the
+        sequence gathered under SP; ``dp``: the data axis whose ranks'
+        tokens route together (see :func:`moe_tokens`)."""
+        return moe(dict(self.named_parameters()), x, **self.shape,
+                   tp=self.tp, sp=sp, dp=dp)

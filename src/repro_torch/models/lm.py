@@ -64,12 +64,27 @@ in ``repro``. As in ``repro`` too, decode carries no patches.
 ``param_specs`` gives the parameters on the meta device and
 ``param_count`` counts the leaves, for the dry run
 (``repro_torch.launch.dryrun``; ``init_cache(..., device="meta")`` is
-``repro``'s ``cache_specs``). ``repro``'s ``shard_acts`` raises
-``NotImplementedError``: the port's sharding rules
-(``repro_torch.parallel``) describe a mesh, but no model code runs tensor
-or expert parallelism or ``shard_acts`` yet (ROADMAP Queue 1, item 7).
-``unroll_layers`` is not ported: a layer here is a module, and the dry
-run counts each one as it runs.
+``repro``'s ``cache_specs``). ``unroll_layers`` is not ported: a layer
+here is a module, and the dry run counts each one as it runs.
+
+Tensor, expert and sequence parallelism (``parallel.tensor``): an LM
+built for a model axis (``LM(arch, device, axis)``, ``init_params(...,
+axis=)``) holds its rank's shards: heads, hidden columns, experts (see
+``models.layers``) and, where the axis divides it, its block of the
+vocabulary. A block takes its split mixers' input through ``copy_to``
+and sums their partial outputs with ``reduce_from``. ``train_loss(...,
+shard_acts=True)`` keeps the residual stream (B, L / m, D) per rank
+between blocks (``repro``'s ``activation_spec``), Megatron's sequence
+parallelism: the norms run on the rank's positions, ``gather_seq`` feeds
+each mixer the whole sequence and ``scatter_seq`` sums and splits its
+output; a whole mixer (hymba's attention at m = 2, the recurrent
+mixers) runs on the gathered sequence and keeps its rank's positions. A
+split vocabulary embeds the rank's rows (zero elsewhere) and sums, and
+the loss is a vocab-parallel cross entropy (the max and the sums over
+the model group; the gold logit ``repro``'s masked reduction). A model
+on a model axis of m > 1 trains; it does not decode (the server runs on
+one rank), and its ``forward`` logits are its rank's vocabulary columns
+where the vocabulary is split.
 """
 from __future__ import annotations
 
@@ -85,6 +100,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
+from repro_torch.parallel import tensor as par
 
 REMAT = ("none", "full", "dots")
 # The operations whose outputs "dots" keeps (jax's checkpoint_dots saves
@@ -187,20 +203,23 @@ class Block(nn.Module):
     ``slstm`` block is ``norm1`` and its cell alone. A decoder block of an
     encoder-decoder arch adds ``norm_x`` and ``xattn`` (bidirectional,
     no rope, no QKV bias); an ``encoder`` block's attention is
-    bidirectional and takes no rope, as ``_encoder_forward``'s."""
+    bidirectional and takes no rope, as ``_encoder_forward``'s. ``tp``:
+    the model axis its attention, MLP and MoE are split over (the
+    recurrent mixers stay whole)."""
 
     def __init__(self, arch: ArchConfig, kind: str, device=None,
-                 encoder: bool = False):
+                 encoder: bool = False, tp=None):
         super().__init__()
         dt, D = arch.torch_dtype, arch.d_model
         self.kind = kind
+        self.tp = tp
         self.norm1 = L.RMSNorm(D, dt, device)
         if kind in ATTENTION_KINDS:
             self.attn = L.Attention(D, arch.n_heads, arch.n_kv_heads,
                                     arch.head_dim_, arch.qkv_bias,
                                     0.0 if encoder else arch.rope_theta, dt,
                                     device, window=block_window(arch, kind),
-                                    causal=not encoder)
+                                    causal=not encoder, tp=tp)
         if kind in SSM_KINDS:
             self.ssm = R.SSMHeads(D, arch.ssm_heads or arch.n_heads,
                                   arch.ssm_state, dt, device)
@@ -212,46 +231,86 @@ class Block(nn.Module):
             self.norm2 = L.RMSNorm(D, dt, device)
             if kind == "moe":
                 self.moe = L.MoE(D, arch.d_ff, arch.n_experts, arch.top_k,
-                                 arch.capacity_factor, dt, device, arch.act)
+                                 arch.capacity_factor, dt, device, arch.act,
+                                 tp=tp)
             else:
                 self.mlp = L.MLP(D, arch.d_ff, dt, device, arch.mlp_type,
-                                 arch.act)
+                                 arch.act, tp=tp)
         if arch.is_encdec and not encoder:
             self.norm_x = L.RMSNorm(D, dt, device)
             self.xattn = L.Attention(D, arch.n_heads, arch.n_kv_heads,
                                      arch.head_dim_, False, 0.0, dt, device,
-                                     causal=False)
+                                     causal=False, tp=tp)
 
-    def _cross(self, x, enc_out):
-        """x plus the cross-attention of norm_x(x) over ``enc_out``."""
-        kv = cross_kv(self.xattn, enc_out)
-        return x + self.xattn(self.norm_x(x), kv=kv)[0]
+    def _leave(self, y, mod, sp: bool):
+        """A mixer's output y as the block's stream holds it: a split
+        mixer's partial sums summed over the model group (and, under SP,
+        split over the sequence); a whole mixer's, under SP, this rank's
+        positions."""
+        if getattr(mod, "tp", None) is not None:
+            return par.scatter_seq(y, self.tp) if sp \
+                else par.reduce_from(y, self.tp)
+        return par.local_chunk(y, self.tp) if sp else y
 
-    def _ffn(self, x):
-        """(ffn(norm2 x), the MoE's aux or None)."""
+    def _mix(self, mod, h, sp: bool, **kw):
+        """``mod``'s output (its first, for a tuple) on h, the block's
+        normed input (gathered over the sequence under SP), as the stream
+        holds it (:meth:`_leave`)."""
+        if getattr(mod, "tp", None) is not None and not sp:
+            h = par.copy_to(h, self.tp)
+        y = mod(h, **kw)
+        return self._leave(y[0] if isinstance(y, tuple) else y, mod, sp)
+
+    def _cross(self, x, enc_out, sp: bool = False):
+        """x plus the cross-attention of norm_x(x) over ``enc_out``. The
+        encoder's stream is whole on every rank: it enters through
+        ``copy_to`` where the ranks' shares of its gradient differ."""
+        h = self.norm_x(x)
+        if self.tp is None:
+            return x + self.xattn(h, kv=cross_kv(self.xattn, enc_out))[0]
+        if self.xattn.tp is not None or sp:
+            enc_out = par.copy_to(enc_out, self.tp)
+        if sp:
+            h = par.gather_seq(h, self.tp)
+        return x + self._mix(self.xattn, h, sp,
+                             kv=cross_kv(self.xattn, enc_out))
+
+    def _ffn(self, x, sp: bool = False, dp=None):
+        """(ffn(norm2 x), the MoE's aux or None); ``dp``: the data axis
+        whose ranks' tokens the MoE routes together."""
         h = self.norm2(x)
         if hasattr(self, "moe"):
-            return self.moe(h)
-        return self.mlp(h), None
+            if not sp:
+                y, aux = self.moe(h, dp=dp)
+                return self._leave(y, self.moe, False), aux
+            y, aux = self.moe(par.gather_seq(h, self.tp), sp=self.tp, dp=dp)
+            return self._leave(y, self.moe, True), aux
+        if self.mlp.tp is None:             # per position: the rank's own
+            return self.mlp(h), None
+        return self._mix(self.mlp, par.gather_seq(h, self.tp) if sp else h,
+                         sp), None
 
-    def forward(self, x, enc_out=None):
+    def forward(self, x, enc_out=None, sp: bool = False, dp=None):
         """(x after the block, the MoE's aux or None); with ``enc_out``,
         a decoder block's cross step runs after its self-attention (or
-        SSM) residual, before ``norm2``."""
+        SSM) residual, before ``norm2``. ``sp``: x is this rank's
+        positions (SP on the block's model axis); ``dp``: see
+        :meth:`_ffn`."""
         h = self.norm1(x)
-        if self.kind == "mlstm":
-            return x + self.mlstm(h)[0], None
-        if self.kind == "slstm":
-            return x + self.slstm(h)[0], None
+        if sp:
+            h = par.gather_seq(h, self.tp)
+        if self.kind in ("mlstm", "slstm"):
+            return x + self._mix(getattr(self, self.kind), h, sp), None
         if self.kind == "hybrid":
-            x = x + 0.5 * (self.attn(h)[0] + self.ssm(h)[0])
+            x = x + 0.5 * (self._mix(self.attn, h, sp)
+                           + self._mix(self.ssm, h, sp))
         elif self.kind == "mamba_mlp":
-            x = x + self.ssm(h)[0]
+            x = x + self._mix(self.ssm, h, sp)
         else:
-            x = x + self.attn(h)[0]
+            x = x + self._mix(self.attn, h, sp)
         if enc_out is not None and hasattr(self, "xattn"):
-            x = self._cross(x, enc_out)
-        f, aux = self._ffn(x)
+            x = self._cross(x, enc_out, sp)
+        f, aux = self._ffn(x, sp, dp)
         return x + f, aux
 
     def decode(self, x, cache: Dict[str, List], i: int, pos: int):
@@ -288,13 +347,14 @@ class Encoder(nn.Module):
     """The encoder of an encoder-decoder arch, ``repro``'s ``encoder``
     leaves and ``_encoder_forward``: ``layers.{j}`` (``attn_mlp``
     blocks, bidirectional, no rope, no cross step), ``pos_embed``
-    (encoder_seq, D), added to the frames, and ``final_norm``."""
+    (encoder_seq, D), added to the frames, and ``final_norm``. It runs
+    without SP: its stream is whole on every rank of ``tp``."""
 
-    def __init__(self, arch: ArchConfig, device=None):
+    def __init__(self, arch: ArchConfig, device=None, tp=None):
         super().__init__()
         dt, D = arch.torch_dtype, arch.d_model
         self.layers = nn.ModuleList(
-            Block(arch, "attn_mlp", device, encoder=True)
+            Block(arch, "attn_mlp", device, encoder=True, tp=tp)
             for _ in range(arch.encoder_layers))
         self.final_norm = L.RMSNorm(D, dt, device)
         self.pos_embed = L.empty_param((arch.encoder_seq, D), dt, device)
@@ -313,41 +373,76 @@ class LM(nn.Module):
     ``layers.{i}.*`` (see :class:`Block`), ``final_norm.scale``,
     ``unembed`` (D, V) (absent with tied embeddings), ``meta`` (M, D)
     with M = ``arch.meta_tokens`` > 0 and, for an encoder-decoder arch,
-    ``encoder.*`` (see :class:`Encoder`)."""
+    ``encoder.*`` (see :class:`Encoder`). Built for a model axis ``axis``
+    of size m > 1 (``parallel.tensor.Axis``), each module holds its
+    rank's shards, and ``embed`` / ``unembed`` their block of V / m rows /
+    columns where m divides V (``vocab_split``)."""
 
-    def __init__(self, arch: ArchConfig, device=None):
+    def __init__(self, arch: ArchConfig, device=None, axis=None):
         super().__init__()
         check_ported(arch)
         self.arch = arch
+        self.axis = axis if axis is not None and axis.size > 1 else None
+        m = axis.size if self.axis is not None else 1
         dt, D, V = arch.torch_dtype, arch.d_model, arch.vocab_size
+        self.vocab_split = m > 1 and V % m == 0
+        if self.vocab_split:
+            V //= m
         self.embed = L.empty_param((V, D), dt, device)
-        self.layers = nn.ModuleList(Block(arch, arch.block_at(i), device)
-                                    for i in range(arch.n_layers))
+        self.layers = nn.ModuleList(
+            Block(arch, arch.block_at(i), device, tp=self.axis)
+            for i in range(arch.n_layers))
         self.final_norm = L.RMSNorm(D, dt, device)
         if not arch.tie_embeddings:
             self.unembed = L.empty_param((D, V), dt, device)
         if arch.meta_tokens:
             self.meta = L.empty_param((arch.meta_tokens, D), dt, device)
         if arch.is_encdec:
-            self.encoder = Encoder(arch, device)
+            self.encoder = Encoder(arch, device, tp=self.axis)
+
+    def _rows(self, tokens):
+        """The tokens' embedding rows; of a split vocabulary, this rank's
+        rows, zero for a token outside its block."""
+        if not self.vocab_split:
+            return self.embed[tokens.long()]
+        n = self.embed.shape[0]
+        t = tokens.long() - self.axis.index * n
+        inside = (t >= 0) & (t < n)
+        return torch.where(inside[..., None],
+                           self.embed[t.clamp(0, n - 1)], 0)
 
     def _embed(self, tokens, extras=None, pos0: int = 0,
-               prefix: bool = True):
+               prefix: bool = True, sp: bool = False):
         """The tokens' embedding rows plus the sinusoid at positions pos0
         + [0, S) where the arch takes sinusoidal positions; then, where
         ``prefix`` is set, ``extras["patches"]`` prepended for a
         vision-stub arch, then the ``meta`` rows broadcast over the batch
-        where the arch has them (``repro``'s ``_embed``, in its order)."""
-        x = self.embed[tokens.long()]
-        if self.arch.pos_embed == "sinusoidal":
+        where the arch has them (``repro``'s ``_embed``, in its order).
+        A split vocabulary's rows are summed over the model group; under
+        ``sp`` the sum is a reduce-scatter over the sequence, so only the
+        model group's first rank adds the rest, and the result is this
+        rank's positions."""
+        x = self._rows(tokens)
+        split = self.vocab_split
+        own = not (split and sp) or self.axis.index == 0
+        if split and not sp:
+            x = par.reduce_from(x, self.axis)
+        if self.arch.pos_embed == "sinusoidal" and own:
             pos = pos0 + torch.arange(tokens.shape[1], device=x.device)
             x = x + sinusoid(pos, self.arch.d_model)[None].to(x.dtype)
+        rows = []
         if prefix and self.arch.frontend == "vision_stub" and extras \
                 and "patches" in extras:
-            x = torch.cat([extras["patches"].to(x.dtype), x], dim=1)
+            rows.append(extras["patches"].to(x.dtype))
         if prefix and self.arch.meta_tokens:
-            meta = self.meta[None].expand(x.shape[0], -1, -1)
-            x = torch.cat([meta.to(x.dtype), x], dim=1)
+            rows.insert(0, self.meta[None].expand(x.shape[0], -1, -1)
+                        .to(x.dtype))
+        for r in reversed(rows):
+            x = torch.cat([r if own else torch.zeros_like(r), x], dim=1)
+        if sp:
+            par.seq_split(x.shape[1], self.axis)
+            x = par.scatter_seq(x, self.axis) if split \
+                else par.local_chunk(x, self.axis)
         return x
 
     def _logits(self, x):
@@ -355,8 +450,12 @@ class LM(nn.Module):
         unembed = self.embed.T if self.arch.tie_embeddings else self.unembed
         return x @ unembed
 
-    def _hidden(self, tokens, extras=None, remat: str = "none"):
-        """(last hidden state, the MoE layers' aux summed in f32)."""
+    def _hidden(self, tokens, extras=None, remat: str = "none",
+                sp: bool = False, dp=None):
+        """(last hidden state, the MoE layers' aux summed in f32); under
+        ``sp`` (a model axis of m > 1) the state is this rank's
+        positions; ``dp``: the data axis whose ranks' tokens the MoE
+        layers route together."""
         extras = {k: torch.as_tensor(v, device=self.embed.device)
                   for k, v in (extras or {}).items()}
         enc_out = None
@@ -367,11 +466,12 @@ class LM(nn.Module):
                     f"forward needs extras['frames'] (B, "
                     f"{self.arch.encoder_seq}, {self.arch.d_model})")
             enc_out = self.encoder(extras["frames"], remat)
-        x = self._embed(tokens, extras)
+        sp = sp and self.axis is not None
+        x = self._embed(tokens, extras, sp=sp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
-            fn = blk if enc_out is None else functools.partial(
-                blk, enc_out=enc_out)
+            fn = blk if enc_out is None and not sp and dp is None \
+                else functools.partial(blk, enc_out=enc_out, sp=sp, dp=dp)
             x, a = _checkpointed(fn, x, remat)
             if a is not None:
                 aux = aux + a
@@ -419,7 +519,11 @@ class LM(nn.Module):
         ``cache`` (from ``init_cache``), which is updated IN PLACE; an
         MoE layer routes the B tokens together; an encoder-decoder arch's
         layers attend to their ``cross_k`` / ``cross_v``. Returns (logits
-        (B, 1, V), cache)."""
+        (B, 1, V), cache). One rank only: a model on a model axis of m >
+        1 raises."""
+        if self.axis is not None:
+            raise ValueError("decode runs on one rank: this model is split "
+                             f"over a model axis of {self.axis.size}")
         x = self._embed(tokens, pos0=pos, prefix=False)
         for i, blk in enumerate(self.layers):
             x = blk.decode(x, cache, i, pos)
@@ -427,39 +531,84 @@ class LM(nn.Module):
 
 
 def train_loss(model: LM, batch: Dict, aux_weight: float = 0.01,
-               remat: str = "none", shard_acts: bool = False):
+               remat: str = "none", shard_acts: bool = False, data=None):
     """The mean next-token cross-entropy of ``batch`` (``{"tokens": (B,
     S), "targets": (B, S)}``, tensors or numpy arrays, moved to the
     model's device; every other key, ``frames`` or ``patches``, goes to
     the forward as an extra), as ``repro``'s ``train_loss`` computes it:
     f32 logits, logsumexp minus the gold logit, the mean. The gold logit
-    is a ``torch.gather``, the same function as ``repro``'s masked
-    reduction over the vocabulary (which exists for a sharded vocabulary,
-    which the port does not have). Plus ``aux_weight`` times the MoE
+    is a ``torch.gather`` on one rank, the same function as ``repro``'s
+    masked reduction over the vocabulary, which a split vocabulary runs
+    (:func:`_vocab_parallel_ce`). Plus ``aux_weight`` times the MoE
     layers' summed load-balancing loss (0 without MoE layers), as in
     ``repro``. The positions that ``forward`` prepends (patches, meta
-    tokens) carry no loss."""
-    if shard_acts:
-        raise NotImplementedError(
-            "shard_acts (sequence-parallel activations over a mesh's 'model' "
-            "axis) is not ported (ROADMAP Queue 1, item 7)")
+    tokens) carry no loss. ``shard_acts``: sequence parallelism over the
+    model's model axis (see the module docstring); on one rank it changes
+    nothing. The loss is the same on every rank of the model axis.
+    ``data``: the data axis (``parallel.tensor.Axis``) of a trainer's
+    ranks, whose batches an MoE layer routes as one, as ``repro``'s
+    jitted step routes its global batch (``layers.moe_route``)."""
     dev = model.embed.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev).long()
     extras = {k: v for k, v in batch.items()
               if k not in ("tokens", "targets")}
-    logits, aux = model.forward_aux(tokens, extras, remat=remat)
+    data = data if data is not None and data.size > 1 else None
+    x, aux = model._hidden(tokens, extras, remat, shard_acts, data)
+    if model.vocab_split or (shard_acts and model.axis is not None):
+        return _split_loss(model, x, targets, shard_acts) + aux_weight * aux
+    logits = model._logits(x)
     logits = logits[:, logits.shape[1] - targets.shape[1]:].float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return torch.mean(logz - gold) + aux_weight * aux
 
 
+def _vocab_parallel_ce(logits, targets, axis, first: int):
+    """The mean over positions of logsumexp minus the gold logit, of f32
+    logits (B, S, V / m) that hold the vocabulary's columns [first, first
+    + V / m) on each rank of ``axis``: the max over the model group
+    (no gradient: the shift cancels), the sums of exp and of ``repro``'s
+    masked gold reduction in one ``reduce_from``."""
+    mx = par.max_over(logits.detach().amax(-1), axis)
+    iota = torch.arange(first, first + logits.shape[-1],
+                        device=logits.device)
+    gold = torch.where(iota == targets[..., None], logits, 0.0).sum(-1)
+    sums = par.reduce_from(torch.stack(
+        [torch.exp(logits - mx[..., None]).sum(-1), gold]), axis)
+    return torch.mean(mx + torch.log(sums[0]) - sums[1])
+
+
+def _split_loss(model: LM, x, targets, sp: bool):
+    """``train_loss``'s cross entropy of the last hidden state x of a
+    model on a model axis whose vocabulary is split, or (``sp``) whose
+    x is this rank's positions."""
+    ax = model.axis
+    S = targets.shape[1]
+    x = model.final_norm(x)
+    unembed = model.embed.T if model.arch.tie_embeddings else model.unembed
+    if model.vocab_split:
+        x = par.gather_seq(x, ax) if sp else par.copy_to(x, ax)
+        logits = (x[:, x.shape[1] - S:] @ unembed).float()
+        return _vocab_parallel_ce(logits, targets, ax,
+                                  ax.index * unembed.shape[1])
+    # a whole vocabulary under SP: this rank's positions past the prefix
+    n = x.shape[1]
+    start, prefix = ax.index * n, n * ax.size - S
+    skip = min(max(prefix - start, 0), n)
+    t = targets[:, start + skip - prefix:max(start + n - prefix, 0)]
+    logits = (x[:, skip:] @ unembed).float()
+    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    per = torch.logsumexp(logits, dim=-1) - gold
+    return par.reduce_from(per.sum(), ax) / targets.numel()
+
+
 # The recurrent blocks' biases, filled with constants, not drawn.
 _BIAS_FILL = {"b_decay": 2.0, "b_f": 3.0}
 
 
-def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:
+def init_params(arch: ArchConfig, seed: int = 0, device="cuda",
+                axis=None) -> LM:
     """An :class:`LM` with random weights from ``seed``, drawn on
     ``device`` by a ``torch.Generator`` at ``repro``'s scales: N(0, 1) in
     f32 times fan_in ** -0.5 for the dense matrices (shape[0]; the MoE
@@ -471,9 +620,13 @@ def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:
     QKV biases 0, the SSM decay bias ``b_decay`` 2 and the mLSTM forget
     bias ``b_f`` 3, as ``repro``'s inits fill them. (Not
     ``jax.random``'s numbers: weights cross from ``repro`` through
-    ``convert.lm_params_from_numpy``.)"""
+    ``convert.lm_params_from_numpy``.) On a model ``axis`` each leaf is
+    drawn whole, in the same order, and the rank keeps its shard, so the
+    ranks of every model axis start from the one-rank model."""
     dev = resolve_device(device)
-    model = LM(arch, dev)
+    model = LM(arch, dev, axis)
+    m = model.axis.size if model.axis is not None else 1
+    lay = par.layout(arch, m) if m > 1 else {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     with torch.no_grad():
@@ -486,18 +639,21 @@ def init_params(arch: ArchConfig, seed: int = 0, device="cuda") -> LM:
             elif leaf in _BIAS_FILL:
                 p.fill_(_BIAS_FILL[leaf])
             else:
+                dim = lay.get(name)
+                shape = par.full_shape(p.shape, dim, m)
                 if leaf.startswith("r_"):          # (H, dh, dh)
-                    fan_in = p.shape[-1]
+                    fan_in = shape[-1]
                 elif p.dim() == 3:                 # (E, fan_in, out)
-                    fan_in = p.shape[1]
+                    fan_in = shape[1]
                 else:
-                    fan_in = p.shape[0]
+                    fan_in = shape[0]
                 std = {"embed": 0.02, "meta": 0.02,
                        "encoder.pos_embed": 0.02,
                        "unembed": arch.d_model ** -0.5}.get(
                     name, fan_in ** -0.5)
-                p.copy_(torch.randn(p.shape, generator=gen, device=dev,
-                                    dtype=torch.float32).mul_(std))
+                p.copy_(par.cut(torch.randn(
+                    shape, generator=gen, device=dev,
+                    dtype=torch.float32).mul_(std), dim, model.axis))
     return model
 
 
@@ -547,11 +703,11 @@ def init_cache(arch: ArchConfig, batch: int, seq_len: int,
     return cache
 
 
-def param_specs(arch: ArchConfig) -> LM:
+def param_specs(arch: ArchConfig, axis=None) -> LM:
     """An :class:`LM` of ``arch`` on the meta device: every parameter's
     name, shape and dtype, nothing allocated (``repro``'s
-    ``param_specs``)."""
-    return LM(arch, torch.device("meta"))
+    ``param_specs``); with a model ``axis``, one rank's shards."""
+    return LM(arch, torch.device("meta"), axis)
 
 
 def param_count(arch: ArchConfig, include_embed: bool = True) -> int:

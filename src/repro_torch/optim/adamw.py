@@ -10,7 +10,8 @@ tensors and each product rounds where ``repro``'s does. The update runs
 in place, one leaf at a time, so its f32 temporaries are one leaf's size.
 
 A tree is a dict or a list of tensors (the trainer passes the model's
-``named_parameters`` as a dict). ``state_specs`` gives the state's
+``named_parameters`` as a dict). On a model axis the trees hold the
+rank's shards, and the clip's norm is the whole model's. ``state_specs`` gives the state's
 partition specs (``repro_torch.parallel.sharding``) from the parameters'.
 """
 from __future__ import annotations
@@ -20,6 +21,8 @@ import math
 from typing import Callable, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.core import linalg
 
 F32 = torch.float32
 
@@ -79,19 +82,32 @@ class AdamW:
                           nu=_map(lambda s: s, param_specs_tree))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params
-               ) -> Tuple[object, AdamWState]:
+    def update(self, grads, state: AdamWState, params, axis=None,
+               split=frozenset()) -> Tuple[object, AdamWState]:
         """Apply one step to ``params`` IN PLACE from ``grads`` (the same
         keys; any float dtype). The state's step and moments update in
-        place too. Returns (params, state), the same objects."""
+        place too. Returns (params, state), the same objects.
+
+        ``axis``: the model axis (``parallel.tensor.Axis``) the
+        parameters are split over, ``split`` the keys of the leaves it
+        splits: the clip's global norm then sums those leaves' squares over
+        the model group and counts each whole leaf, equal on every model
+        rank, once. The update itself is elementwise on the shards."""
         keys = _keys(params)
         dev = state.step.device
         scalar = lambda x: torch.tensor(x, dtype=F32, device=dev)
         step = state.step.add_(1)
         scale = None
         if self.clip_norm > 0:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[k].to(F32)))
-                                   for k in keys))
+            sq = lambda k: torch.sum(torch.square(grads[k].to(F32)))
+            if axis is None or axis.size == 1:
+                gnorm = torch.sqrt(sum(sq(k) for k in keys))
+            else:
+                shards = sum((sq(k) for k in keys if k in split),
+                             scalar(0.0))
+                gnorm = torch.sqrt(sum(sq(k) for k in keys if k not in split)
+                                   + linalg.preduce(shards, axis.group,
+                                                    counted=False))
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
         b1, b2 = scalar(self.b1), scalar(self.b2)

@@ -1,3 +1,4 @@
+from repro_torch.parallel import tensor
 from repro_torch.parallel.sharding import (P, PartitionSpec, activation_spec,
                                            batch_partition_specs, dp_axes,
                                            get_abstract_mesh, named_shardings,
@@ -7,4 +8,4 @@ from repro_torch.parallel.sharding import (P, PartitionSpec, activation_spec,
 __all__ = ["P", "PartitionSpec", "activation_spec", "batch_partition_specs",
            "dp_axes", "get_abstract_mesh", "named_shardings",
            "param_partition_specs", "placements", "sanitize_spec",
-           "shard_shape"]
+           "shard_shape", "tensor"]

@@ -28,9 +28,10 @@ tp) keeps tp alone here: the port has no group axis to split over
 
 ``named_shardings`` gives ``torch.distributed.tensor`` placements
 (``Shard(d)`` / ``Replicate()`` per mesh dimension) on a built
-``DeviceMesh``. Not ported (ROADMAP Queue 1, item 7): tensor and expert
-parallelism in the model code and ``shard_acts``; the specs describe
-them, nothing yet runs them.
+``DeviceMesh``. The trainer's tensor, expert and sequence parallelism
+(``repro_torch.parallel.tensor``) runs these rules' 'model' axis, but for
+the leaves it keeps whole (whole heads, the recurrent mixers), and
+replicates over 'data' where these rules shard (FSDP).
 """
 from __future__ import annotations
 

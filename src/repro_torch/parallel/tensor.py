@@ -1,0 +1,367 @@
+"""Tensor, expert and sequence parallelism over a (data, model) grid of
+ranks: the grid, the model axis's collectives, and the layout that cuts
+each parameter into its rank's shard and gathers it back.
+
+The grid is ``repro``'s ``build_mesh``: n ranks in ``repro``'s order,
+``reshape(n // model_axis, model_axis)``, so rank r sits at data index
+r // m and model index r % m. :func:`build_grid` makes the model group
+(the m ranks of one data index) and the data group (the ranks of one
+model index) and returns them with the rank's two indices. A model is
+built for a :class:`Axis` (the model group, its size and the rank's
+index in it); the trainer (``runtime.driver``) reduces the gradients
+once a step over the data group.
+
+The collectives are Megatron's, as ``torch.autograd.Function``\\ s:
+
+    copy_to      identity forward, all-reduce backward (enter a TP block)
+    reduce_from  all-reduce forward, identity backward (leave one)
+    gather_seq   all-gather over the sequence (dim 1) forward,
+                 reduce-scatter backward (enter a block under SP)
+    scatter_seq  reduce-scatter over the sequence forward, all-gather
+                 backward (leave one under SP)
+
+Each goes through a seam of ``core.linalg`` (``preduce``, ``pall_gather``,
+``preduce_scatter``; ``all_reduce``, ``all_gather_into_tensor`` and
+``reduce_scatter_tensor``), uncounted there: ``count_reductions`` counts
+the step's one gradient reduction over the data group;
+``analysis.record.Recorder`` counts every collective by group.
+
+The layout. The modules decide, when built for a model axis of size m,
+what they split (``models.layers``, ``models.lm``): attention by whole
+heads (Hq / m query and Hkv / m kv heads: ``wq``/``wk``/``wv`` by
+columns, ``wo`` by rows, the QKV biases with them), the MLP's hidden
+width (``w_gate``/``w_up`` by columns, ``w_down`` by rows), the MoE's
+experts where m divides their count (EP) and else each expert's hidden
+width (expert-TP), the vocabulary (``embed`` by rows, ``unembed`` by
+columns). :func:`layout` reads the split dim of each leaf off those
+shapes. It equals ``repro``'s ``param_partition_specs`` on the 'model'
+axis, but for two kinds of leaf that the port keeps whole on every model
+rank:
+
+  * a projection whose split would cut a head: ``repro`` shards the flat
+    output dim whenever it divides. At m = 2 that is hymba-1.5b's
+    attention (25 query heads, ``wq`` 1,600 wide; 5 kv heads) and
+    hymba-smoke's (5 and 5);
+  * the recurrent mixers (``ssm.*``, ``mlstm.*``, ``slstm.*``: hymba's
+    SSM heads, xlstm's mLSTM and sLSTM), whose ``w_*`` and ``wq``/``wk``/
+    ``wv``/``wo`` leaves ``repro`` shards by columns or rows. They run
+    whole on every model rank, on the gathered sequence under SP.
+
+At m = 2, the leaves of each layer that ``repro`` splits and the port
+keeps whole (``tests/test_torch_tp.py`` holds this list, and the other
+eight archs have none):
+
+    hymba-1.5b,   attn.{wq, wk, wv, wo}  (25 query / 5 kv heads; the
+    hymba-smoke                           smoke config's 5 / 5)
+                  ssm.{wq, wk, wv, w_gate, wo}
+    xlstm-350m,   mlstm.{wq, wk, wv, w_i, w_f, w_gate, wo}
+    xlstm-smoke   slstm.{w_z, w_i, w_f, w_o, wo}
+
+Neither changes the math. A vocabulary that m does not divide (granite's
+49,155) stays whole in both packages (``repro``'s ``sanitize_spec``).
+The data axis is replicated data parallelism here, where ``repro`` also
+shards each weight's other dim over 'data' (FSDP).
+
+Under SP (``train_loss(..., shard_acts=True)``) the residual stream
+between blocks is (B, L / m, D) per rank, ``activation_spec``'s layout.
+A leaf that is whole on the model axis and used on the decoder's stream
+(the norms' scales, the router, a whole mixer, a whole vocabulary,
+``meta``) then gets on each rank the gradient of its rank's positions
+only: :func:`sp_partial` names them, and the trainer sums their gradients
+over the model group once a step. The encoder runs without SP.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Mapping, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import linalg
+
+__all__ = ["Axis", "Grid", "build_grid", "copy_to", "reduce_from",
+           "gather_seq", "scatter_seq", "local_chunk", "gather_rows",
+           "max_over", "scale_grad", "seq_split", "layout",
+           "partition_specs", "sp_partial", "full_shape", "cut",
+           "shard_model", "gather_leaf"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One axis of the grid: its process ``group`` (None for a
+    description with no group, as on the meta device, or for one
+    process), its ``size`` and this rank's ``index`` along it. A model is
+    built for its model axis."""
+    group: Optional[object] = None
+    size: int = 1
+    index: int = 0
+
+
+def _split(axis: Optional[Axis]) -> bool:
+    return axis is not None and axis.size > 1
+
+
+@dataclasses.dataclass
+class Grid:
+    """A rank's place in a (data, model) grid: its ``data`` axis (group
+    None: one process, nothing reduced) and its ``model`` axis.
+    ``made``: the groups :func:`build_grid` made (the caller destroys
+    them)."""
+    data: Axis
+    model: Axis
+    made: List = dataclasses.field(default_factory=list)
+
+
+def build_grid(group, model_axis: int, ranks: Optional[List[int]] = None
+               ) -> Grid:
+    """The grid of ``ranks`` (ranks of ``group``, in rank order; default
+    all of them) with ``model_axis`` ranks a model group, ``repro``'s
+    ``build_mesh`` order. Only those ranks call it (the groups are made
+    with ``core.distributed.survivor_group``). With ``group=None`` it is
+    one process: ``model_axis`` must be 1 and nothing is reduced."""
+    from repro_torch.core.distributed import survivor_group
+    if group is None:
+        if model_axis != 1:
+            raise ValueError(f"one process cannot hold a model axis of "
+                             f"{model_axis}")
+        return Grid(Axis(), Axis())
+    world = dist.get_world_size(group)
+    ranks = list(range(world)) if ranks is None else list(ranks)
+    n, m = len(ranks), model_axis
+    if n % m:
+        raise ValueError(f"{n} devices do not divide into "
+                         f"model_axis={m}")
+    pos = ranks.index(dist.get_rank(group))
+    d, i = divmod(pos, m)
+    if m == 1:
+        data = group if n == world else survivor_group(ranks, group)
+        return Grid(Axis(data, n, d), Axis(),
+                    [] if data is group else [data])
+    model = survivor_group(ranks[d * m:(d + 1) * m], group)
+    data = survivor_group(ranks[i::m], group)
+    return Grid(Axis(data, n // m, d), Axis(model, m, i), [model, data])
+
+
+# ---------------------------------------------------------------------------
+# The collectives
+# ---------------------------------------------------------------------------
+
+def _gather1(x, group):
+    """x (B, s, ...) gathered over the group along dim 1."""
+    return linalg.pall_gather(x.transpose(0, 1), group).transpose(0, 1)
+
+
+def _scatter1(x, group):
+    """x (B, S, ...) summed over the group, this rank's block of dim 1."""
+    return linalg.preduce_scatter(x.transpose(0, 1), group).transpose(0, 1)
+
+
+def _fresh(x):
+    """A contiguous copy of x, which ``preduce`` may reduce in place."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return linalg.preduce(_fresh(g), ctx.group, counted=False), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return linalg.preduce(_fresh(x), group, counted=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather1(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter1(g, ctx.group), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _scatter1(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather1(g, ctx.group), None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def copy_to(x, axis: Optional[Axis]):
+    """Enter a tensor-parallel block: x itself; its gradient summed over
+    the model group."""
+    return _CopyTo.apply(x, axis.group) if _split(axis) else x
+
+
+def reduce_from(x, axis: Optional[Axis]):
+    """Leave one: the sum of the ranks' partial x; the gradient passes."""
+    return _ReduceFrom.apply(x, axis.group) if _split(axis) else x
+
+
+def gather_seq(x, axis: Optional[Axis]):
+    """x (B, L / m, ...) gathered to (B, L, ...) in rank order; its
+    gradient reduce-scattered."""
+    return _GatherSeq.apply(x, axis.group) if _split(axis) else x
+
+
+def scatter_seq(x, axis: Optional[Axis]):
+    """The ranks' partial x (B, L, ...) summed, this rank's (B, L / m,
+    ...); the gradient all-gathered."""
+    return _ScatterSeq.apply(x, axis.group) if _split(axis) else x
+
+
+def gather_rows(x, axis: Optional[Axis]):
+    """The ranks' x (the same shape on each) concatenated along dim 0 in
+    rank order (no gradient)."""
+    if not _split(axis):
+        return x
+    return linalg.pall_gather(x.detach(), axis.group)
+
+
+def max_over(x, axis: Optional[Axis]):
+    """The elementwise max of x over the model group (no gradient)."""
+    if not _split(axis):
+        return x
+    return linalg.pmax(_fresh(x), axis.group, counted=False)
+
+
+def local_chunk(x, axis: Optional[Axis]):
+    """This rank's positions of x (B, L, ...) under SP, (B, L / m, ...)
+    (a view; its gradient is zero elsewhere)."""
+    if not _split(axis):
+        return x
+    n = x.shape[1] // axis.size
+    return x.narrow(1, axis.index * n, n)
+
+
+def scale_grad(x, scale: float):
+    """x, whose gradient is multiplied by ``scale``: the share of a
+    replicated term that one rank back-propagates when the ranks' partial
+    gradients are summed (the MoE's aux loss under SP)."""
+    return _ScaleGrad.apply(x, scale) if scale != 1 else x
+
+
+def seq_split(length: int, axis: Optional[Axis]) -> None:
+    """Raise unless a sequence of ``length`` positions splits evenly over
+    the model axis (SP)."""
+    if _split(axis) and length % axis.size:
+        raise ValueError(
+            f"shard_acts splits the sequence over the model axis: its "
+            f"{length} positions (prefix rows included) do not divide by "
+            f"{axis.size}")
+
+
+# ---------------------------------------------------------------------------
+# The layout
+# ---------------------------------------------------------------------------
+
+def _shapes(model) -> Dict[str, tuple]:
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
+
+
+def layout(arch, model_size: int) -> Dict[str, Optional[int]]:
+    """{parameter name: the dim the model axis splits, or None} of
+    ``arch``'s LM built for a model axis of ``model_size`` (read off the
+    shapes of the two builds on the meta device)."""
+    from repro_torch.models import lm
+    full = _shapes(lm.param_specs(arch))
+    if model_size == 1:
+        return dict.fromkeys(full)
+    local = _shapes(lm.param_specs(arch, Axis(None, model_size, 0)))
+    out = {}
+    for name, shape in full.items():
+        dims = [d for d, (a, b) in enumerate(zip(shape, local[name]))
+                if a != b]
+        out[name] = dims[0] if dims else None
+    return out
+
+
+def partition_specs(arch, mesh, tp: str = "model"):
+    """{parameter name: ``PartitionSpec``} of the port's own layout on
+    ``mesh``: ``tp`` on the split dim, every other dim replicated (the
+    data axis included)."""
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import P
+    shapes = _shapes(lm.param_specs(arch))
+    return {name: P(*(tp if d == dim else None
+                      for d in range(len(shapes[name]))))
+            for name, dim in layout(arch, mesh.shape.get(tp, 1)).items()}
+
+
+def sp_partial(lay: Mapping[str, Optional[int]]) -> List[str]:
+    """The leaves whose gradient, under SP, holds only this rank's
+    positions: those whole on the model axis, but the encoder's."""
+    return [n for n, d in lay.items()
+            if d is None and not n.startswith("encoder.")]
+
+
+def full_shape(shape, dim: Optional[int], size: int) -> tuple:
+    """The full leaf's shape of a shard of ``shape`` split on ``dim``."""
+    shape = tuple(shape)
+    if dim is None:
+        return shape
+    return shape[:dim] + (shape[dim] * size,) + shape[dim + 1:]
+
+
+def cut(full, dim: Optional[int], axis: Optional[Axis]):
+    """Rank ``axis.index``'s block of ``full`` (a tensor or a numpy array)
+    along ``dim`` (None: ``full`` itself)."""
+    if dim is None or not _split(axis):
+        return full
+    n = full.shape[dim] // axis.size
+    index = [slice(None)] * full.ndim
+    index[dim] = slice(axis.index * n, (axis.index + 1) * n)
+    return full[tuple(index)]
+
+
+def shard_model(model, axis: Axis):
+    """A new LM of ``model``'s arch on its device, built for ``axis``,
+    holding the rank's shards of the one-rank ``model``'s weights."""
+    from repro_torch.models import lm
+    out = lm.LM(model.arch, model.embed.device, axis)
+    lay = layout(model.arch, axis.size)
+    whole = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in out.named_parameters():
+            p.copy_(cut(whole[name], lay[name], axis))
+    return out
+
+
+def gather_leaf(local: torch.Tensor, dim: Optional[int],
+                axis: Optional[Axis]) -> torch.Tensor:
+    """The full leaf of the model group's shards of it (every rank of the
+    group calls it); ``local`` itself when it is whole."""
+    if dim is None or not _split(axis):
+        return local
+    moved = local.movedim(dim, 0)
+    return linalg.pgather(moved, axis.group).movedim(0, dim)
+

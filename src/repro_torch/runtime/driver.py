@@ -7,7 +7,21 @@
     (``linalg.preduce``), whatever ``cfg.microbatches`` is — the
     trainer's counterpart of the paper's one all-reduce per outer
     iteration, and what ``repro``'s docstring claims for its jitted step.
-    Clipping and AdamW run after the reduction, on replicated gradients;
+    Clipping and AdamW run after the reduction, on replicated gradients.
+    That is the step's one gradient reduction; an MoE layer's routing
+    adds two small collectives over the data group for each MoE layer,
+    microbatch and chunk (the mean router probabilities summed and the
+    experts' pick counts gathered, ``layers.moe_route``), since
+    ``repro``'s step routes its global batch as one. They are not
+    gradient reductions, and ``linalg.count_reductions`` does not count
+    them;
+  * tensor, expert and sequence parallelism over a (data, model) grid
+    (``parallel.tensor``): with ``cfg.model_axis`` m > 1 the ranks form
+    ``repro``'s ``build_mesh`` grid, each holds its model rank's shards,
+    and the buffer holds the shards' gradients. Under ``cfg.shard_acts``
+    the leaves whose gradient holds only the rank's positions
+    (``parallel.tensor.sp_partial``) come first in the buffer and are
+    summed over the model group once a step, after the microbatches;
   * periodic async checkpoints (params, optimizer state, the pipeline's
     state) in ``repro``'s tree and on-disk format, so a checkpoint written
     by either package's trainer restores in the other's;
@@ -18,17 +32,14 @@
 
 Hosts are ranks of a ``torch.distributed`` group (rank r is host
 ``host_of_rank(r)``), and the trainer is SPMD: every rank of the group
-runs it with the same arguments. Each trains on its slice of the step's
-global batch (``pipeline.shard_at(step, rank, world)``); the injector's
-schedule is the same on every rank, so every rank decides alike without a
-collective. With ``group=None`` one process trains on the whole batch and
-nothing is reduced. Only the lowest rank in use writes checkpoints; every
-rank reads the one directory (a shared filesystem across machines).
-
-Not ported (ROADMAP Queue 1, item 7): tensor parallelism (``model_axis >
-1``), expert parallelism and ``shard_acts``. ``repro_torch.parallel``
-gives their partition specs, but no model code runs them; ``model_axis >
-1`` and ``shard_acts`` raise ``NotImplementedError``.
+runs it with the same arguments. Each trains on its data index's slice of
+the step's global batch (``pipeline.shard_at(step, d, data_size)``); the
+injector's schedule is the same on every rank, so every rank decides
+alike without a collective. With ``group=None`` one process trains on
+the whole batch and nothing is reduced. Checkpoints gather the model
+group's shards into ``repro``'s full tree; only the lowest rank in use
+writes, and every rank reads the one directory (a shared filesystem
+across machines) and cuts the tree for the grid it is on.
 """
 from __future__ import annotations
 
@@ -44,22 +55,17 @@ import torch.distributed as dist
 from repro_torch import convert
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import distributed, linalg
+from repro_torch.core import linalg
 from repro_torch.core.types import resolve_device
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.models import lm
 from repro_torch.optim.adamw import AdamW
+from repro_torch.parallel import tensor as par
 from repro_torch.runtime.elastic import _await_checkpoint
 from repro_torch.runtime.failures import FailureInjector
 from repro_torch.runtime.stragglers import StragglerMonitor
 
 __all__ = ["TrainerConfig", "Trainer", "make_train_step", "check_config"]
-
-MODEL_AXIS_UNPORTED = (
-    "model_axis > 1 (tensor parallelism) is not ported: the partition specs "
-    "exist (repro_torch.parallel), the model code does not run them "
-    "(ROADMAP Queue 1, item 7)")
-
 
 def _default_ckpt_dir() -> str:
     return os.path.join(tempfile.gettempdir(), "repro_ckpt")
@@ -74,19 +80,13 @@ class TrainerConfig:
     microbatches: int = 1
     remat: str = "none"
     shard_acts: bool = False
-    model_axis: int = 1            # TP degree: 1 only
+    model_axis: int = 1            # TP degree
     seed: int = 0
     log_every: int = 10
 
 
 def check_config(cfg: TrainerConfig) -> None:
     """Raise for a configuration the port cannot train."""
-    if cfg.model_axis > 1:
-        raise NotImplementedError(MODEL_AXIS_UNPORTED)
-    if cfg.shard_acts:
-        raise NotImplementedError(
-            "shard_acts (sequence-parallel activations over a mesh's 'model' "
-            "axis) is not ported (ROADMAP Queue 1, item 7)")
     if cfg.remat not in lm.REMAT:
         raise ValueError(f"remat must be one of {lm.REMAT}, not "
                          f"{cfg.remat!r}")
@@ -97,7 +97,7 @@ def check_config(cfg: TrainerConfig) -> None:
 
 
 def make_train_step(arch: ArchConfig, optimizer: AdamW, cfg: TrainerConfig,
-                    group=None):
+                    group=None, grid: Optional[par.Grid] = None):
     """``step(model, opt_state, batch) -> loss``: one optimizer step of
     ``model`` (its parameters must require grad) IN PLACE on this rank's
     ``batch`` ({"tokens", "targets"}: (B, S), and an encoder-decoder or
@@ -110,14 +110,30 @@ def make_train_step(arch: ArchConfig, optimizer: AdamW, cfg: TrainerConfig,
     one f32 buffer, as ``repro``'s microbatch scan adds them into f32
     zeros; the buffer's last entry holds the sum of the microbatch losses.
     One ``linalg.preduce`` sums the buffer over ``group``, then it is
-    divided by k times the group's size and AdamW runs on it."""
+    divided by k times the group's size and AdamW runs on it.
+
+    ``grid`` (``parallel.tensor.build_grid``) replaces ``group``: its data
+    group takes the one reduction, and ``model`` must be built for its
+    model axis. The buffer then holds the rank's shards; under
+    ``cfg.shard_acts`` its first leaves, those of ``sp_partial``, are
+    summed over the model group once, after the microbatches (an
+    uncounted reduction: ``linalg.count_reductions`` counts the data
+    group's). The clip's norm is the model group's."""
     check_config(cfg)
-    k = cfg.microbatches
-    world = 1 if group is None else dist.get_world_size(group)
+    if grid is None:
+        grid = par.Grid(par.Axis(group, 1 if group is None
+                                 else dist.get_world_size(group)),
+                        par.Axis())
+    k, ax = cfg.microbatches, grid.model
+    lay = par.layout(arch, ax.size) if ax.size > 1 else {}
+    split = frozenset(n for n, d in lay.items() if d is not None)
+    first = par.sp_partial(lay) if cfg.shard_acts else []
+    firsts = frozenset(first)
 
     def step(model, opt_state, batch):
-        named = list(model.named_parameters())
-        params = [p for _, p in named]
+        named = dict(model.named_parameters())
+        order = first + [n for n in named if n not in firsts]
+        params = [named[n] for n in order]
         dev = params[0].device
         batch = {name: torch.as_tensor(v, device=dev)
                  for name, v in batch.items()}
@@ -134,15 +150,23 @@ def make_train_step(arch: ArchConfig, optimizer: AdamW, cfg: TrainerConfig,
             rows = slice(j * mb, (j + 1) * mb)
             loss = lm.train_loss(model, {name: v[rows]
                                          for name, v in batch.items()},
-                                 remat=cfg.remat)
-            for acc, g in zip(grads, torch.autograd.grad(loss, params)):
-                acc.add_(g)
+                                 remat=cfg.remat, shard_acts=cfg.shard_acts,
+                                 data=grid.data)
+            # a rank of a split model may leave a leaf unused (meta rows
+            # that only the model group's first rank adds)
+            for acc, g in zip(grads, torch.autograd.grad(
+                    loss, params, allow_unused=ax.size > 1)):
+                if g is not None:
+                    acc.add_(g)
             buf[-1:].add_(loss.detach())
-        linalg.preduce(buf, group)
-        if k * world > 1:
-            buf.div_(k * world)
-        optimizer.update(dict(zip((n for n, _ in named), grads)), opt_state,
-                         dict(named))
+        if first:
+            linalg.preduce(buf[:sum(sizes[:len(first)])], ax.group,
+                           counted=False)
+        linalg.preduce(buf, grid.data.group)
+        if k * grid.data.size > 1:
+            buf.div_(k * grid.data.size)
+        kw = dict(axis=ax, split=split) if ax.size > 1 else {}
+        optimizer.update(dict(zip(order, grads)), opt_state, named, **kw)
         return buf[-1]
 
     return step
@@ -154,7 +178,9 @@ class Trainer:
     docstring).
 
     model:  the LM to train (its parameters are set to require grad);
-            None draws ``lm.init_params(arch, cfg.seed, device)``.
+            None draws ``lm.init_params(arch, cfg.seed, device, axis)``
+            for the rank's model axis. A one-rank model given on a grid
+            of ``cfg.model_axis`` > 1 is cut to the rank's shards.
     failure_injector: host failures keyed by step; the failed ranks leave
             the run, the survivors re-group and resume from the latest
             checkpoint.
@@ -183,63 +209,88 @@ class Trainer:
         self.injector = failure_injector
         self.stragglers = straggler_monitor
         self.host_of_rank = host_of_rank or (lambda r: r)
-        self.model = model if model is not None else lm.init_params(
-            arch, cfg.seed, self.device)
-        self.model.requires_grad_(True)
-        self.opt_state = optimizer.init(dict(self.model.named_parameters()))
+        self.layout = par.layout(arch, cfg.model_axis) \
+            if cfg.model_axis > 1 else {}
         self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.ckpt_keep)
         self.losses: List[float] = []
         self.events: List[str] = []
         self.step = 0
         self.saved: Optional[int] = None       # the last step checkpointed
         self.lost = False                      # this rank left the run
-        self._made = None                      # the group this trainer made
+        self._made: List = []                  # the groups this trainer made
+        self.grid: Optional[par.Grid] = None
         self._setup()
+        axis = self.grid.model if self.grid is not None else None
+        if model is None:
+            model = lm.init_params(arch, cfg.seed, self.device, axis)
+        elif axis is not None and axis.size > 1 and model.axis is None:
+            model = par.shard_model(model, axis)
+        self._place(model)
+
+    def _place(self, model: lm.LM):
+        self.model = model
+        self.model.requires_grad_(True)
+        self.opt_state = self.optimizer.init(
+            dict(self.model.named_parameters()))
 
     # -- topology -------------------------------------------------------
 
     def _usable(self) -> List[int]:
         """``repro``'s ``_usable_devices``: the largest prefix of the live
-        ranks whose count divides the global batch and its microbatch
-        split."""
+        ranks whose count ``cfg.model_axis`` divides, and whose data size
+        divides the global batch and its microbatch split."""
         gb, k = self.pipeline.global_batch, self.cfg.microbatches
+        m = self.cfg.model_axis
         for n in range(len(self.live), 0, -1):
-            if gb % n == 0 and gb % (n * k) == 0:
+            if n % m == 0 and gb % (n // m) == 0 \
+                    and gb % ((n // m) * k) == 0:
                 return self.live[:n]
         raise RuntimeError("no usable device configuration")
 
     def _setup(self):
-        """The group of the usable ranks and its train step. A survivor
-        beyond the usable prefix leaves the run; it takes no part in the
-        group (``survivor_group`` synchronises only its members)."""
+        """The grid of the usable ranks (``parallel.tensor.build_grid``)
+        and its train step. A survivor beyond the usable prefix leaves the
+        run; it takes no part in the groups (``survivor_group``
+        synchronises only their members)."""
         used = self._usable()
         self.live = used
         if self.me not in used:
             self.lost = True
             return
-        if self.base is None or len(used) == dist.get_world_size(self.base):
-            group = self.base
-        else:
-            group = distributed.survivor_group(used, self.base)
-        if self._made is not None:
-            dist.destroy_process_group(self._made)
-        self._made = None if group is self.base else group
+        for g in self._made:
+            dist.destroy_process_group(g)
+        self.grid = par.build_grid(self.base, self.cfg.model_axis, used)
+        self._made = self.grid.made
         self.step_fn = make_train_step(self.arch, self.optimizer, self.cfg,
-                                       group)
+                                       grid=self.grid)
 
     # -- checkpoint / restore -------------------------------------------
 
     def _save(self):
+        """The model group of data index 0 gathers the shards (every rank
+        of it takes part); the lowest rank writes ``repro``'s tree."""
         self.saved = self.step
-        if self.me != self.live[0]:
+        if self.grid.data.index != 0:
             return
-        host = lambda ts: torch.stack([t.detach().cpu() for t in ts])
+        writer = self.me == self.live[0]
+
+        def whole(flat):
+            out = {}
+            for name, t in flat.items():
+                t = par.gather_leaf(t.detach(), self.layout.get(name),
+                                    self.grid.model)
+                out[name] = t.cpu() if writer else None
+            return out
         st = self.opt_state
-        tree = {"params": convert.lm_tree(
-                    self.arch, dict(self.model.named_parameters()), host),
+        flats = [whole(f) for f in (dict(self.model.named_parameters()),
+                                    st.mu, st.nu)]
+        if not writer:
+            return
+        host = lambda ts: torch.stack(list(ts))
+        tree = {"params": convert.lm_tree(self.arch, flats[0], host),
                 "opt": {"step": st.step,
-                        "mu": convert.lm_tree(self.arch, st.mu, host),
-                        "nu": convert.lm_tree(self.arch, st.nu, host)}}
+                        "mu": convert.lm_tree(self.arch, flats[1], host),
+                        "nu": convert.lm_tree(self.arch, flats[2], host)}}
         self.ckpt.save(self.step, tree,
                        extra={"pipeline": self.pipeline.checkpoint(),
                               "step": self.step})
@@ -247,7 +298,8 @@ class Trainer:
     def _restore(self):
         """Overwrite the model and optimizer state from the latest
         checkpoint in ``cfg.ckpt_dir`` (written by either package's
-        trainer) and rewind the pipeline to it."""
+        trainer, on any grid), each leaf cut for this rank's, and rewind
+        the pipeline to it."""
         self.ckpt.wait()
         if self.saved is not None:
             _await_checkpoint(self.cfg.ckpt_dir, self.saved)
@@ -259,7 +311,8 @@ class Trainer:
                               tree["params"]), (st.mu, tree["opt"]["mu"]),
                              (st.nu, tree["opt"]["nu"])):
                 for name, leaf in convert.lm_flat(self.arch, src).items():
-                    dst[name].copy_(leaf)
+                    dst[name].copy_(par.cut(leaf, self.layout.get(name),
+                                            self.grid.model))
             st.step.copy_(tree["opt"]["step"])
         self.step = int(extra["step"])
         self.pipeline.state.step = int(extra["pipeline"]["step"])
@@ -280,10 +333,13 @@ class Trainer:
         self._setup()
         if self.lost:
             return
+        if self.grid.model.size > 1:    # the shards of the new model rank
+            self._place(lm.LM(self.arch, self.device, self.grid.model))
         self._restore()
         self.events.append(
             f"re-meshed to {survivors} devices ({{'data': "
-            f"{len(self.live)}, 'model': 1}}), resumed at step {self.step}")
+            f"{self.grid.data.size}, 'model': {self.grid.model.size}}}), "
+            f"resumed at step {self.step}")
 
     # -- main loop --------------------------------------------------------
 
@@ -298,9 +354,8 @@ class Trainer:
                     if dead:
                         self._handle_failure(dead)
                         continue
-                n = len(self.live)
                 tokens, targets = self.pipeline.shard_at(
-                    self.step, self.live.index(self.me), n)
+                    self.step, self.grid.data.index, self.grid.data.size)
                 t0 = time.perf_counter()
                 loss = float(self.step_fn(self.model, self.opt_state,
                                           {"tokens": tokens,
@@ -318,10 +373,10 @@ class Trainer:
                     if evict:
                         self._handle_failure(evict[:1])
         finally:
-            # the outstanding save joined, the group this trainer made gone
+            # the outstanding save joined, the groups this trainer made gone
             self.ckpt.wait()
-            if self._made is not None:
-                dist.destroy_process_group(self._made)
-                self._made = None
+            for g in self._made:
+                dist.destroy_process_group(g)
+            self._made = []
         return {"losses": self.losses, "events": self.events,
                 "final_step": self.step, "lost": self.lost}

@@ -83,7 +83,7 @@ def _kept_pairs_repro(p, x, E, K, C):
 
 def _kept_pairs_port(p, x, E, K, C):
     xf = x.reshape(-1, x.shape[-1])
-    _, tope, _ = L.moe_route(p["router"], xf, K)
+    _, tope, _, _ = L.moe_route(p["router"], xf, K)
     _, row, keep = L.moe_dispatch(xf, tope, E, C)
     row, keep = row.numpy(), keep.numpy()
     return {(i, int(row[i]) // C, int(row[i]) % C)

@@ -1,0 +1,520 @@
+"""Tensor, expert and sequence parallelism in the trainer
+(``repro_torch.parallel.tensor`` with ``models``, ``runtime.driver``,
+``optim.adamw`` and ``convert``), held against ``repro``'s ``Trainer`` on a
+(data 2, model 2) mesh of four host devices.
+
+* ``repro``'s ``Trainer`` at ``model_axis=2`` runs in ONE subprocess
+  (``XLA_FLAGS=--xla_force_host_platform_device_count=4``) at f32, 3
+  steps, on the smoke configs: tinyllama with ``shard_acts``, granite (4
+  experts: EP), granite with 3 experts (expert-TP), hymba with
+  ``shard_acts`` (its 5 heads stay whole on each model rank, beside its
+  whole SSM mixer) and xlstm (whole recurrent mixers), while one
+  four-rank gloo job runs the port's ``Trainer`` on the same weights (the
+  ``repro`` draws of seed 0, cut to each rank's shards), with and
+  without ``shard_acts``. Each loss is within rel 1e-4 of ``repro``'s,
+  the bar of ``test_trainer_matches_repro_f32``.
+* The port at m = 2 against m = 1 (one process): the losses and the
+  gathered gradients of step 1 within rel 1e-5; whisper-smoke (through
+  ``make_train_step``, with its frames) runs here only, since ``repro``'s
+  ``Trainer`` drops the frames.
+* A failure at m = 2: host 1 killed at step 2; the survivors [0, 2, 3]
+  keep [0, 2] (data 1 x model 2, rank 2 moved to model index 1) and match
+  the undisturbed losses (rel 1e-5).
+* One data-group reduction a step for microbatches 1 and 4, counted by
+  ``linalg.count_reductions`` and by the ``Recorder``'s tally by process
+  group; for granite (data 2) that tally also holds its MoE routing's
+  two collectives for each MoE layer and microbatch.
+* Checkpoints across grids: the port's step-2 checkpoint written at m = 2
+  restores at m = 1 in the port and in ``repro`` (the subprocess waits
+  for it once its own runs are done), one written at m = 1 restores at
+  m = 2 in both, and the next loss is within rel 1e-4 of the undisturbed
+  run; the on-disk tree equals ``repro``'s.
+* The layout against ``repro``'s rules for all ten archs at m = 2, the
+  cutting and gathering, ``convert`` with an axis, the dry run's 1x2
+  argument bytes, and ``build_grid``'s order.
+
+The module imports no JAX at the top: the job's ranks import it.
+"""
+import dataclasses
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.analysis.record import Recorder
+from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.core import distributed, linalg
+from repro_torch.data import TokenPipeline
+from repro_torch.models import lm
+from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.parallel import sharding
+from repro_torch.parallel import tensor as par
+from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+from repro_torch.runtime.driver import make_train_step
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
+XLA_FAST_COMPILE = "--xla_backend_optimization_level=0"
+GB, SEQ, STEPS, EVERY = 4, 32, 3, 2
+# key -> (arch, replaced fields, repro's shard_acts)
+CASES = {"tinyllama": ("tinyllama-1.1b", {}, True),
+         "granite": ("granite-moe-1b-a400m", {}, False),
+         "granite_etp": ("granite-moe-1b-a400m", {"n_experts": 3}, False),
+         "hymba": ("hymba-1.5b", {}, True),
+         "xlstm": ("xlstm-350m", {}, False)}
+PORT_ONLY = {"whisper": ("whisper-large-v3", {}, True)}
+KILL = (2, [1])
+
+
+def _arch(key):
+    name, kw, _ = {**CASES, **PORT_ONLY}[key]
+    return dataclasses.replace(get_smoke_config(name), dtype="float32", **kw)
+
+
+def _cfg(tmp, name, m=1, sp=False, k=1, steps=STEPS):
+    return TrainerConfig(steps=steps, ckpt_dir=os.path.join(tmp, name),
+                         ckpt_every=EVERY, microbatches=k, model_axis=m,
+                         shard_acts=sp)
+
+
+class _Recording:
+    """An AdamW that keeps the gradients of its first update, the model
+    group's shards gathered to whole leaves (float32 numpy)."""
+
+    def __init__(self):
+        self.opt = AdamW(learning_rate=cosine_schedule(1e-3, 1, STEPS))
+        self.grads = None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, axis=None, split=frozenset()):
+        if self.grads is None:
+            lay = par.layout(self.arch, axis.size) if axis else {}
+            self.grads = {n: par.gather_leaf(g, lay.get(n), axis)
+                          .detach().numpy().copy()
+                          for n, g in sorted(grads.items())}
+        kw = {"axis": axis, "split": split} if axis else {}
+        return self.opt.update(grads, state, params, **kw)
+
+
+def _train(arch, tree, tmp, name, group, m=1, sp=False, k=1, gb=GB,
+           **kw):
+    rec = _Recording()
+    rec.arch = arch
+    tr = Trainer(arch, rec, TokenPipeline(arch.vocab_size, gb, SEQ),
+                 _cfg(tmp, name, m, sp, k), group=group, device="cpu",
+                 model=convert.lm_params_from_numpy(arch, tree, "cpu"), **kw)
+    with linalg.count_reductions() as c, Recorder() as r:
+        out = tr.run()
+    out.update(grads=rec.grads, reductions=c.n, live=list(tr.live))
+    if tr.grid is not None and not out["lost"]:
+        groups = r.collectives_by_group()
+        data = tr.grid.data.group
+        out["data_group"] = groups.get(data.group_name, {}) \
+            if data is not None else {}
+        model = tr.grid.model.group
+        out["model_group"] = groups.get(model.group_name, {}) \
+            if model is not None else {}
+    return out
+
+
+def _frames(arch, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((GB, arch.encoder_seq, arch.d_model)).astype(
+        np.float32)
+
+
+def _step_frames(arch, group, m, sp=False):
+    """whisper through ``make_train_step`` (the trainer's batch has no
+    frames): losses of STEPS steps and step 1's gathered gradients."""
+    rec = _Recording()
+    rec.arch = arch
+    if group is None:
+        grid = par.build_grid(None, 1)
+    else:
+        grid = par.build_grid(group, m)
+    model = lm.init_params(arch, 0, "cpu", grid.model)
+    model.requires_grad_(True)
+    state = rec.init(dict(model.named_parameters()))
+    step = make_train_step(arch, rec, _cfg("", "-", m, sp), grid=grid)
+    pipe = TokenPipeline(arch.vocab_size, GB, SEQ)
+    frames = _frames(arch)
+    per = GB // grid.data.size
+    rows = slice(grid.data.index * per, (grid.data.index + 1) * per)
+    losses = []
+    for s in range(STEPS):
+        tokens, targets = pipe.shard_at(s, grid.data.index, grid.data.size)
+        losses.append(float(step(model, state, {
+            "tokens": tokens, "targets": targets, "frames": frames[rows]})))
+    for g in grid.made:
+        torch.distributed.destroy_process_group(g)
+    return {"losses": losses, "grads": rec.grads}
+
+
+def _only_step(src, dst, step):
+    shutil.copytree(os.path.join(src, f"step_{step:08d}"),
+                    os.path.join(dst, f"step_{step:08d}"))
+    return dst
+
+
+def _hand_to_repro(tmp, run, m):
+    """A copy of ``run``'s step-2 checkpoint for ``repro``'s restore of
+    the m = ``m`` checkpoint, then its READY marker."""
+    dst = _only_step(os.path.join(tmp, run),
+                     os.path.join(tmp, f"m{m}_at_2_repro"), EVERY)
+    open(os.path.join(dst, "READY"), "w").close()
+
+
+def _resume(arch, ckpt, group, m, sp):
+    """A trainer on ``ckpt`` (a step-2 checkpoint), restored and run to
+    STEPS: the losses after the restore."""
+    tr = Trainer(arch, AdamW(learning_rate=cosine_schedule(1e-3, 1, STEPS)),
+                 TokenPipeline(arch.vocab_size, GB, SEQ),
+                 TrainerConfig(steps=STEPS, ckpt_dir=ckpt, ckpt_every=100,
+                               model_axis=m, shard_acts=sp),
+                 group=group, device="cpu", model=lm.init_params(
+                     arch, 7, "cpu"))
+    tr._restore()
+    assert tr.step == EVERY
+    return tr.run()["losses"]
+
+
+def _rank(rank, world, tmp, trees):
+    import torch.distributed as dist
+    torch.set_num_threads(1)        # four ranks share the host's cores
+    W = dist.group.WORLD
+    out = {}
+    for key in CASES:
+        arch = _arch(key)
+        for sp in (True, False):
+            name = f"{key}_m2_{sp}"
+            out[name] = _train(arch, trees[key], tmp, name, W, 2, sp)
+            if name == "tinyllama_m2_True" and rank == 0:
+                _hand_to_repro(tmp, name, 2)
+    for sp in (True, False):
+        out[f"whisper_m2_{sp}"] = _step_frames(_arch("whisper"), W, 2, sp)
+    arch = _arch("tinyllama")
+    out["failure"] = _train(arch, trees["tinyllama"], tmp, "failure", W, 2,
+                            True, failure_injector=FailureInjector(
+                                failures={KILL[0]: list(KILL[1])}))
+    for key, sp in (("tinyllama", True), ("granite", False)):
+        for k in (1, 4):
+            out[f"{key}_k{k}"] = _train(_arch(key), trees[key], tmp,
+                                        f"{key}_k{k}", W, 2, sp, k=k, gb=8)
+    ckpt = _only_step(os.path.join(tmp, "tinyllama_m1"),
+                      os.path.join(tmp, "m1_at_2"), EVERY) \
+        if rank == 0 else os.path.join(tmp, "m1_at_2")
+    dist.barrier()
+    out["resume_m1_at_m2"] = _resume(arch, ckpt, W, 2, True)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+_REF_CODE = r"""
+import dataclasses, json, os, sys, time
+import numpy as np
+import jax
+from repro.configs import get_smoke_config
+from repro.data.tokens import TokenPipeline
+from repro.optim.adamw import AdamW, cosine_schedule
+from repro.runtime.driver import Trainer, TrainerConfig
+
+tmp, cases, (GB, SEQ, STEPS, EVERY) = (sys.argv[1], json.loads(sys.argv[2]),
+                                      json.loads(sys.argv[3]))
+assert len(jax.devices()) == 4
+
+
+def trainer(key, m, sp, ckpt, every=EVERY):
+    name, kw, _ = cases[key]
+    arch = dataclasses.replace(get_smoke_config(name), dtype="float32", **kw)
+    return Trainer(arch, AdamW(learning_rate=cosine_schedule(1e-3, 1, STEPS)),
+                   TokenPipeline(arch.vocab_size, GB, SEQ),
+                   TrainerConfig(steps=STEPS, ckpt_dir=ckpt, ckpt_every=every,
+                                 model_axis=m, shard_acts=sp))
+
+
+out = {}
+for key, (_, _, sp) in cases.items():
+    tr = trainer(key, 2, sp, f"{tmp}/repro_{key}")
+    out[key] = np.asarray(tr.run()["losses"])
+    out[key + "/mesh"] = np.asarray(list(tr.mesh.shape.values()))
+# the port's checkpoints, as the port's runs hand them over
+for name, m, ckpt in (("m2_at_m1", 1, f"{tmp}/m2_at_2_repro"),
+                      ("m1_at_m2", 2, f"{tmp}/m1_at_2_repro")):
+    t0 = time.time()
+    while not os.path.exists(f"{ckpt}/READY"):
+        assert time.time() - t0 < 600, ckpt
+        time.sleep(0.2)
+    tr = trainer("tinyllama", m, True, ckpt, every=100)
+    tr._restore()
+    assert tr.step == EVERY
+    out[name] = np.asarray(tr.run()["losses"])
+np.savez(f"{tmp}/ref.npz", **out)
+"""
+
+
+def _repro(tmp):
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=XLA_FAST_COMPILE
+               + " --xla_force_host_platform_device_count=4")
+    with open(os.path.join(tmp, "ref.err"), "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-c", _REF_CODE, tmp, json.dumps(CASES),
+             json.dumps([GB, SEQ, STEPS, EVERY])],
+            env=env, stdout=subprocess.DEVNULL, stderr=err)
+
+
+@pytest.fixture(scope="module")
+def job(tmp_path_factory):
+    """{"repro": repro's losses, "one": the port's one-process runs,
+    "ranks": {rank: its results}, "resume_m2_at_m1": the port's m = 1
+    resume of the m = 2 checkpoint}."""
+    import jax
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.models import lm as jlm
+
+    tmp = str(tmp_path_factory.mktemp("torch_tp"))
+    ref = _repro(tmp)
+    try:
+        trees = {}
+        for key, (name, kw, _) in CASES.items():
+            ja = dataclasses.replace(j_smoke(name), dtype="float32", **kw)
+            trees[key] = jax.tree.map(np.asarray,
+                                      jlm.init_params(ja, jax.random.key(0)))
+        one = {key: _train(_arch(key), trees[key], tmp, f"{key}_m1", None)
+               for key in CASES}
+        _hand_to_repro(tmp, "tinyllama_m1", 1)
+        one["whisper"] = _step_frames(_arch("whisper"), None, 1)
+        distributed.run_ranks(_rank, 4, "gloo", device="cpu",
+                              args=(tmp, trees))
+        ranks = {r: torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                               weights_only=False) for r in range(4)}
+        ckpt = _only_step(os.path.join(tmp, "tinyllama_m2_True"),
+                          os.path.join(tmp, "m2_at_2"), EVERY)
+        resume = _resume(_arch("tinyllama"), ckpt, None, 1, False)
+        ref.wait(timeout=600)
+    finally:
+        ref.kill()
+    assert ref.returncode == 0, open(os.path.join(tmp, "ref.err")).read()[
+        -3000:]
+    want = dict(np.load(os.path.join(tmp, "ref.npz")))
+    return {"repro": want, "one": one, "ranks": ranks, "tmp": tmp,
+            "resume_m2_at_m1": resume}
+
+
+def _rel(got, want, tol, what):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, what
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    assert err <= tol, f"{what}: {err:.3e} > {tol}"
+
+
+def _grads_close(got, want, tol, what):
+    assert sorted(got) == sorted(want), what
+    for n in want:
+        err = float(np.max(np.abs(got[n] - want[n])))
+        scale = float(np.max(np.abs(want[n])))
+        assert err <= tol * scale, f"{what} {n}: {err:.3e} > {tol} x {scale}"
+
+
+# ---------------------------------------------------------------------------
+# Against repro, and m = 2 against m = 1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("key", list(CASES))
+def test_model_axis_two_matches_repro(job, key, sp):
+    want = job["repro"][key]
+    assert list(job["repro"][key + "/mesh"]) == [2, 2]
+    for r in range(4):
+        got = job["ranks"][r][f"{key}_m2_{sp}"]
+        assert got["events"] == [] and not got["lost"]
+        assert got["final_step"] == STEPS
+        _rel(got["losses"], want, 1e-4, f"{key} rank {r}")
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("key", list(CASES) + list(PORT_ONLY))
+def test_model_axis_two_matches_one(job, key, sp):
+    one = job["one"][key]
+    got = job["ranks"][0][f"{key}_m2_{sp}"]
+    _rel(got["losses"], one["losses"], 1e-5, key)
+    _grads_close(got["grads"], one["grads"], 1e-5, key)
+    for r in range(1, 4):
+        _rel(job["ranks"][r][f"{key}_m2_{sp}"]["losses"], got["losses"],
+             1e-6, f"{key} rank {r}")
+
+
+def test_failure_regrids_and_matches_the_undisturbed_run(job):
+    undisturbed = job["ranks"][0]["tinyllama_m2_True"]["losses"]
+    for r in range(4):
+        out = job["ranks"][r]["failure"]
+        if r == 1:
+            assert out["lost"] and out["live"] == [0, 2, 3]
+            continue
+        if r == 3:      # beyond the usable prefix [0, 2]
+            assert out["lost"] and out["live"] == [0, 2]
+            continue
+        assert not out["lost"] and out["live"] == [0, 2]
+        assert out["events"] == [
+            f"step {KILL[0]}: hosts {KILL[1]} failed",
+            "re-meshed to 3 devices ({'data': 1, 'model': 2}), resumed at "
+            f"step {EVERY}"]
+        _rel(out["losses"], undisturbed, 1e-5, f"failure rank {r}")
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("key", ["tinyllama", "granite"])
+def test_one_data_group_reduction_per_step(job, key, k):
+    arch = _arch(key)
+    moe = sum(arch.block_at(i) == "moe" for i in range(arch.n_layers))
+    assert (key == "granite") == (moe > 0)
+    for r in range(4):
+        out = job["ranks"][r][f"{key}_k{k}"]
+        assert out["reductions"] == STEPS
+        # one gradient all-reduce a step; each MoE layer's routing, for
+        # each microbatch, sums the mean probabilities and gathers the
+        # pick counts over the data group (``layers.moe_route``)
+        want = {"all-reduce": STEPS * (1 + moe * k)}
+        if moe:
+            want["all-gather"] = STEPS * moe * k
+        assert out["data_group"] == want
+        if key == "tinyllama":
+            model = out["model_group"]
+            # per step: the SP sum and the clip's norm; per microbatch the
+            # vocab-parallel loss (its max and its sums)
+            assert model["all-reduce"] == STEPS * (2 + 2 * k)
+            assert model["all-gather"] > 0 and model["reduce-scatter"] > 0
+    if key == "tinyllama":
+        _rel(job["ranks"][0]["tinyllama_k4"]["losses"],
+             job["ranks"][0]["tinyllama_k1"]["losses"], 1e-5, "microbatches")
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints across grids
+# ---------------------------------------------------------------------------
+
+def test_checkpoint_written_at_m2_resumes_at_m1(job):
+    undisturbed = job["ranks"][0]["tinyllama_m2_True"]["losses"]
+    _rel(job["resume_m2_at_m1"], undisturbed[EVERY:], 1e-4, "port")
+    _rel(job["repro"]["m2_at_m1"], undisturbed[EVERY:], 1e-4, "repro")
+
+
+def test_checkpoint_written_at_m1_resumes_at_m2(job):
+    undisturbed = job["one"]["tinyllama"]["losses"]
+    for r in range(4):
+        _rel(job["ranks"][r]["resume_m1_at_m2"], undisturbed[EVERY:], 1e-4,
+             f"port rank {r}")
+    _rel(job["repro"]["m1_at_m2"], undisturbed[EVERY:], 1e-4, "repro")
+
+
+def test_checkpoint_tree_is_repros_at_m2(job):
+    leaves = {}
+    for side in ("repro_tinyllama", "tinyllama_m2_True"):
+        man = json.loads(open(os.path.join(
+            job["tmp"], side, f"step_{STEPS:08d}", "manifest.json")).read())
+        leaves[side] = {l["path"]: (l["shape"], l["dtype"])
+                        for l in man["leaves"]}
+    assert leaves["tinyllama_m2_True"] == leaves["repro_tinyllama"]
+
+
+# ---------------------------------------------------------------------------
+# The layout, cutting and gathering (one process)
+# ---------------------------------------------------------------------------
+
+# The leaves of a layer that repro's rules split at m = 2 and the port
+# keeps whole (the table of parallel/tensor.py's docstring).
+WHOLE_AT_2 = {
+    "hymba-1.5b": ["attn.wk", "attn.wo", "attn.wq", "attn.wv", "ssm.w_gate",
+                   "ssm.wk", "ssm.wo", "ssm.wq", "ssm.wv"],
+    "xlstm-350m": ["mlstm.w_f", "mlstm.w_gate", "mlstm.w_i", "mlstm.wk",
+                   "mlstm.wo", "mlstm.wq", "mlstm.wv", "slstm.w_f",
+                   "slstm.w_i", "slstm.w_o", "slstm.w_z", "slstm.wo"]}
+
+
+def _whole_by_design(arch, name):
+    """Whether the port keeps ``name`` whole at m = 2 where ``repro``'s
+    rule splits it: a recurrent mixer's leaf, or an attention leaf whose
+    heads 2 does not divide."""
+    parts = name.split(".")
+    if {"ssm", "mlstm", "slstm"} & set(parts):
+        return True
+    if {"attn", "xattn"} & set(parts):
+        return arch.n_heads % 2 or arch.n_kv_heads % 2
+    return False
+
+
+@pytest.mark.parametrize("name", list_archs())
+def test_layout_is_repros_rules_but_whole_heads_and_mixers(name):
+    from repro_torch.launch.mesh import make_mesh
+    arch = get_config(name)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    rules = sharding.param_partition_specs(lm.param_specs(arch), mesh)
+    mine = par.partition_specs(arch, mesh)
+    lay = par.layout(arch, 2)
+    differ = []
+    for leaf, spec in rules.items():
+        theirs = tuple(p if p == "model" else None for p in spec)
+        if theirs != tuple(mine[leaf]):
+            differ.append(leaf)
+            assert _whole_by_design(arch, leaf), (leaf, spec, mine[leaf])
+            assert lay[leaf] is None
+    leaves = sorted({n.split(".", 2)[2] for n in differ})
+    assert leaves == WHOLE_AT_2.get(name, []), leaves
+
+
+def test_cut_and_gather_and_convert_with_an_axis():
+    arch = _arch("granite")
+    full = lm.init_params(arch, 3, "cpu")
+    lay = par.layout(arch, 2)
+    tree = convert.lm_params_to_numpy(full)
+    for i in range(2):
+        ax = par.Axis(None, 2, i)
+        mine = par.shard_model(full, ax)
+        from_np = convert.lm_params_from_numpy(arch, tree, "cpu", ax)
+        drawn = lm.init_params(arch, 3, "cpu", ax)
+        for n, p in mine.named_parameters():
+            assert torch.equal(p, dict(from_np.named_parameters())[n]), n
+            assert torch.equal(p, dict(drawn.named_parameters())[n]), n
+            assert p.shape == par.cut(dict(full.named_parameters())[n],
+                                      lay[n], ax).shape
+    assert lay["layers.0.moe.w_gate"] == 0 and lay["embed"] == 0
+    assert lay["layers.0.moe.router"] is None
+    etp = par.layout(_arch("granite_etp"), 2)
+    assert etp["layers.0.moe.w_gate"] == 2 and etp["layers.0.moe.w_down"] == 1
+    assert par.full_shape((4, 8), 1, 2) == (4, 16)
+
+
+def test_shard_acts_needs_a_sequence_the_axis_divides():
+    arch = _arch("tinyllama")
+    model = lm.init_params(arch, 0, "cpu", par.Axis(None, 2, 0))
+    with pytest.raises(ValueError, match="do not divide by 2"):
+        lm.train_loss(model, {"tokens": np.zeros((1, 7), np.int32),
+                              "targets": np.zeros((1, 7), np.int32)},
+                      shard_acts=True)
+    with pytest.raises(ValueError, match="decode runs on one rank"):
+        model.decode_step(torch.zeros((1, 1), dtype=torch.long),
+                          lm.init_cache(arch, 1, 8, "cpu"), 0)
+
+
+def test_dryrun_argument_bytes_at_1x2_are_a_ranks():
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    arch = dataclasses.replace(get_config("hymba-1.5b"), n_layers=1)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=2,
+                                seq_len=64)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    fn, args, specs = dryrun.build_step(arch, shape, mesh,
+                                        dryrun.DryrunOptions())
+    got = dryrun.argument_bytes(args, specs, mesh)
+    model = lm.param_specs(arch, par.Axis(None, 2, 0))
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    n = sum(p.numel() for p in model.parameters())
+    assert got == params + 2 * 4 * n + 4 + 2 * 2 * 64 * 4

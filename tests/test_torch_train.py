@@ -32,8 +32,11 @@ convention).
 """
 import argparse
 import dataclasses
+import os
 import re
 import shutil
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -60,7 +63,9 @@ from repro_torch.optim import (AdamW, ErrorFeedback, compressed_all_reduce,
                                cosine_schedule, dequantize_int8,
                                quantize_int8)
 from repro_torch.runtime import Trainer, TrainerConfig
-from repro_torch.runtime.driver import MODEL_AXIS_UNPORTED
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
 
 GB, SEQ, STEPS = 8, 32, 8
 
@@ -316,10 +321,18 @@ def test_remat_matches_no_remat(name, remat):
 
 
 def test_train_loss_refuses_shard_acts_and_unknown_remat():
+    """An unknown ``remat`` is refused; ``shard_acts`` (sequence
+    parallelism over a model axis) is not any more, and on one rank it
+    changes nothing: the loss and gradients equal those without it."""
     model = lm.init_params(get_smoke_config("llama3-8b"), 0, "cpu")
     batch = _batch(model.arch.vocab_size)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        lm.train_loss(model, batch, shard_acts=True)
+    loss, grads = _port_grads(model, batch)
+    model.requires_grad_(True)
+    sp = lm.train_loss(model, batch, shard_acts=True)
+    assert torch.equal(sp, loss)
+    for (name, _), g in zip(model.named_parameters(), torch.autograd.grad(
+            sp, list(model.parameters()))):
+        assert torch.equal(g, grads[name]), name
     with pytest.raises(ValueError, match="remat"):
         lm.train_loss(model, batch, remat="some")
 
@@ -528,20 +541,36 @@ def test_launcher_flags_parse_as_repros(monkeypatch):
     assert mine == defaults
 
 
-def test_launcher_refuses_model_axis():
-    with pytest.raises(NotImplementedError) as e:
+def test_launcher_refuses_model_axis(tmp_path):
+    """``--model-axis 2`` trains under two gloo ranks (torchrun: one model
+    group of 2), as in one process at 1; one process with a model axis
+    of 2 raises ``repro``'s "no usable device configuration", from the
+    launcher and from the ``Trainer``."""
+    with pytest.raises(RuntimeError, match="no usable device configuration"):
         launch_train.main(["--arch", "tinyllama-1.1b", "--smoke",
                            "--model-axis", "2", "--device", "cpu"])
-    assert str(e.value) == MODEL_AXIS_UNPORTED
-    cfg = TrainerConfig(model_axis=2)
-    with pytest.raises(NotImplementedError) as e:
+    with pytest.raises(RuntimeError, match="no usable device configuration"):
         Trainer(get_smoke_config("tinyllama-1.1b"), AdamW(), TokenPipeline(
-            256, 8, 8), cfg, device="cpu")
-    assert str(e.value) == MODEL_AXIS_UNPORTED
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        Trainer(get_smoke_config("tinyllama-1.1b"), AdamW(),
-                TokenPipeline(256, 8, 8), TrainerConfig(shard_acts=True),
-                device="cpu")
+            256, 8, 8), TrainerConfig(model_axis=2, shard_acts=True),
+            device="cpu")
+    recipe = ["--arch", "tinyllama-1.1b", "--smoke", "--steps", "3",
+              "--global-batch", "4", "--seq-len", "16", "--ckpt-every", "3",
+              "--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    runs = {}
+    for m, cmd in ((2, ["-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "2", "-m", "--",
+                        "repro_torch.launch.train", "--model-axis", "2"]),
+                   (1, ["-m", "repro_torch.launch.train"])):
+        out = subprocess.run([sys.executable] + cmd + recipe + [
+            "--ckpt-dir", str(tmp_path / f"m{m}")],
+            env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        runs[m] = [float(x) for x in re.search(
+            r"arch=tinyllama-smoke steps=3 loss (\S+) -> (\S+)",
+            out.stdout).groups()]
+    # bf16 (the smoke config's dtype): repro's bf16 trainer bar
+    np.testing.assert_allclose(runs[2], runs[1], rtol=0.05)
 
 
 def test_launcher_runs_on_cpu(tmp_path, capsys):

@@ -1,0 +1,50 @@
+#!/usr/bin/env python3
+"""Phase 21 of ``chip_smoke.py`` alone, on one card: tensor, expert and
+sequence parallelism in the trainer.
+
+    python3 tools/chip_tp.py
+
+Run from the root of a checkout on a machine with an NVIDIA H100. It
+builds the kernels (one ``nvcc`` per source, together) and calls
+``chip_smoke.phase_tp``: two gloo ranks sharing the card as one model
+group train tinyllama-1.1b (with sequence parallelism) and
+granite-moe-1b-a400m (expert parallelism) at full width and depth, each
+against the same steps in one process, then f32 at 2 layers against one
+rank, each rank's argument bytes and peak against the dry run's 1x2
+prediction. Any failed check raises.
+"""
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import chip_smoke
+    from repro_torch.kernels import KERNEL_PACKAGES, _build
+    if not torch.cuda.is_available():
+        print("chip_tp.py: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; {smi}",
+          flush=True)
+    t0 = time.perf_counter()
+    _build.build(KERNEL_PACKAGES)
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(chip_smoke.phase_tp(smi), flush=True)
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
