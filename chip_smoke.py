@@ -6259,11 +6259,17 @@ def phase_dryrun(smi: str):
 # 49,155 whole). Each against the same steps in one process on the card.
 # (c) f32 at 2 layers, tinyllama and granite
 # widths, B 4, S 256, 3 steps, m = 2 with and without shard_acts against m
-# = 1: the losses and step 1's reduced gradients within TP_BAR.
+# = 1: the losses and step 1's reduced gradients within TP_BAR. (d) FSDP:
+# the two ranks as data 2 x model 1 train tinyllama-1.1b at full width and
+# depth, bf16, S 2048, global batch 2 in one microbatch (one row a rank:
+# (a)'s 2 in 2 would not divide by D k), 3 steps, each rank holding its
+# shards of the weights and the AdamW moments (repro's fsdp rule); against
+# (a)'s one-rank run, which sees the same two rows and the same mean.
 TP_M = 2
 TP_FULL = {"tinyllama-1.1b": dict(B=2, S=2048, k=2, steps=3, sp=True),
            "granite-moe-1b-a400m": dict(B=2, S=2048, k=2, steps=2,
                                         sp=False)}
+TP_FSDP = dict(B=2, S=2048, k=1, steps=3, sp=False)
 TP_F32 = dict(B=4, S=256, steps=3, layers=2)
 TP_BAR = 1e-5                    # phase 16 (c)'s bar (f32)
 # bf16 losses, rel to one rank: sound runs read 3.1e-4 / 4.4e-4 (an H100
@@ -6316,20 +6322,25 @@ def tp_trainer(arch, B, S, steps, k=1, sp=False, m=1, group=None, opt=None):
     return tr
 
 
-def tp_full_run(name, group):
+def tp_full_run(name, group, c=None, m=None):
     """One full-width path on this rank (``group``: the two ranks, or None
-    for one process): losses, step walls, launches, peak and argument
-    bytes, the last step's collectives by group, K5 on layer 0's q/k/v."""
+    for one process; ``c``: the run, TP_FULL[name] by default; ``m``: the
+    model axis, TP_M on the two ranks by default, 1 for (d)'s FSDP):
+    losses, step walls, launches, peak and argument bytes, counted
+    reductions, the last step's collectives by group, K5 on layer 0's
+    q/k/v."""
     import torch
     from repro_torch.analysis.record import Recorder
     from repro_torch.configs import get_config
+    from repro_torch.core import linalg
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import layers as L
 
-    c = TP_FULL[name]
+    c = c or TP_FULL[name]
     arch = get_config(name)
-    m = 1 if group is None else TP_M
+    if m is None:
+        m = 1 if group is None else TP_M
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tr = tp_trainer(arch, c["B"], c["S"], c["steps"], c["k"], c["sp"], m,
@@ -6361,7 +6372,8 @@ def tp_full_run(name, group):
     zero_counts()
     L.flash_attention = first_call
     try:
-        res = tr.run()
+        with linalg.count_reductions() as counted:
+            res = tr.run()
     finally:
         L.flash_attention = real_fa
     got = dict(read_counts(), **{"k5 " + b: n for b, n in
@@ -6379,8 +6391,10 @@ def tp_full_run(name, group):
         want = attention_ref(q, k, v, **kw).float()
     err = float((o.float() - want).abs().max())
     ok = torch.allclose(o.float(), want, rtol=2.0 ** -7, atol=4e-3)
+    rows = c["B"] // grid.data.size          # the rank's tokens and targets
     out = {"losses": res["losses"], "walls": walls, "launches": got,
-           "args": peak["args"] + 2 * c["B"] * c["S"] * 4,
+           "args": peak["args"] + 2 * rows * c["S"] * 4,
+           "reductions": counted.n,
            "peak": peak["peak"], "other": peak["other"],
            "collectives": by, "k5_shape": (tuple(q.shape), tuple(k.shape)),
            "k5_err": err, "k5_ok": bool(ok),
@@ -6420,6 +6434,7 @@ def tp_rank(rank, world, tmp):
     out = {}
     for name in TP_FULL:
         out[name] = tp_full_run(name, dist.group.WORLD)
+    out["fsdp"] = tp_full_run(TRAIN_ARCH, dist.group.WORLD, TP_FSDP, m=1)
     for name in TP_FULL:
         for sp in (False, True):
             out[(name, sp)] = tp_f32_run(name, sp, dist.group.WORLD, tmp,
@@ -6435,7 +6450,8 @@ def phase_tp(smi: str):
     """Phase 21: tensor, expert and sequence parallelism over two gloo
     ranks sharing the card (see TP_FULL, TP_F32), with the dry run's 1x2
     prediction of each rank's argument bytes (exact) and peak (within
-    phase 20's PEAK_RATIO)."""
+    phase 20's PEAK_RATIO); then (d), FSDP over the two ranks as data 2
+    (TP_FSDP, ``phase_tp_fsdp``)."""
     import dataclasses
     import tempfile
     import torch
@@ -6446,9 +6462,9 @@ def phase_tp(smi: str):
 
     t0 = time.perf_counter()
     log(f"phase 21: tensor, expert and sequence parallelism, {TP_M} gloo "
-        f"ranks on the one card as one model group (data 1 x model {TP_M}; "
-        f"gloo reduces CUDA tensors through the host, not NCCL over NVLink); "
-        f"{smi}")
+        f"ranks on the one card as one model group (data 1 x model {TP_M}), "
+        f"then as data {TP_M} x model 1 (FSDP); gloo reduces CUDA tensors "
+        f"through the host, not NCCL over NVLink; {smi}")
     with tempfile.TemporaryDirectory(prefix="phase21_") as tmp:
         one = {name: tp_full_run(name, None) for name in TP_FULL}
         for name in TP_FULL:
@@ -6534,6 +6550,7 @@ def phase_tp(smi: str):
             if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
                 raise AssertionError(f"phase 21 {part} rank {r}: peak "
                                      f"ratio {ratio}")
+    phase_tp_fsdp(one[TRAIN_ARCH]["losses"], ranks)
     for name in TP_FULL:
         want = one[("f32", name)]
         for sp in (False, True):
@@ -6559,7 +6576,88 @@ def phase_tp(smi: str):
             raise AssertionError(f"phase 21 {name}: K5 launches differ "
                                  f"between the ranks: {counts}")
         per_step[name] = counts.pop() // c["steps"]
+    counts = {ranks[r]["fsdp"]["launches"]["k5 wgmma"] for r in ranks}
+    if len(counts) != 1:
+        raise AssertionError(f"phase 21 (d): K5 launches differ between the "
+                             f"ranks: {counts}")
+    per_step[TRAIN_ARCH + " fsdp"] = counts.pop() // TP_FSDP["steps"]
     return {"tp_launches_per_step": per_step}
+
+
+def phase_tp_fsdp(want, ranks):
+    """Phase 21 (d)'s checks: each rank's losses within TP_BF16_BAR of (a)'s
+    one-rank run (``want``), its argument bytes equal to the dry run's 2x1
+    prediction, one counted reduction a step (a reduce-scatter over the
+    data group), 22 K5 wgmma launches a step at the full heads, K5 held to
+    its plain version; the peak against the dry run's, the step walls and
+    the collectives by group logged."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    c, D = TP_FSDP, TP_M
+    arch = get_config(TRAIN_ARCH)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=c["B"],
+                                seq_len=c["S"])
+    cell = dryrun.run_cell(arch.name, shape.name,
+                           mesh=make_mesh((D, 1), ("data", "model")),
+                           arch=arch, shape=shape, opts=dryrun.DryrunOptions(
+                               cost_fit=False, remat="none",
+                               microbatches=c["k"]), verbose=False)
+    if cell["status"] != "ok":
+        raise AssertionError(f"phase 21 (d): the dry run failed: "
+                             f"{cell.get('traceback')}")
+    mem = cell["memory"]
+    per = arch.n_layers * c["k"] * c["steps"]
+    log(f"  (d) {TRAIN_ARCH} FSDP over data {D} x model 1: full width and "
+        f"depth ({arch.n_layers} layers, {arch.dtype}), S {c['S']}, global "
+        f"batch {c['B']} in {c['k']} microbatch (one row a rank), "
+        f"{c['steps']} steps; (a)'s one-rank losses "
+        f"{' '.join(f'{x:.4f}' for x in want)}")
+    for r in range(D):
+        got = ranks[r]["fsdp"]
+        rel = tp_rel(got["losses"], want)
+        ratio = mem["total_bytes"] / got["peak"]
+        log(f"    rank {r}: losses "
+            f"{' '.join(f'{x:.4f}' for x in got['losses'])} (max rel to "
+            f"one rank {rel:.3e}, bar {TP_BF16_BAR}); step walls (s) "
+            f"{' '.join(f'{w:.4f}' for w in got['walls'])}; "
+            f"{got['params']} parameters held (shards); peak "
+            f"{got['peak'] / 2 ** 30:.3f} GiB; arguments {got['args']} B, "
+            f"the dry run's 2x1 prediction {mem['argument_bytes']} B; "
+            f"predicted peak {mem['total_bytes']} B, ratio {ratio:.4f} (no "
+            f"bar: the dry run's temp is the even split)")
+        log(f"    rank {r}: launches {got['launches']} (K5 at {got['k5_shape']};"
+            f" expected {per} wgmma); counted reductions "
+            f"{got['reductions']}; the last step's collectives by group "
+            f"{got['collectives']}; K5 against its plain version on layer "
+            f"0's q/k/v max_abs_err {got['k5_err']:.3e} (rtol 2^-7, atol "
+            f"4e-3)")
+        if got["lost"] or got["events"] or rel > TP_BF16_BAR \
+                or not all(math.isfinite(x) for x in got["losses"]):
+            raise AssertionError(f"phase 21 (d) rank {r}: {got}")
+        if got["launches"]["flash_attention"] != per \
+                or got["launches"]["k5 wgmma"] != per \
+                or got["launches"]["k5 simt"] != 0 \
+                or got["k5_shape"][0][1] != arch.n_heads \
+                or not got["k5_ok"]:
+            raise AssertionError(f"phase 21 (d) rank {r}: K5 "
+                                 f"{got['launches']} {got['k5_shape']}")
+        # a step: the one gradient reduce-scatter, the clip's norm, the
+        # weights gathered a layer each and once for the rest, the whole
+        # leaves' gradients gathered once
+        step = {"reduce-scatter": 1, "all-reduce": 1,
+                "all-gather": c["k"] * (arch.n_layers + 1) + 1}
+        if got["reductions"] != c["steps"] \
+                or got["collectives"]["data"] != step \
+                or got["collectives"]["model"]:
+            raise AssertionError(f"phase 21 (d) rank {r}: reductions "
+                                 f"{got['reductions']}, collectives "
+                                 f"{got['collectives']}, want {step}")
+        if got["args"] != mem["argument_bytes"]:
+            raise AssertionError(f"phase 21 (d) rank {r}: argument bytes "
+                                 f"{got['args']} != {mem['argument_bytes']}")
 
 
 def main() -> int:

@@ -124,9 +124,9 @@ def count_reductions():
             api.solve(problem, cfg, backend="sharded")
         c.n   # ceil(H/s) for an SA solve with track_objective=False
 
-    Only :func:`preduce` adds to ``c.n`` (once per ``all_reduce`` it
-    calls); :func:`pmax` adds to ``c.max`` instead, and :func:`pgather` to
-    neither."""
+    Only :func:`preduce` and :func:`preduce_scatter` add to ``c.n`` (once
+    per collective they make); :func:`pmax` adds to ``c.max`` instead, and
+    :func:`pgather` and :func:`pall_gather` to neither."""
     c = types.SimpleNamespace(n=0, max=0)
     _OPEN_COUNTS.append(c)
     try:
@@ -185,8 +185,10 @@ def pmax(x, group=None, counted: bool = True):
 def pall_gather(x, group):
     """Every rank's ``x`` (the same shape on each) concatenated along the
     first axis in rank order, in one ``all_gather_into_tensor``: the
-    seam of the model axis's gathers (``parallel.tensor``). Not counted,
-    and not an end gather: it runs inside a training step."""
+    seam of the model axis's gathers (``parallel.tensor``) and of FSDP's
+    gathers (``parallel.fsdp``: the weights in a training step, a
+    checkpoint's trees). Not counted, and not an end gather: it belongs
+    to the trainer, not to the end of a solve."""
     x = x.contiguous()
     out = x.new_empty((x.shape[0] * dist.get_world_size(group),)
                       + tuple(x.shape[1:]))
@@ -196,17 +198,23 @@ def pall_gather(x, group):
     return out
 
 
-def preduce_scatter(x, group):
+def preduce_scatter(x, group, counted: bool = True):
     """The sum of ``x`` over the ranks of ``group``, of which this rank
     keeps its block of the first axis (block r of ``size`` equal blocks
-    for rank r), in one ``reduce_scatter_tensor``: the seam of the model
-    axis's scatters (``parallel.tensor``). Not counted."""
+    for rank r), in one ``reduce_scatter_tensor``: the seam of the
+    trainer's gradient reduction under FSDP (``parallel.fsdp``), counted
+    in the open :func:`count_reductions` blocks as :func:`preduce` is,
+    and of the model axis's scatters (``parallel.tensor``), which pass
+    ``counted=False``."""
     x = x.contiguous()
     out = x.new_empty((x.shape[0] // dist.get_world_size(group),)
                       + tuple(x.shape[1:]))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, x, group=group)
+    if counted:
+        for c in _OPEN_COUNTS:
+            c.n += 1
     return out
 
 

@@ -10,11 +10,11 @@ counted as it runs:
     / n (``flops_split: "even"``);
   * argument bytes per device, exact: what each leaf's sanitized partition
     spec (``repro_torch.parallel``) leaves on a device, over the
-    parameters, the AdamW state (train) and the batch or decode cache. On
-    a mesh whose 'model' axis is m > 1 the parameters' specs are the
-    port's own layout (``parallel.tensor.partition_specs``: whole heads,
-    whole recurrent mixers, replicated over 'data'), what each rank of
-    the trainer's grid holds;
+    parameters, the AdamW state (train) and the batch or decode cache.
+    The parameters' specs are the port's own layout
+    (``parallel.tensor.partition_specs``: whole heads and whole recurrent
+    mixers on the 'model' axis, ``repro``'s ``fsdp`` rule on 'data'),
+    what each rank of the trainer's grid holds, on every mesh;
   * temp bytes: the peak of the meta storage that the step made and that
     was alive at once, tracked by storage identity with weak references,
     so the step's own frees (autograd's saved tensors included) count as
@@ -75,7 +75,6 @@ from repro_torch.launch.mesh import Mesh, make_mesh, make_production_mesh, \
 from repro_torch.models import lm
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel.sharding import (batch_partition_specs,
-                                           param_partition_specs,
                                            shard_shape)
 from repro_torch.parallel.tensor import partition_specs
 from repro_torch.roofline.analysis import (HW_H100, model_flops,
@@ -204,10 +203,10 @@ def build_step(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh,
     device; ``specs`` are the partition specs of ``args``, leaf for leaf."""
     batch = input_specs(arch, shape, META)
     model = lm.param_specs(arch)
-    # on a model axis, the port's own layout (whole heads, whole
-    # recurrent mixers, the data axis replicated)
-    ppart = param_partition_specs(model, mesh) \
-        if mesh.shape.get("model", 1) == 1 else partition_specs(arch, mesh)
+    # the port's own layout, what a rank of its trainer holds: whole
+    # heads and whole recurrent mixers on the model axis, repro's fsdp
+    # rule on the data axis
+    ppart = partition_specs(arch, mesh)
     bpart = batch_partition_specs(batch, mesh, kind=shape.kind)
 
     if shape.kind == "train":

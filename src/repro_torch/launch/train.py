@@ -9,7 +9,9 @@ config. The trainer (``repro_torch.runtime.driver``) provides
 checkpointing, failure handling and re-grouping over the survivors. Its
 hosts are the ranks of the default process group: under
 ``python -m torch.distributed.run --standalone --nproc-per-node P`` the P
-ranks train data parallel; run plainly, a group of one rank is made here
+ranks train data parallel, each holding its shards of the weights and the
+AdamW state (FSDP, ``repro_torch.parallel.fsdp``, as ``repro``'s trainer
+shards over 'data'); run plainly, a group of one rank is made here
 (NCCL on the card, gloo on the CPU), so each step still makes its one
 gradient reduction. ``--model-axis m`` splits the ranks into ``repro``'s
 (data, model) grid, m ranks a model group (tensor, expert and sequence

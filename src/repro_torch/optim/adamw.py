@@ -10,8 +10,9 @@ tensors and each product rounds where ``repro``'s does. The update runs
 in place, one leaf at a time, so its f32 temporaries are one leaf's size.
 
 A tree is a dict or a list of tensors (the trainer passes the model's
-``named_parameters`` as a dict). On a model axis the trees hold the
-rank's shards, and the clip's norm is the whole model's. ``state_specs`` gives the state's
+``named_parameters`` as a dict). On a model axis, a data axis (FSDP) or
+both the trees hold the rank's shards, and the clip's norm is the whole
+model's. ``state_specs`` gives the state's
 partition specs (``repro_torch.parallel.sharding``) from the parameters'.
 """
 from __future__ import annotations
@@ -83,16 +84,21 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, axis=None,
-               split=frozenset()) -> Tuple[object, AdamWState]:
+               split=frozenset(), data=None, data_split=frozenset()
+               ) -> Tuple[object, AdamWState]:
         """Apply one step to ``params`` IN PLACE from ``grads`` (the same
         keys; any float dtype). The state's step and moments update in
         place too. Returns (params, state), the same objects.
 
         ``axis``: the model axis (``parallel.tensor.Axis``) the
         parameters are split over, ``split`` the keys of the leaves it
-        splits: the clip's global norm then sums those leaves' squares over
-        the model group and counts each whole leaf, equal on every model
-        rank, once. The update itself is elementwise on the shards."""
+        splits; ``data``: the data axis, ``data_split`` the keys of the
+        leaves it splits (FSDP, ``parallel.fsdp``). The clip's global norm
+        counts each element once: it sums the squares of a model-split
+        leaf over the model group, of a data-split leaf over the data
+        group, of a leaf split on both over both, and takes a whole leaf,
+        equal on every rank, once. The update itself is elementwise on the
+        shards."""
         keys = _keys(params)
         dev = state.step.device
         scalar = lambda x: torch.tensor(x, dtype=F32, device=dev)
@@ -100,14 +106,27 @@ class AdamW:
         scale = None
         if self.clip_norm > 0:
             sq = lambda k: torch.sum(torch.square(grads[k].to(F32)))
-            if axis is None or axis.size == 1:
+            on_m = axis is not None and axis.size > 1
+            on_d = data is not None and data.size > 1
+            if not on_m and not on_d:
                 gnorm = torch.sqrt(sum(sq(k) for k in keys))
             else:
-                shards = sum((sq(k) for k in keys if k in split),
-                             scalar(0.0))
-                gnorm = torch.sqrt(sum(sq(k) for k in keys if k not in split)
-                                   + linalg.preduce(shards, axis.group,
-                                                    counted=False))
+                ms = lambda k: on_m and k in split
+                ds = lambda k: on_d and k in data_split
+                part = lambda m, d: sum((sq(k) for k in keys
+                                         if ms(k) == m and ds(k) == d),
+                                        scalar(0.0))
+                total = part(False, False)
+                both = part(True, True)
+                if on_m:                # [model-split only, split on both]
+                    summed = linalg.preduce(torch.stack(
+                        [part(True, False), both]), axis.group,
+                        counted=False)
+                    total, both = total + summed[0], summed[1]
+                if on_d:
+                    total = total + linalg.preduce(part(False, True) + both,
+                                                   data.group, counted=False)
+                gnorm = torch.sqrt(total)
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
         b1, b2 = scalar(self.b1), scalar(self.b2)

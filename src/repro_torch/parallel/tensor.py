@@ -59,8 +59,9 @@ eight archs have none):
 
 Neither changes the math. A vocabulary that m does not divide (granite's
 49,155) stays whole in both packages (``repro``'s ``sanitize_spec``).
-The data axis is replicated data parallelism here, where ``repro`` also
-shards each weight's other dim over 'data' (FSDP).
+Over the data axis each leaf is then cut on ``repro``'s ``fsdp`` dim
+(``parallel.fsdp``: FSDP), the leaves kept whole on the model axis
+included; :func:`partition_specs` gives both cuts.
 
 Under SP (``train_loss(..., shard_acts=True)``) the residual stream
 between blocks is (B, L / m, D) per rank, ``activation_spec``'s layout.
@@ -84,7 +85,7 @@ __all__ = ["Axis", "Grid", "build_grid", "copy_to", "reduce_from",
            "gather_seq", "scatter_seq", "local_chunk", "gather_rows",
            "max_over", "scale_grad", "seq_split", "layout",
            "partition_specs", "sp_partial", "full_shape", "cut",
-           "shard_model", "gather_leaf"]
+           "shard_model"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,7 +155,8 @@ def _gather1(x, group):
 
 def _scatter1(x, group):
     """x (B, S, ...) summed over the group, this rank's block of dim 1."""
-    return linalg.preduce_scatter(x.transpose(0, 1), group).transpose(0, 1)
+    return linalg.preduce_scatter(x.transpose(0, 1), group,
+                                  counted=False).transpose(0, 1)
 
 
 def _fresh(x):
@@ -307,14 +309,22 @@ def layout(arch, model_size: int) -> Dict[str, Optional[int]]:
 
 def partition_specs(arch, mesh, tp: str = "model"):
     """{parameter name: ``PartitionSpec``} of the port's own layout on
-    ``mesh``: ``tp`` on the split dim, every other dim replicated (the
-    data axis included)."""
+    ``mesh``, what a rank of the trainer holds: ``tp`` on the dim the
+    model axis splits (:func:`layout`), 'data' on the dim the data axis
+    splits (``parallel.fsdp.data_layout``), every other dim replicated."""
     from repro_torch.models import lm
+    from repro_torch.parallel.fsdp import data_layout
     from repro_torch.parallel.sharding import P
     shapes = _shapes(lm.param_specs(arch))
-    return {name: P(*(tp if d == dim else None
-                      for d in range(len(shapes[name]))))
-            for name, dim in layout(arch, mesh.shape.get(tp, 1)).items()}
+    data = data_layout(arch, mesh)
+    out = {}
+    for name, dim in layout(arch, mesh.shape.get(tp, 1)).items():
+        if dim is not None and dim == data[name]:
+            raise ValueError(f"{name}: the model and the data axis split "
+                             f"the same dim {dim}")
+        out[name] = P(*(tp if d == dim else "data" if d == data[name]
+                        else None for d in range(len(shapes[name]))))
+    return out
 
 
 def sp_partial(lay: Mapping[str, Optional[int]]) -> List[str]:
@@ -354,14 +364,3 @@ def shard_model(model, axis: Axis):
         for name, p in out.named_parameters():
             p.copy_(cut(whole[name], lay[name], axis))
     return out
-
-
-def gather_leaf(local: torch.Tensor, dim: Optional[int],
-                axis: Optional[Axis]) -> torch.Tensor:
-    """The full leaf of the model group's shards of it (every rank of the
-    group calls it); ``local`` itself when it is whole."""
-    if dim is None or not _split(axis):
-        return local
-    moved = local.movedim(dim, 0)
-    return linalg.pgather(moved, axis.group).movedim(0, dim)
-

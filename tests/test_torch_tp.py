@@ -1,7 +1,9 @@
-"""Tensor, expert and sequence parallelism in the trainer
-(``repro_torch.parallel.tensor`` with ``models``, ``runtime.driver``,
-``optim.adamw`` and ``convert``), held against ``repro``'s ``Trainer`` on a
-(data 2, model 2) mesh of four host devices.
+"""Tensor, expert and sequence parallelism and FSDP in the trainer
+(``repro_torch.parallel.tensor`` and ``parallel.fsdp`` with ``models``,
+``runtime.driver``, ``optim.adamw`` and ``convert``), held against
+``repro``'s ``Trainer`` on (data 2, model 2) and (data 4, model 1) meshes
+of four host devices. With a data axis of D > 1 every port run here is
+FSDP-sharded, as ``repro``'s are.
 
 * ``repro``'s ``Trainer`` at ``model_axis=2`` runs in ONE subprocess
   (``XLA_FLAGS=--xla_force_host_platform_device_count=4``) at f32, 3
@@ -10,9 +12,16 @@
   ``shard_acts`` (its 5 heads stay whole on each model rank, beside its
   whole SSM mixer) and xlstm (whole recurrent mixers), while one
   four-rank gloo job runs the port's ``Trainer`` on the same weights (the
-  ``repro`` draws of seed 0, cut to each rank's shards), with and
+  port's draws of seed 0, placed in each ``repro`` trainer and cut to each
+  port rank's shards), with and
   without ``shard_acts``. Each loss is within rel 1e-4 of ``repro``'s,
-  the bar of ``test_trainer_matches_repro_f32``.
+  the bar of ``test_trainer_matches_repro_f32``. The same subprocess runs
+  tinyllama at ``model_axis=1`` (data 4) and granite at (data 2, model 2)
+  in 2 microbatches of the global batch 4: an MoE routes ``repro``'s
+  microbatch j as one group (``runtime.driver.microbatch_rows``).
+* (data 4, model 1): tinyllama and granite against one process (losses
+  and step 1's gathered gradients within rel 1e-5), tinyllama against
+  ``repro`` (rel 1e-4).
 * The port at m = 2 against m = 1 (one process): the losses and the
   gathered gradients of step 1 within rel 1e-5; whisper-smoke (through
   ``make_train_step``, with its frames) runs here only, since ``repro``'s
@@ -20,23 +29,32 @@
 * A failure at m = 2: host 1 killed at step 2; the survivors [0, 2, 3]
   keep [0, 2] (data 1 x model 2, rank 2 moved to model index 1) and match
   the undisturbed losses (rel 1e-5).
-* One data-group reduction a step for microbatches 1 and 4, counted by
-  ``linalg.count_reductions`` and by the ``Recorder``'s tally by process
-  group; for granite (data 2) that tally also holds its MoE routing's
-  two collectives for each MoE layer and microbatch.
+* One data-group reduction a step for microbatches 1 and 4, a
+  reduce-scatter, counted by ``linalg.count_reductions``; the
+  ``Recorder``'s tally by process group of steps 2 and 3 (step 1's
+  update gathers the gradients the tests compare) is pinned exactly: the
+  FSDP gathers (a layer each and the leaves outside the layers, per
+  microbatch; the whole leaves' gradients once a step), the clip's norm,
+  and for granite its MoE routing's two collectives for each MoE layer
+  and microbatch.
 * Checkpoints across grids: the port's step-2 checkpoint written at m = 2
   restores at m = 1 in the port and in ``repro`` (the subprocess waits
   for it once its own runs are done), one written at m = 1 restores at
-  m = 2 in both, and the next loss is within rel 1e-4 of the undisturbed
-  run; the on-disk tree equals ``repro``'s.
-* The layout against ``repro``'s rules for all ten archs at m = 2, the
-  cutting and gathering, ``convert`` with an axis, the dry run's 1x2
-  argument bytes, and ``build_grid``'s order.
+  m = 2 in both, one written at (data 4, model 1) restores in one
+  process and in ``repro``, and the next loss is within rel 1e-4 of the
+  undisturbed run; the on-disk tree equals ``repro``'s.
+* The layout against ``repro``'s rules for all ten archs at 1x2, 2x1,
+  4x1 and 2x2, the cutting and gathering, ``convert`` with an axis, the
+  dry run's argument bytes at those meshes against a rank's, and
+  ``build_grid``'s order.
 
-The module imports no JAX at the top: the job's ranks import it.
+The module imports no JAX. Every run here, the subprocess's included,
+starts from the port's weights of seed 0 (``lm.init_params``, in
+``repro``'s tree through ``convert.lm_params_to_numpy``).
 """
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -53,10 +71,10 @@ from repro_torch.core import distributed, linalg
 from repro_torch.data import TokenPipeline
 from repro_torch.models import lm
 from repro_torch.optim import AdamW, cosine_schedule
-from repro_torch.parallel import sharding
+from repro_torch.parallel import fsdp, sharding
 from repro_torch.parallel import tensor as par
 from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
-from repro_torch.runtime.driver import make_train_step
+from repro_torch.runtime.driver import make_train_step, microbatch_rows
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -84,8 +102,9 @@ def _cfg(tmp, name, m=1, sp=False, k=1, steps=STEPS):
 
 
 class _Recording:
-    """An AdamW that keeps the gradients of its first update, the model
-    group's shards gathered to whole leaves (float32 numpy)."""
+    """An AdamW that keeps the gradients of its first update, the shards
+    gathered over the data group, then the model group, to whole leaves
+    (float32 numpy)."""
 
     def __init__(self):
         self.opt = AdamW(learning_rate=cosine_schedule(1e-3, 1, STEPS))
@@ -94,14 +113,30 @@ class _Recording:
     def init(self, params):
         return self.opt.init(params)
 
-    def update(self, grads, state, params, axis=None, split=frozenset()):
+    def update(self, grads, state, params, axis=None, split=frozenset(),
+               data=None, data_split=frozenset()):
         if self.grads is None:
-            lay = par.layout(self.arch, axis.size) if axis else {}
-            self.grads = {n: par.gather_leaf(g, lay.get(n), axis)
-                          .detach().numpy().copy()
-                          for n, g in sorted(grads.items())}
+            m = axis.size if axis else 1
+            lay = par.layout(self.arch, m) if axis else {}
+            dlay = fsdp.grid_data_layout(self.arch, data.size, m) \
+                if data else {}
+            whole = dict(grads)
+            whole.update(fsdp.gather_packed(whole, dlay, data))
+            whole.update(fsdp.gather_packed(whole, lay, axis))
+            self.grads = {n: g.detach().numpy().copy()
+                          for n, g in sorted(whole.items())}
         kw = {"axis": axis, "split": split} if axis else {}
+        if data:
+            kw.update(data=data, data_split=data_split)
         return self.opt.update(grads, state, params, **kw)
+
+
+def _held(tr):
+    """The bytes a rank holds of the model and the AdamW state."""
+    st = tr.opt_state
+    return sum(t.numel() * t.element_size()
+               for t in [*tr.model.parameters(), *st.mu.values(),
+                         *st.nu.values(), st.step])
 
 
 def _train(arch, tree, tmp, name, group, m=1, sp=False, k=1, gb=GB,
@@ -111,9 +146,19 @@ def _train(arch, tree, tmp, name, group, m=1, sp=False, k=1, gb=GB,
     tr = Trainer(arch, rec, TokenPipeline(arch.vocab_size, gb, SEQ),
                  _cfg(tmp, name, m, sp, k), group=group, device="cpu",
                  model=convert.lm_params_from_numpy(arch, tree, "cpu"), **kw)
-    with linalg.count_reductions() as c, Recorder() as r:
+    held = _held(tr) if tr.grid is not None else 0
+    r, inner = Recorder(), tr.step_fn
+
+    def step(*args):        # steps 2 on: step 1's update gathers rec.grads
+        if rec.grads is None:
+            return inner(*args)
+        with r:
+            return inner(*args)
+    tr.step_fn = step
+    with linalg.count_reductions() as c:
         out = tr.run()
-    out.update(grads=rec.grads, reductions=c.n, live=list(tr.live))
+    out.update(grads=rec.grads, reductions=c.n, live=list(tr.live),
+               held=held)
     if tr.grid is not None and not out["lost"]:
         groups = r.collectives_by_group()
         data = tr.grid.data.group
@@ -141,6 +186,8 @@ def _step_frames(arch, group, m, sp=False):
     else:
         grid = par.build_grid(group, m)
     model = lm.init_params(arch, 0, "cpu", grid.model)
+    fsdp.shard_params(model, fsdp.grid_data_layout(arch, grid.data.size, m),
+                      grid.data)
     model.requires_grad_(True)
     state = rec.init(dict(model.named_parameters()))
     step = make_train_step(arch, rec, _cfg("", "-", m, sp), grid=grid)
@@ -164,11 +211,12 @@ def _only_step(src, dst, step):
     return dst
 
 
-def _hand_to_repro(tmp, run, m):
+def _hand_to_repro(tmp, run, grid):
     """A copy of ``run``'s step-2 checkpoint for ``repro``'s restore of
-    the m = ``m`` checkpoint, then its READY marker."""
+    the checkpoint written on ``grid`` ("m2": model 2, "m1": one process,
+    "d4": data 4), then its READY marker."""
     dst = _only_step(os.path.join(tmp, run),
-                     os.path.join(tmp, f"m{m}_at_2_repro"), EVERY)
+                     os.path.join(tmp, f"{grid}_at_2_repro"), EVERY)
     open(os.path.join(dst, "READY"), "w").close()
 
 
@@ -197,7 +245,14 @@ def _rank(rank, world, tmp, trees):
             name = f"{key}_m2_{sp}"
             out[name] = _train(arch, trees[key], tmp, name, W, 2, sp)
             if name == "tinyllama_m2_True" and rank == 0:
-                _hand_to_repro(tmp, name, 2)
+                _hand_to_repro(tmp, name, "m2")
+    for key in ("tinyllama", "granite"):
+        out[f"{key}_d4"] = _train(_arch(key), trees[key], tmp, f"{key}_d4",
+                                  W)
+        if key == "tinyllama" and rank == 0:
+            _hand_to_repro(tmp, "tinyllama_d4", "d4")
+    out["granite_k2"] = _train(_arch("granite"), trees["granite"], tmp,
+                               "granite_k2", W, 2, k=2)
     for sp in (True, False):
         out[f"whisper_m2_{sp}"] = _step_frames(_arch("whisper"), W, 2, sp)
     arch = _arch("tinyllama")
@@ -222,6 +277,7 @@ import numpy as np
 import jax
 from repro.configs import get_smoke_config
 from repro.data.tokens import TokenPipeline
+from repro.models import lm as jlm
 from repro.optim.adamw import AdamW, cosine_schedule
 from repro.runtime.driver import Trainer, TrainerConfig
 
@@ -230,23 +286,42 @@ tmp, cases, (GB, SEQ, STEPS, EVERY) = (sys.argv[1], json.loads(sys.argv[2]),
 assert len(jax.devices()) == 4
 
 
-def trainer(key, m, sp, ckpt, every=EVERY):
+# the port's draws of seed 0, in repro's tree, which every run starts from
+trees = {}
+with np.load(f"{tmp}/trees.npz") as f:
+    for name in f.files:
+        key, path = name.split("|")
+        node = trees.setdefault(key, {})
+        *dirs, leaf = path.split("/")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = f[name]
+
+
+def trainer(key, m, sp, ckpt, every=EVERY, k=1):
+    # repro's Trainer, whose draw of its parameters returns the case's
+    # tree (the trainer places it on its mesh)
     name, kw, _ = cases[key]
     arch = dataclasses.replace(get_smoke_config(name), dtype="float32", **kw)
+    jlm.init_params = lambda *_: trees[key]
     return Trainer(arch, AdamW(learning_rate=cosine_schedule(1e-3, 1, STEPS)),
                    TokenPipeline(arch.vocab_size, GB, SEQ),
                    TrainerConfig(steps=STEPS, ckpt_dir=ckpt, ckpt_every=every,
-                                 model_axis=m, shard_acts=sp))
+                                 model_axis=m, shard_acts=sp, microbatches=k))
 
 
 out = {}
-for key, (_, _, sp) in cases.items():
-    tr = trainer(key, 2, sp, f"{tmp}/repro_{key}")
-    out[key] = np.asarray(tr.run()["losses"])
-    out[key + "/mesh"] = np.asarray(list(tr.mesh.shape.values()))
+runs = [(key, key, 2, sp, 1) for key, (_, _, sp) in cases.items()]
+runs += [("tinyllama_d4", "tinyllama", 1, True, 1),
+         ("granite_k2", "granite", 2, False, 2)]
+for run, key, m, sp, k in runs:
+    tr = trainer(key, m, sp, f"{tmp}/repro_{run}", k=k)
+    out[run] = np.asarray(tr.run()["losses"])
+    out[run + "/mesh"] = np.asarray(list(tr.mesh.shape.values()))
 # the port's checkpoints, as the port's runs hand them over
 for name, m, ckpt in (("m2_at_m1", 1, f"{tmp}/m2_at_2_repro"),
-                      ("m1_at_m2", 2, f"{tmp}/m1_at_2_repro")):
+                      ("m1_at_m2", 2, f"{tmp}/m1_at_2_repro"),
+                      ("d4_at_m1", 1, f"{tmp}/d4_at_2_repro")):
     t0 = time.time()
     while not os.path.exists(f"{ckpt}/READY"):
         assert time.time() - t0 < 600, ckpt
@@ -270,26 +345,39 @@ def _repro(tmp):
             env=env, stdout=subprocess.DEVNULL, stderr=err)
 
 
+def _flat(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def _trees(tmp):
+    """{case: the port's parameters of seed 0 in ``repro``'s tree (numpy)},
+    written to ``trees.npz`` for the subprocess, whose trainers start from
+    them too."""
+    trees = {key: convert.lm_params_to_numpy(lm.init_params(_arch(key), 0,
+                                                            "cpu"))
+             for key in CASES}
+    np.savez(os.path.join(tmp, "trees.npz"),
+             **{f"{key}|{p}": v for key, tree in trees.items()
+                for p, v in _flat(tree)})
+    return trees
+
+
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
     """{"repro": repro's losses, "one": the port's one-process runs,
     "ranks": {rank: its results}, "resume_m2_at_m1": the port's m = 1
     resume of the m = 2 checkpoint}."""
-    import jax
-    from repro.configs import get_smoke_config as j_smoke
-    from repro.models import lm as jlm
-
     tmp = str(tmp_path_factory.mktemp("torch_tp"))
+    trees = _trees(tmp)
     ref = _repro(tmp)
     try:
-        trees = {}
-        for key, (name, kw, _) in CASES.items():
-            ja = dataclasses.replace(j_smoke(name), dtype="float32", **kw)
-            trees[key] = jax.tree.map(np.asarray,
-                                      jlm.init_params(ja, jax.random.key(0)))
         one = {key: _train(_arch(key), trees[key], tmp, f"{key}_m1", None)
                for key in CASES}
-        _hand_to_repro(tmp, "tinyllama_m1", 1)
+        _hand_to_repro(tmp, "tinyllama_m1", "m1")
         one["whisper"] = _step_frames(_arch("whisper"), None, 1)
         distributed.run_ranks(_rank, 4, "gloo", device="cpu",
                               args=(tmp, trees))
@@ -298,6 +386,9 @@ def job(tmp_path_factory):
         ckpt = _only_step(os.path.join(tmp, "tinyllama_m2_True"),
                           os.path.join(tmp, "m2_at_2"), EVERY)
         resume = _resume(_arch("tinyllama"), ckpt, None, 1, False)
+        ckpt = _only_step(os.path.join(tmp, "tinyllama_d4"),
+                          os.path.join(tmp, "d4_at_2"), EVERY)
+        resume_d4 = _resume(_arch("tinyllama"), ckpt, None, 1, False)
         ref.wait(timeout=600)
     finally:
         ref.kill()
@@ -305,7 +396,7 @@ def job(tmp_path_factory):
         -3000:]
     want = dict(np.load(os.path.join(tmp, "ref.npz")))
     return {"repro": want, "one": one, "ranks": ranks, "tmp": tmp,
-            "resume_m2_at_m1": resume}
+            "resume_m2_at_m1": resume, "resume_d4_at_m1": resume_d4}
 
 
 def _rel(got, want, tol, what):
@@ -375,25 +466,76 @@ def test_one_data_group_reduction_per_step(job, key, k):
     arch = _arch(key)
     moe = sum(arch.block_at(i) == "moe" for i in range(arch.n_layers))
     assert (key == "granite") == (moe > 0)
+    seen = STEPS - 1        # the steps the Recorder saw (2 and 3)
+    # FSDP's gathers per microbatch: one a layer, one for the leaves
+    # outside the layers (every one of them holds a data-split leaf)
+    dims = fsdp.grid_data_layout(arch, 2, 2)
+    groups = {fsdp._group_of(n) for n, d in dims.items() if d is not None}
+    assert len(groups) == arch.n_layers + 1
     for r in range(4):
         out = job["ranks"][r][f"{key}_k{k}"]
         assert out["reductions"] == STEPS
-        # one gradient all-reduce a step; each MoE layer's routing, for
-        # each microbatch, sums the mean probabilities and gathers the
-        # pick counts over the data group (``layers.moe_route``)
-        want = {"all-reduce": STEPS * (1 + moe * k)}
-        if moe:
-            want["all-gather"] = STEPS * moe * k
-        assert out["data_group"] == want
+        # a step: the one gradient reduce-scatter; the clip's norm (an
+        # all-reduce of the shards' squares); the whole leaves' gradients
+        # gathered once; the weights gathered per layer and microbatch;
+        # each MoE layer's routing, for each microbatch, sums the mean
+        # probabilities and gathers the pick counts (``layers.moe_route``)
+        assert out["data_group"] == {
+            "reduce-scatter": seen,
+            "all-reduce": seen * (1 + moe * k),
+            "all-gather": seen * (1 + k * len(groups) + moe * k)}
         if key == "tinyllama":
             model = out["model_group"]
             # per step: the SP sum and the clip's norm; per microbatch the
             # vocab-parallel loss (its max and its sums)
-            assert model["all-reduce"] == STEPS * (2 + 2 * k)
+            assert model["all-reduce"] == seen * (2 + 2 * k)
             assert model["all-gather"] > 0 and model["reduce-scatter"] > 0
     if key == "tinyllama":
         _rel(job["ranks"][0]["tinyllama_k4"]["losses"],
              job["ranks"][0]["tinyllama_k1"]["losses"], 1e-5, "microbatches")
+
+
+# ---------------------------------------------------------------------------
+# FSDP over the data axis, and the MoE's microbatches over it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("key", ["tinyllama", "granite"])
+def test_data_axis_four_matches_one(job, key):
+    one = job["one"][key]
+    got = job["ranks"][0][f"{key}_d4"]
+    assert got["events"] == [] and got["final_step"] == STEPS
+    _rel(got["losses"], one["losses"], 1e-5, key)
+    _grads_close(got["grads"], one["grads"], 1e-5, key)
+    for r in range(1, 4):
+        assert job["ranks"][r][f"{key}_d4"]["losses"] == got["losses"]
+
+
+def test_data_axis_four_matches_repro(job):
+    assert list(job["repro"]["tinyllama_d4/mesh"]) == [4, 1]
+    for r in range(4):
+        _rel(job["ranks"][r]["tinyllama_d4"]["losses"],
+             job["repro"]["tinyllama_d4"], 1e-4, f"rank {r}")
+
+
+def test_moe_microbatches_over_the_data_axis_match_repro(job):
+    """granite at (data 2, model 2) in 2 microbatches of the global batch
+    4: rank d's microbatch j holds global row 2 j + d, so each MoE layer
+    routes repro's microbatch j (rows 2 j, 2 j + 1) as one group."""
+    assert list(job["repro"]["granite_k2/mesh"]) == [2, 2]
+    for r in range(4):
+        got = job["ranks"][r]["granite_k2"]
+        assert got["reductions"] == STEPS
+        _rel(got["losses"], job["repro"]["granite_k2"], 1e-4, f"rank {r}")
+
+
+def test_microbatch_rows_are_repros_blocks():
+    B, k, D = 8, 2, 2
+    rows = [microbatch_rows(B, k, D, d) for d in range(D)]
+    for j in range(k):
+        got = sorted(np.concatenate([r[j * 2:(j + 1) * 2] for r in rows]))
+        assert got == list(range(j * 4, (j + 1) * 4))
+    assert list(microbatch_rows(B, 1, 4, 3)) == [6, 7]
+    assert list(microbatch_rows(B, 4, 1, 0)) == list(range(8))
 
 
 # ---------------------------------------------------------------------------
@@ -414,14 +556,23 @@ def test_checkpoint_written_at_m1_resumes_at_m2(job):
     _rel(job["repro"]["m1_at_m2"], undisturbed[EVERY:], 1e-4, "repro")
 
 
+def _tree(tmp, run):
+    man = json.loads(open(os.path.join(
+        tmp, run, f"step_{STEPS:08d}", "manifest.json")).read())
+    return {l["path"]: (l["shape"], l["dtype"]) for l in man["leaves"]}
+
+
 def test_checkpoint_tree_is_repros_at_m2(job):
-    leaves = {}
-    for side in ("repro_tinyllama", "tinyllama_m2_True"):
-        man = json.loads(open(os.path.join(
-            job["tmp"], side, f"step_{STEPS:08d}", "manifest.json")).read())
-        leaves[side] = {l["path"]: (l["shape"], l["dtype"])
-                        for l in man["leaves"]}
-    assert leaves["tinyllama_m2_True"] == leaves["repro_tinyllama"]
+    assert _tree(job["tmp"], "tinyllama_m2_True") \
+        == _tree(job["tmp"], "repro_tinyllama")
+
+
+def test_checkpoint_written_at_d4_resumes_in_one_process_and_repro(job):
+    undisturbed = job["ranks"][0]["tinyllama_d4"]["losses"]
+    _rel(job["resume_d4_at_m1"], undisturbed[EVERY:], 1e-4, "port")
+    _rel(job["repro"]["d4_at_m1"], undisturbed[EVERY:], 1e-4, "repro")
+    assert _tree(job["tmp"], "tinyllama_d4") \
+        == _tree(job["tmp"], "repro_tinyllama_d4")
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +618,47 @@ def test_layout_is_repros_rules_but_whole_heads_and_mixers(name):
             assert lay[leaf] is None
     leaves = sorted({n.split(".", 2)[2] for n in differ})
     assert leaves == WHOLE_AT_2.get(name, []), leaves
+
+
+FSDP_MESHES = {"2x1": (2, 1), "4x1": (4, 1), "2x2": (2, 2)}
+
+
+def _rank_shapes(arch, D, M, d, i):
+    """The shapes rank (d, i) of a (D, M) grid holds, as the trainer cuts
+    them: the model rank's leaves (``lm.LM`` on the model axis), then the
+    data cut (``fsdp.shard_params``), on the meta device."""
+    model = lm.param_specs(arch, par.Axis(None, M, i))
+    fsdp.shard_params(model, fsdp.grid_data_layout(arch, D, M),
+                      par.Axis(None, D, d))
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("mesh", list(FSDP_MESHES))
+@pytest.mark.parametrize("name", list_archs())
+def test_fsdp_layout_is_repros_rules_but_whole_heads_and_mixers(name, mesh):
+    """Each leaf a rank holds has ``repro``'s sanitized spec's shard shape,
+    but for the leaves the port keeps whole on the model axis (the
+    ``WHOLE_AT_2`` table), which are cut over 'data' all the same."""
+    from repro_torch.launch.mesh import make_mesh
+    arch = get_config(name)
+    D, M = FSDP_MESHES[mesh]
+    grid = make_mesh((D, M), ("data", "model"))
+    full = lm.param_specs(arch)
+    shapes = {n: tuple(p.shape) for n, p in full.named_parameters()}
+    rules = sharding.param_partition_specs(full, grid)
+    mine = par.partition_specs(arch, grid)
+    whole = WHOLE_AT_2.get(name, []) if M == 2 else []
+    held = _rank_shapes(arch, D, M, D - 1, M - 1)
+    assert held == _rank_shapes(arch, D, M, 0, 0)
+    split = 0
+    for leaf, spec in rules.items():
+        if leaf.split(".", 2)[-1] in whole and leaf.startswith("layers."):
+            spec = sharding.P(*(None if p == "model" else p for p in spec))
+        want = sharding.shard_shape(shapes[leaf], spec, grid)
+        assert held[leaf] == want, (leaf, spec, held[leaf])
+        assert sharding.shard_shape(shapes[leaf], mine[leaf], grid) == want
+        split += "data" in tuple(spec)
+    assert split > len(rules) // 2
 
 
 def test_cut_and_gather_and_convert_with_an_axis():
@@ -518,3 +710,39 @@ def test_dryrun_argument_bytes_at_1x2_are_a_ranks():
     params = sum(p.numel() * p.element_size() for p in model.parameters())
     n = sum(p.numel() for p in model.parameters())
     assert got == params + 2 * 4 * n + 4 + 2 * 2 * 64 * 4
+
+
+def _dryrun_bytes(arch, D, M):
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=GB,
+                                seq_len=SEQ)
+    mesh = make_mesh((D, M), ("data", "model"))
+    fn, args, specs = dryrun.build_step(arch, shape, mesh,
+                                        dryrun.DryrunOptions())
+    return dryrun.argument_bytes(args, specs, mesh)
+
+
+@pytest.mark.parametrize("mesh", list(FSDP_MESHES))
+def test_dryrun_argument_bytes_are_a_ranks(job, mesh):
+    """The dry run's argument bytes at 2x1, 4x1 and 2x2: what a rank of
+    the four-rank job holds (the model's and AdamW's shards, at 4x1 and
+    2x2), or the trainer's cut on the meta device (2x1), plus the rank's
+    rows of the batch (int32 tokens and targets)."""
+    D, M = FSDP_MESHES[mesh]
+    batch = 2 * (GB // D) * SEQ * 4
+    runs = {"4x1": ["tinyllama_d4", "granite_d4"],
+            "2x2": ["tinyllama_m2_True", "hymba_m2_True", "granite_m2_False"],
+            "2x1": []}[mesh]
+    for run in runs:
+        key = run.split("_")[0]
+        held = {job["ranks"][r][run]["held"] for r in range(4)}
+        assert len(held) == 1, (run, held)
+        assert _dryrun_bytes(_arch(key), D, M) == held.pop() + batch, run
+    if not runs:
+        for key in ("tinyllama", "hymba"):
+            arch = _arch(key)
+            shapes = _rank_shapes(arch, D, M, 0, 0)
+            n = sum(math.prod(s) for s in shapes.values())
+            assert _dryrun_bytes(arch, D, M) == (4 + 2 * 4) * n + 4 + batch
