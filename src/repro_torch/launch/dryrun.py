@@ -12,9 +12,9 @@ counted as it runs:
     spec (``repro_torch.parallel``) leaves on a device, over the
     parameters, the AdamW state (train) and the batch or decode cache.
     The parameters' specs are the port's own layout
-    (``parallel.tensor.partition_specs``: whole heads and whole recurrent
-    mixers on the 'model' axis, ``repro``'s ``fsdp`` rule on 'data'),
-    what each rank of the trainer's grid holds, on every mesh;
+    (``parallel.tensor.partition_specs``: ``repro``'s sanitized rules on
+    the 'model' axis, its ``fsdp`` rule on 'data'), what each rank of the
+    trainer's grid holds, on every mesh;
   * temp bytes: the peak of the meta storage that the step made and that
     was alive at once, tracked by storage identity with weak references,
     so the step's own frees (autograd's saved tensors included) count as
@@ -203,9 +203,8 @@ def build_step(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh,
     device; ``specs`` are the partition specs of ``args``, leaf for leaf."""
     batch = input_specs(arch, shape, META)
     model = lm.param_specs(arch)
-    # the port's own layout, what a rank of its trainer holds: whole
-    # heads and whole recurrent mixers on the model axis, repro's fsdp
-    # rule on the data axis
+    # the port's own layout, what a rank of its trainer holds: repro's
+    # sanitized rules on the model axis, its fsdp rule on the data axis
     ppart = partition_specs(arch, mesh)
     bpart = batch_partition_specs(batch, mesh, kind=shape.kind)
 

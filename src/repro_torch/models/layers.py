@@ -13,18 +13,21 @@ f32 and cast back, at the same points as ``repro``. The MoE is plain
 PyTorch, as ``repro``'s is plain ``jnp`` outside any Pallas kernel: its
 expert products are three ``torch.bmm`` over (E, C, D) buffers.
 
-Built for a model axis (``tp``, a ``parallel.tensor.Axis`` of size m
-> 1), ``Attention`` holds its rank's Hq / m query and Hkv / m kv heads
-where m divides both (else it stays whole), ``MLP`` its d_ff / m hidden
-columns, and ``MoE`` its E / m experts where m divides E (EP, ``repro``'s
-``_moe_buffer_spec`` branch) or else each expert's d_ff / m (expert-TP);
-such a module's output is the rank's partial sum, which the block sums
-over the model group (``models.lm``). The MoE's router, top-k, capacity
-and aux loss stay replicated and equal to ``repro``'s; under EP each rank
-fills only its experts' rows of the dispatch buffer and takes only their
-picks in the combine. Not ported: ``maybe_shard`` (the layouts are the
-modules' own) and the perf flags (``DECODE_GROUPED_GQA`` stays at its
-default, the repeat of the cache's heads; ``MOE_BUF_2D`` only shards).
+Built for a model axis (``tp``, a ``parallel.tensor.Axis`` of size m >
+1), ``Attention`` holds its rank's Hq / m query and Hkv / m kv heads
+where m divides both, and else, where m divides Hq Dh, its block of the
+flat columns of wq (and of wk / wv where m divides Hkv Dh) and of the
+rows of wo (its products gathered to whole heads: ``project``), ``MLP``
+its d_ff / m hidden columns, and ``MoE`` its E / m experts where m
+divides E (EP, ``repro``'s ``_moe_buffer_spec`` branch) or else each
+expert's d_ff / m (expert-TP); such a module's output is the rank's
+partial sum, which the block sums over the model group (``models.lm``).
+The MoE's router, top-k, capacity and aux loss stay replicated and equal
+to ``repro``'s; under EP each rank fills only its experts' rows of the
+dispatch buffer and takes only their picks in the combine. Not ported:
+``maybe_shard`` (the layouts are the modules' own) and the perf flags
+(``DECODE_GROUPED_GQA`` stays at its default, the repeat of the cache's
+heads; ``MOE_BUF_2D`` only shards).
 """
 from __future__ import annotations
 
@@ -98,13 +101,25 @@ def apply_rope(x, positions, theta: float):
 # GQA attention
 # ---------------------------------------------------------------------------
 
-def project_qkv(p, x, n_heads, n_kv_heads, head_dim):
+def project(x, w, width: int, tp=None, b=None):
+    """x @ w (+ b) with all ``width`` columns: where w holds only this
+    rank's block of them (a flat column split over the model axis
+    ``tp``), the ranks' products gathered (``parallel.tensor.
+    gather_cols``)."""
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y if y.shape[-1] == width else par.gather_cols(y, tp)
+
+
+def project_qkv(p, x, n_heads, n_kv_heads, head_dim, tp=None):
     """q (B, H, S, Dh), k and v (B, Hkv, S, Dh) from x (B, S, D); ``p``
-    maps wq/wk/wv (and bq/bk/bv with a QKV bias) to tensors."""
+    maps wq/wk/wv (and bq/bk/bv with a QKV bias) to tensors; ``tp``: the
+    model axis of a flat column split (see :func:`project`)."""
     B, S, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if p.get("bq") is not None:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = (project(x, p[w], n * head_dim, tp, p.get(b)) for w, b, n in
+               (("wq", "bq", n_heads), ("wk", "bk", n_kv_heads),
+                ("wv", "bv", n_kv_heads)))
     q = q.reshape(B, S, n_heads, head_dim).transpose(1, 2)
     k = k.reshape(B, S, n_kv_heads, head_dim).transpose(1, 2)
     v = v.reshape(B, S, n_kv_heads, head_dim).transpose(1, 2)
@@ -113,21 +128,22 @@ def project_qkv(p, x, n_heads, n_kv_heads, head_dim):
 
 def attention_train(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
                     window: int = 0, causal: bool = True, positions=None,
-                    kv_override=None):
+                    kv_override=None, tp=None):
     """Full-sequence attention (training / prefill) through
     ``flash_attention``. Returns (out, (k, v)). ``kv_override`` supplies
     (k, v) (B, Hkv, Sk, Dh) computed elsewhere (cross-attention): then
     only q is projected, and no rope is applied. ``repro`` projects k and
-    v there too and drops them, so the values are the same."""
+    v there too and drops them, so the values are the same. ``tp``: the
+    model axis of a flat column split: q, k and v are gathered to the
+    whole heads, K5 runs on all of them, and the rank's columns of its
+    output meet its rows of wo (a partial sum)."""
     B, S, _ = x.shape
     if kv_override is not None:
-        q = x @ p["wq"]
-        if p.get("bq") is not None:
-            q = q + p["bq"]
+        q = project(x, p["wq"], n_heads * head_dim, tp, p.get("bq"))
         q = q.reshape(B, S, n_heads, head_dim).transpose(1, 2)
         k, v = kv_override
     else:
-        q, k, v = project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+        q, k, v = project_qkv(p, x, n_heads, n_kv_heads, head_dim, tp)
         if rope_theta > 0:
             if positions is None:
                 positions = torch.arange(S, device=x.device)
@@ -135,7 +151,7 @@ def attention_train(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
             k = apply_rope(k, positions, rope_theta)
     o = flash_attention(q, k, v, causal=causal, window=window)
     o = o.transpose(1, 2).reshape(B, S, n_heads * head_dim)
-    return o @ p["wo"], (k, v)
+    return par.local_chunk(o, tp, -1) @ p["wo"], (k, v)
 
 
 def attention_decode(p, x, cache_k, cache_v, pos: int, *, n_heads,
@@ -201,9 +217,13 @@ class Attention(nn.Module):
     sliding-window attention, whose decode cache is a ring;
     ``causal=False`` makes its full-sequence pass bidirectional (an
     encoder's, or cross-attention with ``kv``). With a model axis ``tp``
-    of size m that divides H and Hkv, it holds heads [i H / m, (i + 1) H
-    / m) and kv heads [i Hkv / m, ...) of rank i (``self.tp`` is set);
-    else it is whole (``self.tp`` None)."""
+    of size m (``self.tp`` set where m divides H Dh, else None: whole):
+    where m also divides H and Hkv, it holds heads [i H / m, (i + 1) H /
+    m) and kv heads [i Hkv / m, ...) of rank i (``self.heads``); else the
+    flat columns [i H Dh / m, ...) of wq and bq, of wk, wv, bk and bv
+    where m divides Hkv Dh (else they are whole, and ``partial``: their
+    gradient is the rank's part), and the rows of wo, and runs the whole
+    heads (``attention_train``'s ``tp``)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int, qkv_bias: bool, rope_theta: float, dtype,
@@ -211,30 +231,48 @@ class Attention(nn.Module):
                  tp=None):
         super().__init__()
         m = tp.size if tp is not None else 1
-        self.tp = tp if m > 1 and n_heads % m == 0 \
-            and n_kv_heads % m == 0 else None
+        nq, nkv = n_heads * head_dim, n_kv_heads * head_dim
+        self.tp = tp if m > 1 and nq % m == 0 else None
+        if m > 1 and self.tp is None and nkv % m == 0:
+            raise NotImplementedError(
+                f"a model axis of {m} splits wk ({nkv} columns) but not wq "
+                f"({nq}): the port runs no such attention")
+        self.heads = self.tp is None or (n_heads % m == 0
+                                         and n_kv_heads % m == 0)
+        self.partial = ()
         if self.tp is not None:
-            n_heads, n_kv_heads = n_heads // m, n_kv_heads // m
+            nq //= m
+            if nkv % m:
+                self.partial = ("wk", "wv") + (("bk", "bv") if qkv_bias
+                                               else ())
+            else:
+                nkv //= m
+            if self.heads:
+                n_heads, n_kv_heads = n_heads // m, n_kv_heads // m
         self.causal = causal
         self.shape = dict(n_heads=n_heads, n_kv_heads=n_kv_heads,
                           head_dim=head_dim, rope_theta=rope_theta,
                           window=window)
-        self.wq = empty_param((d_model, n_heads * head_dim), dtype, device)
-        self.wk = empty_param((d_model, n_kv_heads * head_dim), dtype, device)
-        self.wv = empty_param((d_model, n_kv_heads * head_dim), dtype, device)
-        self.wo = empty_param((n_heads * head_dim, d_model), dtype, device)
+        self.wq = empty_param((d_model, nq), dtype, device)
+        self.wk = empty_param((d_model, nkv), dtype, device)
+        self.wv = empty_param((d_model, nkv), dtype, device)
+        self.wo = empty_param((nq, d_model), dtype, device)
         if qkv_bias:
-            self.bq = empty_param((n_heads * head_dim,), dtype, device)
-            self.bk = empty_param((n_kv_heads * head_dim,), dtype, device)
-            self.bv = empty_param((n_kv_heads * head_dim,), dtype, device)
+            self.bq = empty_param((nq,), dtype, device)
+            self.bk = empty_param((nkv,), dtype, device)
+            self.bv = empty_param((nkv,), dtype, device)
 
     def params(self):
         return dict(self.named_parameters())
 
+    def flat(self):
+        """The model axis of a flat column split, else None."""
+        return None if self.heads else self.tp
+
     def forward(self, x, kv=None):
         """(out, (k, v)) over the sequence; ``kv`` is ``kv_override``."""
         return attention_train(self.params(), x, causal=self.causal,
-                               kv_override=kv, **self.shape)
+                               kv_override=kv, tp=self.flat(), **self.shape)
 
     def decode(self, x, cache_k, cache_v, pos: int):
         return attention_decode(self.params(), x, cache_k, cache_v, pos,

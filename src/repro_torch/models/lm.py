@@ -69,16 +69,19 @@ here is a module, and the dry run counts each one as it runs.
 
 Tensor, expert and sequence parallelism (``parallel.tensor``): an LM
 built for a model axis (``LM(arch, device, axis)``, ``init_params(...,
-axis=)``) holds its rank's shards: heads, hidden columns, experts (see
-``models.layers``) and, where the axis divides it, its block of the
-vocabulary. A block takes its split mixers' input through ``copy_to``
-and sums their partial outputs with ``reduce_from``. ``train_loss(...,
-shard_acts=True)`` keeps the residual stream (B, L / m, D) per rank
-between blocks (``repro``'s ``activation_spec``), Megatron's sequence
+axis=)``) holds its rank's shards, as ``repro``'s rules cut them: heads
+or flat columns of attention and of the recurrent mixers, hidden
+columns, experts (see ``models.layers`` and ``models.recurrent``) and,
+where the axis divides it, its block of the vocabulary. A block takes
+its split mixers' input through ``copy_to`` and sums their partial
+outputs with ``reduce_from``. ``train_loss(..., shard_acts=True)``
+keeps the residual stream (B, L / m, D) per rank between blocks
+(``repro``'s ``activation_spec``), Megatron's sequence
 parallelism: the norms run on the rank's positions, ``gather_seq`` feeds
 each mixer the whole sequence and ``scatter_seq`` sums and splits its
-output; a whole mixer (hymba's attention at m = 2, the recurrent
-mixers) runs on the gathered sequence and keeps its rank's positions. A
+output; a whole mixer (one whose dims the axis does not divide, as
+hymba-smoke's at m = 8) runs on the gathered sequence and keeps its
+rank's positions. A
 split vocabulary embeds the rank's rows (zero elsewhere) and sums, and
 the loss is a vocab-parallel cross entropy (the max and the sums over
 the model group; the gold logit ``repro``'s masked reduction). A model
@@ -167,12 +170,14 @@ def sinusoid(positions, d: int):
 
 def cross_kv(xattn: L.Attention, enc_out):
     """``repro``'s ``_cross_kv``: the encoder output (B, Se, D) projected
-    by ``xattn``'s wk and wv to k and v (B, Hkv, Se, Dh), no rope; both
-    are transposed views of the projections."""
+    by ``xattn``'s wk and wv to k and v (B, Hkv, Se, Dh), no rope (of a
+    flat column split, gathered to the whole heads); both are transposed
+    views of the projections."""
     B, Se, _ = enc_out.shape
     Hkv, Hd = xattn.shape["n_kv_heads"], xattn.shape["head_dim"]
-    k = (enc_out @ xattn.wk).reshape(B, Se, Hkv, Hd).transpose(1, 2)
-    v = (enc_out @ xattn.wv).reshape(B, Se, Hkv, Hd).transpose(1, 2)
+    k, v = (L.project(enc_out, w, Hkv * Hd, xattn.flat())
+            .reshape(B, Se, Hkv, Hd).transpose(1, 2)
+            for w in (xattn.wk, xattn.wv))
     return k, v
 
 
@@ -204,8 +209,7 @@ class Block(nn.Module):
     encoder-decoder arch adds ``norm_x`` and ``xattn`` (bidirectional,
     no rope, no QKV bias); an ``encoder`` block's attention is
     bidirectional and takes no rope, as ``_encoder_forward``'s. ``tp``:
-    the model axis its attention, MLP and MoE are split over (the
-    recurrent mixers stay whole)."""
+    the model axis its mixers, MLP and MoE are split over."""
 
     def __init__(self, arch: ArchConfig, kind: str, device=None,
                  encoder: bool = False, tp=None):
@@ -222,11 +226,11 @@ class Block(nn.Module):
                                     causal=not encoder, tp=tp)
         if kind in SSM_KINDS:
             self.ssm = R.SSMHeads(D, arch.ssm_heads or arch.n_heads,
-                                  arch.ssm_state, dt, device)
+                                  arch.ssm_state, dt, device, tp=tp)
         if kind == "mlstm":
-            self.mlstm = R.MLSTM(D, arch.n_heads, dt, device)
+            self.mlstm = R.MLSTM(D, arch.n_heads, dt, device, tp=tp)
         elif kind == "slstm":
-            self.slstm = R.SLSTM(D, arch.n_heads, dt, device)
+            self.slstm = R.SLSTM(D, arch.n_heads, dt, device, tp=tp)
         else:
             self.norm2 = L.RMSNorm(D, dt, device)
             if kind == "moe":

@@ -22,6 +22,18 @@ recurrent products run as one (H, dh, 4 dh) batched product a step.
 The modules hold their parameters under ``repro``'s leaf names; the
 decay, gate and recurrent weights stay f32 in a bf16 model, as in
 ``repro``.
+
+Built for a model axis (``tp``, a ``parallel.tensor.Axis`` of size m
+> 1), each mixer holds the leaves ``repro``'s sanitized rules split cut
+to its rank (the ``w_*`` and ``wq``/``wk``/``wv`` by columns, ``wo`` by
+rows, wherever m divides the dim; ``w_decay``, ``b_decay``, ``b_f`` and
+the sLSTM's ``r_*`` whole) and runs in one of two exact forms: by heads
+where m divides the heads (the rank's heads alone, with its heads of the
+whole leaves), else by flat columns (the products gathered to the whole
+heads, the recurrence whole on every rank, the rank's columns of its
+output kept for its rows of ``wo``). The output is the rank's partial
+sum; ``partial`` names the whole leaves, whose gradient on a rank is its
+part (``parallel.tensor.tp_partial``).
 """
 from __future__ import annotations
 
@@ -29,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import act_fn, empty_param
+from repro_torch.models.layers import act_fn, empty_param, project
+from repro_torch.parallel import tensor as par
 
 _GATES = ("z", "i", "f", "o")
 
@@ -131,28 +144,69 @@ def gla_step(q, k, v, log_a, state, norm=None, *, normalize: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# The two forms of a mixer split over the model axis
+# ---------------------------------------------------------------------------
+
+def _split_form(module, tp, width: int, n_heads: int):
+    """Set ``module.tp`` (the model axis where m divides ``width``, the
+    mixer's output width, whose rows of wo the rank holds; else None:
+    whole) and ``module.heads`` (False: the flat column form, where m
+    does not divide the heads). Returns m where split, else 1."""
+    m = tp.size if tp is not None else 1
+    module.tp = tp if m > 1 and width % m == 0 else None
+    module.heads = module.tp is None or n_heads % m == 0
+    return m if module.tp is not None else 1
+
+
+def _cols(n: int, m: int) -> int:
+    """The width a rank holds of a dim of n that ``repro``'s rule splits
+    over m ranks (n where m does not divide it)."""
+    return n // m if n % m == 0 else n
+
+
+def _inputs(module, dims):
+    """(the module's leaves, the model axis of the flat column form or
+    None): in the heads form of a split mixer, the leaves ``dims`` names
+    (leaf: its heads dim), which ``repro`` replicates, cut to this rank's
+    heads."""
+    p = dict(module.named_parameters())
+    if module.tp is not None and module.heads:
+        p.update({n: par.local_chunk(p[n], module.tp, d)
+                  for n, d in dims.items()})
+    return p, None if module.heads else module.tp
+
+
+# ---------------------------------------------------------------------------
 # Mamba-style SSM heads (alone in ``mamba_mlp``, beside attention in hymba)
 # ---------------------------------------------------------------------------
 
-def _ssm_qkva(p, x, n_heads: int, dk: int):
-    """q, k (B, H, S, dk), v (B, H, S, D / H) and log a (B, H, S) =
-    log sigmoid(x w_decay + b_decay), the last in f32."""
-    B, S, D = x.shape
-    dv = D // n_heads
-    q = (x @ p["wq"]).reshape(B, S, n_heads, dk).transpose(1, 2)
-    k = (x @ p["wk"]).reshape(B, S, n_heads, dk).transpose(1, 2)
-    v = (x @ p["wv"]).reshape(B, S, n_heads, dv).transpose(1, 2)
+def _ssm_qkva(p, x, n_heads: int, dk: int, dv: int, tp=None):
+    """q, k (B, H, S, dk), v (B, H, S, dv) and log a (B, H, S) =
+    log sigmoid(x w_decay + b_decay), the last in f32; ``tp``: the model
+    axis of a flat column split (``layers.project`` gathers)."""
+    B, S, _ = x.shape
+
+    def heads(w, d):
+        return project(x, p[w], n_heads * d, tp).reshape(
+            B, S, n_heads, d).transpose(1, 2)
+
     la = F.logsigmoid(x.float() @ p["w_decay"] + p["b_decay"])
-    return q, k, v, la.transpose(1, 2)
+    return (heads("wq", dk), heads("wk", dk), heads("wv", dv),
+            la.transpose(1, 2))
 
 
-def ssm_heads_train(p, x, *, n_heads: int, dk: int, chunk: int = 128):
-    """Full-sequence SSM heads of x (B, S, D). Returns (out, final
-    state)."""
+def ssm_heads_train(p, x, *, n_heads: int, dk: int, dv: int = None,
+                    chunk: int = 128, tp=None):
+    """Full-sequence SSM heads of x (B, S, D) (value width ``dv``, D / H
+    by default). Returns (out, final state). ``tp``: the model axis of a
+    flat column split: the recurrence runs on the whole heads, and the
+    rank's columns of o meet its columns of w_gate and rows of wo."""
     B, S, D = x.shape
-    q, k, v, la = _ssm_qkva(p, x, n_heads, dk)
+    dv = dv or D // n_heads
+    q, k, v, la = _ssm_qkva(p, x, n_heads, dk, dv, tp)
     o, state, _ = chunked_gla(q, k, v, la, chunk=chunk)
-    o = o.transpose(1, 2).reshape(B, S, D)
+    o = par.local_chunk(o.transpose(1, 2).reshape(B, S, n_heads * dv), tp,
+                        -1)
     gate = act_fn("silu")(x @ p["w_gate"])
     return (o * gate) @ p["wo"], state
 
@@ -161,7 +215,7 @@ def ssm_heads_step(p, x, state, *, n_heads: int, dk: int):
     """One token: x (B, 1, D), state (B, H, dk, D / H). Returns (out,
     state')."""
     B, _, D = x.shape
-    q, k, v, la = _ssm_qkva(p, x, n_heads, dk)
+    q, k, v, la = _ssm_qkva(p, x, n_heads, dk, D // n_heads)
     o, state, _ = gla_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], la[:, :, 0],
                            state)
     gate = act_fn("silu")(x @ p["w_gate"])
@@ -170,59 +224,84 @@ def ssm_heads_step(p, x, state, *, n_heads: int, dk: int):
 
 class SSMHeads(nn.Module):
     """wq, wk (D, H dk), wv, w_gate (D, D), wo (D, D); w_decay (D, H) and
-    b_decay (H,) in f32."""
+    b_decay (H,) in f32. With a model axis ``tp`` of size m that divides
+    D: rank i's columns of wq / wk (where m divides H dk), wv and
+    w_gate, and rows of wo; w_decay and b_decay stay whole (``repro``
+    replicates them). Where m divides H that is heads [i H / m, ...),
+    which the rank runs alone; else the flat column form. ``partial``:
+    the whole leaves, whose gradient is the rank's part."""
 
     def __init__(self, d_model: int, n_heads: int, dk: int, dtype,
-                 device=None):
+                 device=None, tp=None):
         super().__init__()
-        self.shape = dict(n_heads=n_heads, dk=dk)
+        m = _split_form(self, tp, d_model, n_heads)
+        if m == 1 and tp is not None and tp.size > 1 \
+                and (n_heads * dk) % tp.size == 0:
+            raise NotImplementedError(
+                f"a model axis of {tp.size} splits wq ({n_heads * dk} "
+                f"columns) but not wo ({d_model} rows)")
         dv = d_model // n_heads
-        self.wq = empty_param((d_model, n_heads * dk), dtype, device)
-        self.wk = empty_param((d_model, n_heads * dk), dtype, device)
-        self.wv = empty_param((d_model, n_heads * dv), dtype, device)
+        run = n_heads // m if self.heads else n_heads
+        self.shape = dict(n_heads=run, dk=dk, dv=dv)
+        self.partial = ("w_decay", "b_decay") if m > 1 else ()
+        if m > 1 and (n_heads * dk) % m:
+            self.partial += ("wq", "wk")
+        self.wq = empty_param((d_model, _cols(n_heads * dk, m)), dtype,
+                              device)
+        self.wk = empty_param((d_model, _cols(n_heads * dk, m)), dtype,
+                              device)
+        self.wv = empty_param((d_model, d_model // m), dtype, device)
         self.w_decay = empty_param((d_model, n_heads), torch.float32, device)
         self.b_decay = empty_param((n_heads,), torch.float32, device)
-        self.w_gate = empty_param((d_model, n_heads * dv), dtype, device)
-        self.wo = empty_param((n_heads * dv, d_model), dtype, device)
+        self.w_gate = empty_param((d_model, d_model // m), dtype, device)
+        self.wo = empty_param((d_model // m, d_model), dtype, device)
 
     def forward(self, x):
-        return ssm_heads_train(dict(self.named_parameters()), x,
-                               **self.shape)
+        p, tp = _inputs(self, {"w_decay": -1, "b_decay": -1})
+        return ssm_heads_train(p, x, tp=tp, **self.shape)
 
     def step(self, x, state):
         return ssm_heads_step(dict(self.named_parameters()), x, state,
-                              **self.shape)
+                              n_heads=self.shape["n_heads"],
+                              dk=self.shape["dk"])
 
 
 # ---------------------------------------------------------------------------
 # xLSTM: mLSTM (chunkwise parallel) and sLSTM (sequential)
 # ---------------------------------------------------------------------------
 
-def _mlstm_qkvifa(p, x, n_heads: int):
+def _mlstm_qkvifa(p, x, n_heads: int, dh: int, tp=None):
     """q / sqrt(dh), k times the input gate sigmoid(x w_i), v, each (B, H,
-    S, dh), and log a = log sigmoid(x w_f + b_f) (B, H, S) in f32."""
-    B, S, D = x.shape
-    dh = D // n_heads
+    S, dh), and log a = log sigmoid(x w_f + b_f) (B, H, S) in f32;
+    ``tp``: the model axis of a flat column split (``layers.project``
+    gathers)."""
+    B, S, _ = x.shape
 
     def heads(w):
-        return (x @ w).reshape(B, S, n_heads, dh).transpose(1, 2)
+        return project(x, p[w], n_heads * dh, tp).reshape(
+            B, S, n_heads, dh).transpose(1, 2)
 
-    q = heads(p["wq"]) / (dh ** 0.5)
-    k = heads(p["wk"])
-    v = heads(p["wv"])
+    q = heads("wq") / (dh ** 0.5)
+    k = heads("wk")
+    v = heads("wv")
     xf = x.float()
-    i_gate = torch.sigmoid(xf @ p["w_i"]).transpose(1, 2)
-    la = F.logsigmoid(xf @ p["w_f"] + p["b_f"]).transpose(1, 2)
+    i_gate = torch.sigmoid(project(xf, p["w_i"], n_heads, tp)).transpose(1, 2)
+    la = F.logsigmoid(project(xf, p["w_f"], n_heads, tp)
+                      + p["b_f"]).transpose(1, 2)
     return q, k * i_gate[..., None].to(k.dtype), v, la
 
 
-def mlstm_train(p, x, *, n_heads: int, chunk: int = 128):
-    """Full-sequence mLSTM of x (B, S, D). Returns (out, (state,
-    norm))."""
+def mlstm_train(p, x, *, n_heads: int, dh: int = None, chunk: int = 128,
+                tp=None):
+    """Full-sequence mLSTM of x (B, S, D) (head width ``dh``, D / H by
+    default). Returns (out, (state, norm)). ``tp``: the model axis of a
+    flat column split (see ``ssm_heads_train``)."""
     B, S, D = x.shape
-    q, k, v, la = _mlstm_qkvifa(p, x, n_heads)
+    dh = dh or D // n_heads
+    q, k, v, la = _mlstm_qkvifa(p, x, n_heads, dh, tp)
     o, state, norm = chunked_gla(q, k, v, la, chunk=chunk, normalize=True)
-    o = o.transpose(1, 2).reshape(B, S, D)
+    o = par.local_chunk(o.transpose(1, 2).reshape(B, S, n_heads * dh), tp,
+                        -1)
     gate = act_fn("silu")(x @ p["w_gate"])
     return (o * gate) @ p["wo"], (state, norm)
 
@@ -231,7 +310,7 @@ def mlstm_step(p, x, state, norm, *, n_heads: int):
     """One token: x (B, 1, D), state (B, H, dh, dh), norm (B, H, dh).
     Returns (out, (state', norm'))."""
     B, _, D = x.shape
-    q, k, v, la = _mlstm_qkvifa(p, x, n_heads)
+    q, k, v, la = _mlstm_qkvifa(p, x, n_heads, D // n_heads)
     o, state, norm = gla_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
                               la[:, :, 0], state, norm, normalize=True)
     gate = act_fn("silu")(x @ p["w_gate"])
@@ -240,37 +319,49 @@ def mlstm_step(p, x, state, norm, *, n_heads: int):
 
 class MLSTM(nn.Module):
     """wq, wk, wv, w_gate, wo (D, D); w_i, w_f (D, H) and b_f (H,) in
-    f32."""
+    f32. With a model axis ``tp`` of size m that divides D: rank i's
+    columns of wq / wk / wv / w_gate and rows of wo; where m divides H,
+    its columns of w_i / w_f too, heads [i H / m, ...) that it runs alone,
+    with its heads of the whole b_f; else the flat column form, w_i / w_f
+    whole. ``partial``: the whole leaves."""
 
-    def __init__(self, d_model: int, n_heads: int, dtype, device=None):
+    def __init__(self, d_model: int, n_heads: int, dtype, device=None,
+                 tp=None):
         super().__init__()
-        self.n_heads = n_heads
+        m = _split_form(self, tp, d_model, n_heads)
+        dh = d_model // n_heads
+        self.shape = dict(n_heads=n_heads // m if self.heads else n_heads,
+                          dh=dh)
+        self.partial = ("b_f",) if m > 1 else ()
+        if m > 1 and not self.heads:
+            self.partial += ("w_i", "w_f")
         for name in ("wq", "wk", "wv"):
-            setattr(self, name, empty_param((d_model, d_model), dtype,
+            setattr(self, name, empty_param((d_model, d_model // m), dtype,
                                             device))
-        self.w_i = empty_param((d_model, n_heads), torch.float32, device)
-        self.w_f = empty_param((d_model, n_heads), torch.float32, device)
+        gates = _cols(n_heads, m)
+        self.w_i = empty_param((d_model, gates), torch.float32, device)
+        self.w_f = empty_param((d_model, gates), torch.float32, device)
         self.b_f = empty_param((n_heads,), torch.float32, device)
-        self.w_gate = empty_param((d_model, d_model), dtype, device)
-        self.wo = empty_param((d_model, d_model), dtype, device)
+        self.w_gate = empty_param((d_model, d_model // m), dtype, device)
+        self.wo = empty_param((d_model // m, d_model), dtype, device)
 
     def forward(self, x):
-        return mlstm_train(dict(self.named_parameters()), x,
-                           n_heads=self.n_heads)
+        p, tp = _inputs(self, {"b_f": -1})
+        return mlstm_train(p, x, tp=tp, **self.shape)
 
     def step(self, x, state, norm):
         return mlstm_step(dict(self.named_parameters()), x, state, norm,
-                          n_heads=self.n_heads)
+                          n_heads=self.shape["n_heads"])
 
 
-def _slstm_pre(p, x, n_heads: int):
+def _slstm_pre(p, x, n_heads: int, dh: int, tp=None):
     """The input pre-activations of the four gates, f32, laid out (S, H,
     B, 4 dh) (gates z, i, f, o side by side), so that a step's recurrent
-    products add to them in one ``baddbmm``."""
-    B, S, D = x.shape
-    dh = D // n_heads
-    pre = [(x @ p[f"w_{g}"]).float().reshape(B, S, n_heads, dh)
-           for g in _GATES]
+    products add to them in one ``baddbmm``; ``tp``: the model axis of a
+    flat column split (``layers.project`` gathers)."""
+    B, S, _ = x.shape
+    pre = [project(x, p[f"w_{g}"], n_heads * dh, tp).float().reshape(
+        B, S, n_heads, dh) for g in _GATES]
     return torch.cat(pre, dim=-1).permute(1, 2, 0, 3).contiguous()
 
 
@@ -301,21 +392,27 @@ def slstm_scan(pre, r, state):
     return torch.stack(hs), (c, n, h, m)
 
 
-def slstm_train(p, x, *, n_heads: int, state0=None):
+def slstm_train(p, x, *, n_heads: int, dh: int = None, state0=None,
+                tp=None):
     """The sLSTM over x (B, S, D), step by step (its memory mixing has no
     parallel form, xLSTM Sec. 2), from ``state0`` = (c, n, h, m), each
-    (B, H, dh) f32, or zeros. Returns (out, (c, n, h, m))."""
+    (B, H, dh) f32, or zeros (head width ``dh``, D / H by default).
+    Returns (out, (c, n, h, m)). ``tp``: the model axis of a flat column
+    split: the steps run on the whole heads, and the rank's columns of h
+    meet its rows of wo."""
     B, S, D = x.shape
-    dh = D // n_heads
-    pre = _slstm_pre(p, x, n_heads)
+    dh = dh or D // n_heads
+    pre = _slstm_pre(p, x, n_heads, dh, tp)
     r = torch.cat([p[f"r_{g}"].float() for g in _GATES], dim=-1)
     if state0 is None:
         state = tuple(pre.new_zeros((n_heads, B, dh)) for _ in range(4))
     else:
         state = tuple(s.float().transpose(0, 1) for s in state0)
     hs, state = slstm_scan(pre, r, state)
-    out = hs.permute(2, 0, 1, 3).reshape(B, S, D).to(x.dtype)
-    return out @ p["wo"], tuple(s.transpose(0, 1) for s in state)
+    out = par.local_chunk(hs.permute(2, 0, 1, 3).reshape(
+        B, S, n_heads * dh), tp, -1)
+    return out.to(x.dtype) @ p["wo"], tuple(s.transpose(0, 1)
+                                            for s in state)
 
 
 def slstm_step(p, x, state, *, n_heads: int):
@@ -325,23 +422,32 @@ def slstm_step(p, x, state, *, n_heads: int):
 
 class SLSTM(nn.Module):
     """w_z, w_i, w_f, w_o, wo (D, D); r_z, r_i, r_f, r_o (H, dh, dh) in
-    f32 (block-diagonal recurrent weights, one block a head)."""
+    f32 (block-diagonal recurrent weights, one block a head). With a
+    model axis ``tp`` of size m that divides D: rank i's columns of the
+    w_* and rows of wo, the r_* whole (``repro`` replicates them, and
+    ``partial`` names them); where m divides H, heads [i H / m, ...),
+    which the rank runs alone with its blocks of r_*; else the flat
+    column form."""
 
-    def __init__(self, d_model: int, n_heads: int, dtype, device=None):
+    def __init__(self, d_model: int, n_heads: int, dtype, device=None,
+                 tp=None):
         super().__init__()
-        self.n_heads = n_heads
+        m = _split_form(self, tp, d_model, n_heads)
         dh = d_model // n_heads
-        self.wo = empty_param((d_model, d_model), dtype, device)
+        self.shape = dict(n_heads=n_heads // m if self.heads else n_heads,
+                          dh=dh)
+        self.partial = tuple(f"r_{g}" for g in _GATES) if m > 1 else ()
+        self.wo = empty_param((d_model // m, d_model), dtype, device)
         for g in _GATES:
-            setattr(self, f"w_{g}", empty_param((d_model, d_model), dtype,
-                                                device))
+            setattr(self, f"w_{g}", empty_param((d_model, d_model // m),
+                                                dtype, device))
             setattr(self, f"r_{g}", empty_param((n_heads, dh, dh),
                                                 torch.float32, device))
 
     def forward(self, x):
-        return slstm_train(dict(self.named_parameters()), x,
-                           n_heads=self.n_heads)
+        p, tp = _inputs(self, {f"r_{g}": 0 for g in _GATES})
+        return slstm_train(p, x, tp=tp, **self.shape)
 
     def step(self, x, state):
         return slstm_step(dict(self.named_parameters()), x, state,
-                          n_heads=self.n_heads)
+                          n_heads=self.shape["n_heads"])

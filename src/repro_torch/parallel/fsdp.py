@@ -18,10 +18,10 @@ The port does the same on a rank of a (data, model) grid
     (``sanitize_spec``), and the leaves ``repro`` replicates (norm scales,
     biases, the router, the recurrent ``r_*``, ``meta``, ``pos_embed``).
 
-The leaves the port keeps whole on the model axis (hymba's attention, the
-recurrent mixers: ``parallel.tensor``) are cut over 'data' on their
-``fsdp`` dim all the same: the step gathers them whole, so head
-boundaries do not matter.
+A leaf split by flat columns on the model axis (hymba's attention and
+SSM heads: ``parallel.tensor``) is cut over 'data' on its ``fsdp`` dim
+all the same: the step gathers it whole, so head boundaries do not
+matter.
 
 The train step (``runtime.driver.make_train_step``) lays its leaves out
 with a :class:`Plan`. With a data axis of D > 1:

@@ -29,9 +29,8 @@ tp) keeps tp alone here: the port has no group axis to split over
 ``named_shardings`` gives ``torch.distributed.tensor`` placements
 (``Shard(d)`` / ``Replicate()`` per mesh dimension) on a built
 ``DeviceMesh``. The trainer's tensor, expert and sequence parallelism
-(``repro_torch.parallel.tensor``) runs these rules' 'model' axis, but for
-the leaves it keeps whole (whole heads, the recurrent mixers), and
-replicates over 'data' where these rules shard (FSDP).
+(``repro_torch.parallel.tensor``) runs these rules' 'model' axis on every
+leaf, and its FSDP (``repro_torch.parallel.fsdp``) their 'data' axis.
 """
 from __future__ import annotations
 

@@ -19,6 +19,8 @@ The collectives are Megatron's, as ``torch.autograd.Function``\\ s:
                  reduce-scatter backward (enter a block under SP)
     scatter_seq  reduce-scatter over the sequence forward, all-gather
                  backward (leave one under SP)
+    gather_cols  all-gather over the last dim forward, reduce-scatter
+                 backward (a flat column split's products to whole heads)
 
 Each goes through a seam of ``core.linalg`` (``preduce``, ``pall_gather``,
 ``preduce_scatter``; ``all_reduce``, ``all_gather_into_tensor`` and
@@ -27,49 +29,48 @@ the step's one gradient reduction over the data group;
 ``analysis.record.Recorder`` counts every collective by group.
 
 The layout. The modules decide, when built for a model axis of size m,
-what they split (``models.layers``, ``models.lm``): attention by whole
-heads (Hq / m query and Hkv / m kv heads: ``wq``/``wk``/``wv`` by
-columns, ``wo`` by rows, the QKV biases with them), the MLP's hidden
-width (``w_gate``/``w_up`` by columns, ``w_down`` by rows), the MoE's
-experts where m divides their count (EP) and else each expert's hidden
-width (expert-TP), the vocabulary (``embed`` by rows, ``unembed`` by
-columns). :func:`layout` reads the split dim of each leaf off those
-shapes. It equals ``repro``'s ``param_partition_specs`` on the 'model'
-axis, but for two kinds of leaf that the port keeps whole on every model
-rank:
+what they split (``models.layers``, ``models.recurrent``, ``models.lm``),
+and they split every leaf as ``repro``'s sanitized ``param_partition_specs``
+does on 'model': a projection's flat output columns (``wq``/``wk``/``wv``,
+the ``w_*`` of the MLP and the recurrent mixers) and an out-projection's
+rows (``wo``, ``w_down``) wherever m divides that dim, the QKV biases with
+their columns, the MoE's experts where m divides their count (EP) and
+else each expert's hidden width (expert-TP), the vocabulary (``embed`` by
+rows, ``unembed`` by columns); ``repro``'s replicated leaves (the norms'
+scales, the router, ``w_decay``/``b_decay``, ``b_f``, the sLSTM's
+``r_*``, ``meta``, ``pos_embed``) and every dim that m does not divide
+(granite's vocabulary of 49,155) stay whole. :func:`layout` reads the
+split dim of each leaf off the shapes; it equals ``repro``'s rules for
+every leaf of every arch. A mixer (attention or a recurrent one) runs in
+one of two forms, each exact:
 
-  * a projection whose split would cut a head: ``repro`` shards the flat
-    output dim whenever it divides. At m = 2 that is hymba-1.5b's
-    attention (25 query heads, ``wq`` 1,600 wide; 5 kv heads) and
-    hymba-smoke's (5 and 5);
-  * the recurrent mixers (``ssm.*``, ``mlstm.*``, ``slstm.*``: hymba's
-    SSM heads, xlstm's mLSTM and sLSTM), whose ``w_*`` and ``wq``/``wk``/
-    ``wv``/``wo`` leaves ``repro`` shards by columns or rows. They run
-    whole on every model rank, on the gathered sequence under SP.
+  * by heads, where every split falls on whole heads (m divides the
+    heads: llama's attention, xlstm's mixers at m = 2 and 4): the rank
+    runs its heads alone, with its heads' slice of the replicated leaves;
+  * by flat columns, where a split cuts a head (hymba's 25 query and 5 kv
+    heads, its SSM's keys of 16 at m = 2, xlstm at m = 8): the rank's
+    column-parallel products are gathered to whole heads
+    (:func:`gather_cols`: an all-gather forward, a reduce-scatter
+    backward), the mixer runs whole on every rank (K5 at the whole
+    heads), and the rank keeps its columns of the output
+    (:func:`local_chunk` on the last dim) for its rows of ``wo``.
 
-At m = 2, the leaves of each layer that ``repro`` splits and the port
-keeps whole (``tests/test_torch_tp.py`` holds this list, and the other
-eight archs have none):
-
-    hymba-1.5b,   attn.{wq, wk, wv, wo}  (25 query / 5 kv heads; the
-    hymba-smoke                           smoke config's 5 / 5)
-                  ssm.{wq, wk, wv, w_gate, wo}
-    xlstm-350m,   mlstm.{wq, wk, wv, w_i, w_f, w_gate, wo}
-    xlstm-smoke   slstm.{w_z, w_i, w_f, w_o, wo}
-
-Neither changes the math. A vocabulary that m does not divide (granite's
-49,155) stays whole in both packages (``repro``'s ``sanitize_spec``).
-Over the data axis each leaf is then cut on ``repro``'s ``fsdp`` dim
-(``parallel.fsdp``: FSDP), the leaves kept whole on the model axis
-included; :func:`partition_specs` gives both cuts.
+Either way the output is the rank's partial sum. A leaf that is whole in
+a split mixer (a replicated leaf, or one m does not divide) then gets on
+each rank only the part of its gradient from the rank's heads or
+columns: :func:`tp_partial` names them, and the trainer sums their
+gradients over the model group once a step, with or without SP. Over the
+data axis each leaf is then cut on ``repro``'s ``fsdp`` dim
+(``parallel.fsdp``: FSDP); :func:`partition_specs` gives both cuts.
 
 Under SP (``train_loss(..., shard_acts=True)``) the residual stream
 between blocks is (B, L / m, D) per rank, ``activation_spec``'s layout.
 A leaf that is whole on the model axis and used on the decoder's stream
 (the norms' scales, the router, a whole mixer, a whole vocabulary,
-``meta``) then gets on each rank the gradient of its rank's positions
-only: :func:`sp_partial` names them, and the trainer sums their gradients
-over the model group once a step. The encoder runs without SP.
+``meta``, the whole leaves of a split mixer) then gets on each rank the
+gradient of its rank's positions or heads only: :func:`sp_partial` names
+them, and the trainer sums their gradients over the model group once a
+step. The encoder runs without SP.
 """
 from __future__ import annotations
 
@@ -82,10 +83,10 @@ import torch.distributed as dist
 from repro_torch.core import linalg
 
 __all__ = ["Axis", "Grid", "build_grid", "copy_to", "reduce_from",
-           "gather_seq", "scatter_seq", "local_chunk", "gather_rows",
-           "max_over", "scale_grad", "seq_split", "layout",
-           "partition_specs", "sp_partial", "full_shape", "cut",
-           "shard_model"]
+           "gather_seq", "scatter_seq", "gather_cols", "local_chunk",
+           "gather_rows", "max_over", "scale_grad", "seq_split", "layout",
+           "partition_specs", "sp_partial", "tp_partial", "full_shape",
+           "cut", "shard_model"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +160,18 @@ def _scatter1(x, group):
                                   counted=False).transpose(0, 1)
 
 
+def _gather_last(x, group):
+    """x (..., n) gathered over the group along its last dim."""
+    return linalg.pall_gather(x.movedim(-1, 0), group).movedim(0, -1)
+
+
+def _scatter_last(x, group):
+    """x (..., N) summed over the group, this rank's block of the last
+    dim."""
+    return linalg.preduce_scatter(x.movedim(-1, 0), group,
+                                  counted=False).movedim(0, -1)
+
+
 def _fresh(x):
     """A contiguous copy of x, which ``preduce`` may reduce in place."""
     return x.clone(memory_format=torch.contiguous_format)
@@ -207,6 +220,17 @@ class _ScatterSeq(torch.autograd.Function):
         return _gather1(g, ctx.group), None
 
 
+class _GatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_last(g, ctx.group), None
+
+
 class _ScaleGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale):
@@ -241,6 +265,13 @@ def scatter_seq(x, axis: Optional[Axis]):
     return _ScatterSeq.apply(x, axis.group) if _split(axis) else x
 
 
+def gather_cols(x, axis: Optional[Axis]):
+    """x (..., n), the rank's block of a flat column split, gathered to
+    (..., m n) in rank order; the ranks' partial gradients of the whole
+    summed and scattered back to the rank's block."""
+    return _GatherCols.apply(x, axis.group) if _split(axis) else x
+
+
 def gather_rows(x, axis: Optional[Axis]):
     """The ranks' x (the same shape on each) concatenated along dim 0 in
     rank order (no gradient)."""
@@ -256,13 +287,15 @@ def max_over(x, axis: Optional[Axis]):
     return linalg.pmax(_fresh(x), axis.group, counted=False)
 
 
-def local_chunk(x, axis: Optional[Axis]):
-    """This rank's positions of x (B, L, ...) under SP, (B, L / m, ...)
-    (a view; its gradient is zero elsewhere)."""
+def local_chunk(x, axis: Optional[Axis], dim: int = 1):
+    """This rank's block of x along ``dim``: by default its positions of
+    x (B, L, ...) under SP, (B, L / m, ...); on the last dim its columns
+    of a whole product, or of a replicated leaf its heads (a view; its
+    gradient is zero elsewhere)."""
     if not _split(axis):
         return x
-    n = x.shape[1] // axis.size
-    return x.narrow(1, axis.index * n, n)
+    n = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.index * n, n)
 
 
 def scale_grad(x, scale: float):
@@ -329,9 +362,24 @@ def partition_specs(arch, mesh, tp: str = "model"):
 
 def sp_partial(lay: Mapping[str, Optional[int]]) -> List[str]:
     """The leaves whose gradient, under SP, holds only this rank's
-    positions: those whole on the model axis, but the encoder's."""
+    positions (or heads or columns): those whole on the model axis, but
+    the encoder's (among them :func:`tp_partial`'s outside the encoder)."""
     return [n for n, d in lay.items()
             if d is None and not n.startswith("encoder.")]
+
+
+def tp_partial(arch, model_size: int) -> List[str]:
+    """The leaves whole on the model axis whose gradient holds, on each
+    rank, only the part from its heads or columns: the whole leaves of a
+    split mixer (each module's ``partial``), read off ``arch``'s LM built
+    for a model axis of ``model_size`` on the meta device."""
+    if model_size == 1:
+        return []
+    from repro_torch.models import lm
+    model = lm.param_specs(arch, Axis(None, model_size, 0))
+    return [f"{path}.{leaf}" for path, mod in model.named_modules()
+            if getattr(mod, "tp", None) is not None
+            for leaf in getattr(mod, "partial", ())]
 
 
 def full_shape(shape, dim: Optional[int], size: int) -> tuple:

@@ -31,10 +31,12 @@
     (``parallel.tensor``): with ``cfg.model_axis`` m > 1 the ranks form
     ``repro``'s ``build_mesh`` grid, each holds its model rank's shards
     (then cut over the data axis), and the buffer holds the shards'
-    gradients. Under ``cfg.shard_acts`` the leaves whose gradient holds
-    only the rank's positions (``parallel.tensor.sp_partial``) come
-    first in the buffer, and their reduced gradients are summed over the
-    model group once a step;
+    gradients. The whole leaves of a split mixer, whose gradient holds
+    only the rank's heads' or columns' part (``parallel.tensor.
+    tp_partial``), and under ``cfg.shard_acts`` every leaf whose gradient
+    holds only the rank's positions (``sp_partial``) come first in the
+    buffer, and their reduced gradients are summed over the model group
+    once a step;
   * periodic async checkpoints (params, optimizer state, the pipeline's
     state) in ``repro``'s tree and on-disk format, so a checkpoint written
     by either package's trainer restores in the other's;
@@ -156,10 +158,11 @@ def make_train_step(arch: ArchConfig, optimizer: AdamW, cfg: TrainerConfig,
     microbatch gathers them whole, and the reduction is one counted
     reduce-scatter of the rank-major buffer; with D = 1 it is one
     ``linalg.preduce``. On a model axis the buffer holds the model rank's
-    shards; under ``cfg.shard_acts`` the reduced gradients of the leaves
-    of ``sp_partial`` (first in the buffer) are then summed over the
-    model group (an uncounted reduction: ``linalg.count_reductions``
-    counts the data group's). The clip's norm is the whole model's."""
+    shards; the reduced gradients of the leaves of ``tp_partial`` and,
+    under ``cfg.shard_acts``, of ``sp_partial`` (first in the buffer) are
+    then summed over the model group (an uncounted reduction:
+    ``linalg.count_reductions`` counts the data group's). The clip's norm
+    is the whole model's."""
     check_config(cfg)
     if grid is None:
         grid = par.Grid(par.Axis(group, 1 if group is None
@@ -169,6 +172,7 @@ def make_train_step(arch: ArchConfig, optimizer: AdamW, cfg: TrainerConfig,
     lay = par.layout(arch, ax.size) if ax.size > 1 else {}
     split = frozenset(n for n, d in lay.items() if d is not None)
     first = par.sp_partial(lay) if cfg.shard_acts else []
+    first += [n for n in par.tp_partial(arch, ax.size) if n not in first]
     shapes, dtypes = _model_shapes(arch, ax)
     order = first + [n for n in shapes if n not in frozenset(first)]
     plan = fsdp.Plan({n: shapes[n] for n in order}, dtypes,

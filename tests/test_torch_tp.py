@@ -9,8 +9,8 @@ FSDP-sharded, as ``repro``'s are.
   (``XLA_FLAGS=--xla_force_host_platform_device_count=4``) at f32, 3
   steps, on the smoke configs: tinyllama with ``shard_acts``, granite (4
   experts: EP), granite with 3 experts (expert-TP), hymba with
-  ``shard_acts`` (its 5 heads stay whole on each model rank, beside its
-  whole SSM mixer) and xlstm (whole recurrent mixers), while one
+  ``shard_acts`` (its 5 heads and its SSM split by flat columns) and
+  xlstm (its mLSTM and sLSTM split by heads), while one
   four-rank gloo job runs the port's ``Trainer`` on the same weights (the
   port's draws of seed 0, placed in each ``repro`` trainer and cut to each
   port rank's shards), with and
@@ -43,10 +43,13 @@ FSDP-sharded, as ``repro``'s are.
   m = 2 in both, one written at (data 4, model 1) restores in one
   process and in ``repro``, and the next loss is within rel 1e-4 of the
   undisturbed run; the on-disk tree equals ``repro``'s.
-* The layout against ``repro``'s rules for all ten archs at 1x2, 2x1,
-  4x1 and 2x2, the cutting and gathering, ``convert`` with an axis, the
-  dry run's argument bytes at those meshes against a rank's, and
-  ``build_grid``'s order.
+* The whole leaves of the split mixers (``tp_partial``) get the
+  one-process gradient at m = 2 without SP, and the recurrent archs'
+  checkpoints written at m = 2 resume in one process.
+* The layout equal to ``repro``'s rules for every leaf of all ten archs
+  at 1x2, 1x4, 1x8, 2x1, 4x1 and 2x2, the cutting and gathering,
+  ``convert`` with an axis, the dry run's argument bytes at those meshes
+  against a rank's, and ``build_grid``'s order.
 
 The module imports no JAX. Every run here, the subprocess's included,
 starts from the port's weights of seed 0 (``lm.init_params``, in
@@ -87,6 +90,8 @@ CASES = {"tinyllama": ("tinyllama-1.1b", {}, True),
          "hymba": ("hymba-1.5b", {}, True),
          "xlstm": ("xlstm-350m", {}, False)}
 PORT_ONLY = {"whisper": ("whisper-large-v3", {}, True)}
+# the cases whose recurrent mixers the model axis splits
+RECURRENT = ("hymba", "xlstm")
 KILL = (2, [1])
 
 
@@ -389,6 +394,11 @@ def job(tmp_path_factory):
         ckpt = _only_step(os.path.join(tmp, "tinyllama_d4"),
                           os.path.join(tmp, "d4_at_2"), EVERY)
         resume_d4 = _resume(_arch("tinyllama"), ckpt, None, 1, False)
+        recurrent = {}
+        for key in RECURRENT:
+            ckpt = _only_step(os.path.join(tmp, f"{key}_m2_False"),
+                              os.path.join(tmp, f"{key}_m2_at_2"), EVERY)
+            recurrent[key] = _resume(_arch(key), ckpt, None, 1, False)
         ref.wait(timeout=600)
     finally:
         ref.kill()
@@ -396,7 +406,8 @@ def job(tmp_path_factory):
         -3000:]
     want = dict(np.load(os.path.join(tmp, "ref.npz")))
     return {"repro": want, "one": one, "ranks": ranks, "tmp": tmp,
-            "resume_m2_at_m1": resume, "resume_d4_at_m1": resume_d4}
+            "resume_m2_at_m1": resume, "resume_d4_at_m1": resume_d4,
+            "recurrent_m2_at_m1": recurrent}
 
 
 def _rel(got, want, tol, what):
@@ -440,6 +451,25 @@ def test_model_axis_two_matches_one(job, key, sp):
     for r in range(1, 4):
         _rel(job["ranks"][r][f"{key}_m2_{sp}"]["losses"], got["losses"],
              1e-6, f"{key} rank {r}")
+
+
+@pytest.mark.parametrize("key", RECURRENT)
+def test_split_mixers_whole_leaves_are_summed_over_the_model_group(job, key):
+    """The leaves ``repro`` replicates inside a split mixer (hymba's
+    ``w_decay`` / ``b_decay``, the mLSTM's ``b_f``, the sLSTM's ``r_*``)
+    get the one-process gradient at m = 2 without SP: each rank's part
+    from its heads or columns, summed over the model group."""
+    partial = par.tp_partial(_arch(key), 2)
+    leaves = {n.split(".", 2)[-1] for n in partial}
+    assert leaves == {"hymba": {"ssm.w_decay", "ssm.b_decay"},
+                      "xlstm": {"mlstm.b_f", "slstm.r_z", "slstm.r_i",
+                                "slstm.r_f", "slstm.r_o"}}[key]
+    want = {n: g for n, g in job["one"][key]["grads"].items()
+            if n in partial}
+    assert len(want) == len(partial)
+    for r in range(4):
+        got = job["ranks"][r][f"{key}_m2_False"]["grads"]
+        _grads_close({n: got[n] for n in want}, want, 1e-5, f"rank {r}")
 
 
 def test_failure_regrids_and_matches_the_undisturbed_run(job):
@@ -567,6 +597,17 @@ def test_checkpoint_tree_is_repros_at_m2(job):
         == _tree(job["tmp"], "repro_tinyllama")
 
 
+@pytest.mark.parametrize("key", RECURRENT)
+def test_recurrent_checkpoint_written_at_m2_resumes_at_m1(job, key):
+    """The split mixers' leaves gather to ``repro``'s tree: the port's
+    step-2 checkpoint of the m = 2 run restores in one process and takes
+    the undisturbed step 3, and its tree is ``repro``'s."""
+    undisturbed = job["ranks"][0][f"{key}_m2_False"]["losses"]
+    _rel(job["recurrent_m2_at_m1"][key], undisturbed[EVERY:], 1e-4, key)
+    assert _tree(job["tmp"], f"{key}_m2_False") \
+        == _tree(job["tmp"], f"repro_{key}")
+
+
 def test_checkpoint_written_at_d4_resumes_in_one_process_and_repro(job):
     undisturbed = job["ranks"][0]["tinyllama_d4"]["losses"]
     _rel(job["resume_d4_at_m1"], undisturbed[EVERY:], 1e-4, "port")
@@ -579,45 +620,50 @@ def test_checkpoint_written_at_d4_resumes_in_one_process_and_repro(job):
 # The layout, cutting and gathering (one process)
 # ---------------------------------------------------------------------------
 
-# The leaves of a layer that repro's rules split at m = 2 and the port
-# keeps whole (the table of parallel/tensor.py's docstring).
-WHOLE_AT_2 = {
-    "hymba-1.5b": ["attn.wk", "attn.wo", "attn.wq", "attn.wv", "ssm.w_gate",
-                   "ssm.wk", "ssm.wo", "ssm.wq", "ssm.wv"],
-    "xlstm-350m": ["mlstm.w_f", "mlstm.w_gate", "mlstm.w_i", "mlstm.wk",
-                   "mlstm.wo", "mlstm.wq", "mlstm.wv", "slstm.w_f",
-                   "slstm.w_i", "slstm.w_o", "slstm.w_z", "slstm.wo"]}
-
-
-def _whole_by_design(arch, name):
-    """Whether the port keeps ``name`` whole at m = 2 where ``repro``'s
-    rule splits it: a recurrent mixer's leaf, or an attention leaf whose
-    heads 2 does not divide."""
-    parts = name.split(".")
-    if {"ssm", "mlstm", "slstm"} & set(parts):
-        return True
-    if {"attn", "xattn"} & set(parts):
-        return arch.n_heads % 2 or arch.n_kv_heads % 2
-    return False
-
-
+@pytest.mark.parametrize("m", [2, 4, 8])
 @pytest.mark.parametrize("name", list_archs())
-def test_layout_is_repros_rules_but_whole_heads_and_mixers(name):
+def test_layout_is_repros_rules(name, m):
+    """Every leaf's split dim on a model axis of m is the one of
+    ``repro``'s sanitized spec: xlstm at m = 8 cuts its heads of 256 in
+    half and keeps ``w_i`` / ``w_f`` (D, 4) whole (the flat column
+    form), hymba's 25 / 5 heads are cut by flat columns at every m."""
+    from repro_torch.launch.mesh import make_mesh
+    arch = get_config(name)
+    mesh = make_mesh((1, m), ("data", "model"))
+    rules = sharding.param_partition_specs(lm.param_specs(arch), mesh)
+    mine = par.partition_specs(arch, mesh)
+    lay = par.layout(arch, m)
+    assert sorted(rules) == sorted(mine)
+    for leaf, spec in rules.items():
+        theirs = tuple(p if p == "model" else None for p in spec)
+        assert theirs == tuple(mine[leaf]), (leaf, spec, mine[leaf])
+        assert lay[leaf] == (theirs.index("model") if "model" in theirs
+                             else None)
+    if name == "xlstm-350m" and m == 8:
+        assert lay["layers.0.mlstm.w_i"] is None
+        assert lay["layers.0.mlstm.wq"] == 1
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "xlstm-350m"])
+def test_dryrun_parameter_bytes_at_1x2_are_repros_shards(name):
+    """The dry run's parameter bytes a rank at 1x2: ``repro``'s sanitized
+    shards, 1,539,289,600 B for hymba-1.5b and 279,431,360 B for
+    xlstm-350m."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     arch = get_config(name)
     mesh = make_mesh((1, 2), ("data", "model"))
-    rules = sharding.param_partition_specs(lm.param_specs(arch), mesh)
-    mine = par.partition_specs(arch, mesh)
-    lay = par.layout(arch, 2)
-    differ = []
-    for leaf, spec in rules.items():
-        theirs = tuple(p if p == "model" else None for p in spec)
-        if theirs != tuple(mine[leaf]):
-            differ.append(leaf)
-            assert _whole_by_design(arch, leaf), (leaf, spec, mine[leaf])
-            assert lay[leaf] is None
-    leaves = sorted({n.split(".", 2)[2] for n in differ})
-    assert leaves == WHOLE_AT_2.get(name, []), leaves
+    fn, args, specs = dryrun.build_step(arch, SHAPES["train_4k"], mesh,
+                                        dryrun.DryrunOptions())
+    got = dryrun.argument_bytes(args[:1], specs[:1], mesh)
+    full = lm.param_specs(arch)
+    rules = sharding.param_partition_specs(full, mesh)
+    theirs = sum(math.prod(sharding.shard_shape(tuple(p.shape), rules[n],
+                                                mesh)) * p.element_size()
+                 for n, p in full.named_parameters())
+    assert got == theirs == {"hymba-1.5b": 1_539_289_600,
+                             "xlstm-350m": 279_431_360}[name]
 
 
 FSDP_MESHES = {"2x1": (2, 1), "4x1": (4, 1), "2x2": (2, 2)}
@@ -635,10 +681,9 @@ def _rank_shapes(arch, D, M, d, i):
 
 @pytest.mark.parametrize("mesh", list(FSDP_MESHES))
 @pytest.mark.parametrize("name", list_archs())
-def test_fsdp_layout_is_repros_rules_but_whole_heads_and_mixers(name, mesh):
-    """Each leaf a rank holds has ``repro``'s sanitized spec's shard shape,
-    but for the leaves the port keeps whole on the model axis (the
-    ``WHOLE_AT_2`` table), which are cut over 'data' all the same."""
+def test_fsdp_layout_is_repros_rules(name, mesh):
+    """Each leaf a rank holds has ``repro``'s sanitized spec's shard
+    shape, on the model axis and the data axis."""
     from repro_torch.launch.mesh import make_mesh
     arch = get_config(name)
     D, M = FSDP_MESHES[mesh]
@@ -647,13 +692,10 @@ def test_fsdp_layout_is_repros_rules_but_whole_heads_and_mixers(name, mesh):
     shapes = {n: tuple(p.shape) for n, p in full.named_parameters()}
     rules = sharding.param_partition_specs(full, grid)
     mine = par.partition_specs(arch, grid)
-    whole = WHOLE_AT_2.get(name, []) if M == 2 else []
     held = _rank_shapes(arch, D, M, D - 1, M - 1)
     assert held == _rank_shapes(arch, D, M, 0, 0)
     split = 0
     for leaf, spec in rules.items():
-        if leaf.split(".", 2)[-1] in whole and leaf.startswith("layers."):
-            spec = sharding.P(*(None if p == "model" else p for p in spec))
         want = sharding.shard_shape(shapes[leaf], spec, grid)
         assert held[leaf] == want, (leaf, spec, held[leaf])
         assert sharding.shard_shape(shapes[leaf], mine[leaf], grid) == want

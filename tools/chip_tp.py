@@ -7,11 +7,14 @@ sequence parallelism in the trainer.
 Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds the kernels (one ``nvcc`` per source, together) and calls
 ``chip_smoke.phase_tp``: two gloo ranks sharing the card as one model
-group train tinyllama-1.1b (with sequence parallelism) and
-granite-moe-1b-a400m (expert parallelism) at full width and depth, each
-against the same steps in one process, then f32 at 2 layers against one
-rank, each rank's argument bytes and peak against the dry run's 1x2
-prediction. Any failed check raises.
+group train tinyllama-1.1b (with sequence parallelism),
+granite-moe-1b-a400m (expert parallelism), hymba-1.5b (attention and SSM
+heads split by flat columns, with sequence parallelism) and xlstm-350m
+(mLSTM and sLSTM split by heads) at full width and depth, each against
+the same steps in one process, then f32 at 2 layers against one rank,
+each rank's argument bytes and peak against the dry run's 1x2
+prediction; then FSDP over the two ranks as data 2. Any failed check
+raises.
 """
 import os
 import subprocess
