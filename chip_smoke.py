@@ -367,6 +367,7 @@ or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -4118,7 +4119,8 @@ def phase_serve(arch, model):
     # another generate (prompt 8, generate 8).
     timer = PhaseTimer()
     patches = [(L, "attention_decode", "attn"), (L, "project_qkv", "proj"),
-               (L, "apply_rope", "rope"), (L, "mlp", "mlp"),
+               (L, "decode_qkv", "proj"), (L, "apply_rope", "rope"),
+               (L, "mlp", "mlp"),
                (L, "rmsnorm", "norm"), (lm.LM, "_logits", "logits")]
     saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
     for o, a, label in patches:
@@ -4258,6 +4260,7 @@ def moe_patches():
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     return [(L, "flash_attention", "kernel"), (L, "project_qkv", "proj"),
+            (L, "decode_qkv", "proj"),
             (L, "apply_rope", "rope"), (L, "attention_train", "attn"),
             (L, "attention_decode", "attn_decode"),
             (L, "moe_route", "route"), (L, "moe_dispatch", "dispatch"),
@@ -4846,6 +4849,7 @@ def recurrent_patches():
     from repro_torch.models import lm
     from repro_torch.models import recurrent as R
     return [(L, "flash_attention", "kernel"), (L, "project_qkv", "proj"),
+            (L, "decode_qkv", "proj"),
             (L, "apply_rope", "rope"), (L, "attention_train", "attn"),
             (L, "attention_decode", "attn_decode"),
             (R, "_ssm_qkva", "ssm_proj"), (R, "gla_intra", "intra"),
@@ -6290,6 +6294,23 @@ def phase_dryrun(smi: str):
 # s a step on one rank), 2 steps, its mLSTM and sLSTM split by heads (2 of
 # 4 a rank). Each against the same steps in one process on the card, the
 # port's first full-width training of a recurrent arch.
+#
+# (g) split serving, before the ranks train, on the weights (a), (b), (e)
+# and (f) build from the seed (the one-rank references on the one-rank
+# models, before they train too): each arch's prefill at B 1 and its
+# run's S (K5 at the rank's heads, or at the whole heads of a flat column
+# split, held to its plain version on layer 0's q, k, v), then TP_SERVE's
+# 8 decode steps at batch 8 against a cache of 4,096 positions made from
+# a seed and cut to the rank's share (``models.lm.shard_cache``: the
+# KV cache's sequence split 2,048 / 2,048, hymba's ring of 1,024 split 512
+# / 512 and wrapped, every slot live, the recurrent states whole), at
+# positions 4,088-4,095; each rank's f32 copy of its shards against one
+# rank's f32 copy within TP_SERVE_F32_BAR, both routed with one rank's
+# bf16 MoE picks (the check that a wrong split fails); the bf16 logits
+# against one rank's within the serving bar or twice one rank's own bf16
+# error against its f32 copy; a rank's argument bytes (parameters, cache,
+# tokens, pos) equal to the dry run's 1x2 decode cell, and (c)'s f32
+# models the same at TP_BAR.
 TP_M = 2
 TP_FULL = {"tinyllama-1.1b": dict(B=2, S=2048, k=2, steps=2, sp=True,
                                   part="(a)"),
@@ -6304,6 +6325,15 @@ TP_F32 = dict(B=4, S=256, steps=2, layers=2)
 # (c)'s widths: hymba's flat columns too
 TP_F32_ARCHS = ("tinyllama-1.1b", "granite-moe-1b-a400m", "hymba-1.5b")
 TP_BAR = 1e-5                    # phase 16 (c)'s bar (f32)
+# (g)'s decode: batch, cache length, steps at its last positions, seed
+TP_SERVE = dict(B=8, S=4096, steps=8, seed=0)
+SERVE_BAR = dict(atol=0.12, rtol=0.05)    # phases 9-19's bf16 serving bar
+# (g): the ranks' f32 copies at full depth against one rank's f32 copy,
+# max |m2 - m1| / max |m1| (the same function in f32, the same routing).
+# A prefill runs S steps from the start: hymba's and xlstm's recurrences
+# read 1.131e-04 / 2.098e-04 there (H100 80GB HBM3, 700 W), 8 decode steps
+# at most 3.129e-05; a split that drops a sum or the merge reads 0.36-1.4
+TP_SERVE_F32_BAR = dict(prefill=1e-3, decode=1e-4)
 # bf16 losses, rel to one rank: sound runs read 3.1e-4 / 4.4e-4 (an H100
 # 80GB HBM3 at 700 W), a wrong split reads the loss of other weights
 TP_BF16_BAR = 5e-3
@@ -6337,6 +6367,14 @@ def tp_dry_write(path: str) -> None:
             name, "phase 21", mesh=mesh, arch=get_config(name), shape=shape,
             opts=dryrun.DryrunOptions(cost_fit=False, remat="none",
                                       microbatches=c["k"]), verbose=False)
+        # (g)'s decode at its batch and cache length
+        shape = dataclasses.replace(SHAPES["decode_32k"],
+                                    global_batch=TP_SERVE["B"],
+                                    seq_len=TP_SERVE["S"])
+        cells[name + " decode"] = dryrun.run_cell(
+            name, "phase 21 (g)", mesh=mesh, arch=get_config(name),
+            shape=shape, opts=dryrun.DryrunOptions(cost_fit=False),
+            verbose=False)
     with open(path, "w") as f:
         json.dump(cells, f)
 
@@ -6425,7 +6463,236 @@ def tp_trainer(arch, B, S, steps, k=1, sp=False, m=1, group=None, opt=None):
     return tr
 
 
-def tp_full_run(name, group, c=None, m=None):
+@contextlib.contextmanager
+def tp_routing(force=None):
+    """Within the block each MoE call's (picks, router probabilities) on
+    the device, appended to the list it yields in the order of the calls
+    (no host copy: the caller copies after its timed steps). ``force``:
+    another run's list, whose picks each call takes in place of its own
+    (its weights renormalised from its own probabilities), so that
+    another model computes that run's routing."""
+    import torch
+    from repro_torch.models import layers as L
+    picks, real_route = [], L.moe_route
+    forced = None
+    if force is not None:
+        forced = [t.to("cuda") for t, _ in force]
+
+    def route(router, xf, top_k, dp=None):
+        got = real_route(router, xf, top_k, dp)
+        probs = torch.softmax(xf.float() @ router, -1)
+        if forced is not None:
+            tope = forced[len(picks)]
+            topw = probs.gather(-1, tope)
+            topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+            got = (topw, tope) + tuple(got[2:])
+        picks.append((got[1], probs))
+        return got
+    L.moe_route = route
+    try:
+        yield picks
+    finally:
+        L.moe_route = real_route
+
+
+def tp_host(picks):
+    return [(t.cpu(), p.cpu()) for t, p in picks]
+
+
+def tp_serve(arch, model, group, S, B=1, force=None):
+    """(g) on this rank (``group``: the model group, or None for one
+    rank) before ``model`` trains: a prefill of B x S tokens from
+    TP_SERVE's seed (K5's launches, its first call's shapes and its error
+    against the plain version on them), then TP_SERVE's decode steps
+    against a whole cache drawn from the seed and cut to the rank's
+    share, the last step under the ``Recorder`` on the ranks. Returns the
+    logits, the greedy tokens, the MoE picks of the prefill and the
+    decode, the walls, the rank's argument bytes and cache bytes, the
+    collectives by group. A bf16 model also serves an f32 copy of itself
+    (on the ranks, of their shards) on the same inputs, its MoE routed
+    as one rank's bf16 run (``prefill_f32``, ``decode_f32``): one rank's
+    copy gives its own bf16 error, and the ranks' copies against one
+    rank's hold the split exactly at full depth. ``force``: one rank's
+    MoE picks {"prefill", "decode"}, with which the ranks' f32 copies
+    route, and with which the rank decodes again from the same cache
+    (``decode_forced``)."""
+    import copy
+    import torch
+    from repro_torch.analysis.record import Recorder
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    c = TP_SERVE
+    start = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(c["seed"])
+    toks = torch.randint(arch.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    kept, real_fa = {}, L.flash_attention
+
+    def first_call(q, k, v, **kw):
+        kept.setdefault("qkv", ((q, k, v), kw))
+        return real_fa(q, k, v, **kw)
+    zero_counts()
+    L.flash_attention = first_call
+    try:
+        with torch.inference_mode(), tp_routing() as routed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = model.prefill(toks)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+    finally:
+        L.flash_attention = real_fa
+    out = {"prefill": last.float().cpu(), "prefill_s": prefill_s,
+           "prefill_picks": tp_host(routed),
+           "launches": dict(flash_attention=flash_attention.launches,
+                            **{"k5 " + b: n for b, n in
+                               flash_attention.route_launches.items()}),
+           "k5_shape": None, "k5_err": None, "k5_ok": None}
+    del routed
+    if "qkv" in kept:
+        (q, k, v), kw = kept.pop("qkv")
+        with torch.no_grad():
+            o = flash_attention(q, k, v, **kw).float()
+            want = attention_ref(q, k, v, **kw).float()
+        out.update(k5_shape=(tuple(q.shape), tuple(k.shape)),
+                   k5_err=float((o - want).abs().max()),
+                   k5_ok=bool(torch.allclose(o, want, rtol=2.0 ** -7,
+                                             atol=4e-3)))
+        del q, k, v, o, want
+    # one rank's MoE picks, which the f32 copies take
+    force = force or {"prefill": out["prefill_picks"]}
+    ref = None
+    if arch.dtype != "float32":
+        # sharing the model group, which a deep copy cannot copy
+        group_of = model.axis.group if model.axis is not None else None
+        ref = copy.deepcopy(model, {id(group_of): group_of}).float()
+        with torch.inference_mode(), tp_routing(force["prefill"]):
+            out["prefill_f32"] = ref.prefill(toks).cpu()
+    if group is None and ref is not None:
+        # one rank's own f32 sensitivity: its copy again with every
+        # weight moved one ulp, up or down by a coin from its own seed
+        nudged, coin = copy.deepcopy(ref), torch.Generator(device="cuda")
+        coin.manual_seed(c["seed"] + 1)
+        with torch.no_grad():
+            for p in nudged.parameters():
+                up = torch.rand(p.shape, generator=coin, device="cuda") < 0.5
+                p.copy_(torch.nextafter(p, torch.where(up, math.inf,
+                                                       -math.inf)))
+        with torch.inference_mode(), tp_routing(force["prefill"]):
+            out["prefill_f32_ulp"] = nudged.prefill(toks).cpu()
+        del nudged
+    del last, toks
+    cache = lm.init_cache(arch, c["B"], c["S"], "cuda")
+    with torch.no_grad():
+        for layers in cache.values():
+            for t in layers:
+                if t is not None:
+                    t.copy_(torch.randn(t.shape, generator=gen,
+                                        device="cuda").mul_(0.5))
+    cache32 = None
+    if ref is not None:
+        # a copy: the f32 states would alias the decode's own
+        cache32 = lm.Cache({e: [None if t is None else t.to(
+            torch.float32, copy=True) for t in ts] for e, ts in cache.items()})
+        cache32.seq_len = cache.seq_len
+    if model.axis is not None:
+        cache = lm.shard_cache(cache, model.axis)
+        if cache32 is not None:
+            cache32 = lm.shard_cache(cache32, model.axis)
+    dtoks = torch.randint(arch.vocab_size, (c["B"], c["steps"]),
+                          generator=gen, device="cuda")
+    held = {kind: path_bytes([t for e, ts in cache.items() for t in ts
+                              if t is not None and (e in ("k", "v"))
+                              == (kind == "kv")])
+            for kind in ("kv", "states")}
+    out.update(args=path_bytes(model, cache) + c["B"] * 4 + 4, held=held)
+    again = None
+    if "decode" in force:           # the rank's cache, before it decodes
+        again = lm.Cache({e: [None if t is None else t.clone() for t in ts]
+                          for e, ts in cache.items()})
+        again.seq_len = c["S"]
+    rec = Recorder()
+    decode, walls, picks = tp_decode(model, cache, dtoks, group, rec)
+    groups = rec.collectives_by_group()
+    out.update(decode=decode, tokens=decode.argmax(-1), walls=walls,
+               picks=picks, collectives={} if group is None else
+               groups.get(model.axis.group.group_name, {}))
+    del cache
+    force.setdefault("decode", picks)
+    if again is not None:
+        out["decode_forced"] = tp_decode(model, again, dtoks, None, None,
+                                         force=force["decode"])[0]
+        del again
+    if ref is not None:
+        out["decode_f32"] = tp_decode(ref, cache32, dtoks, None, None,
+                                      force=force["decode"])[0]
+        del ref, cache32
+    del dtoks
+    torch.cuda.empty_cache()
+    out["wall"] = time.perf_counter() - start
+    return out
+
+
+def tp_decode(model, cache, dtoks, group, rec, force=None):
+    """TP_SERVE's decode steps at its last positions, the ranks' last
+    step under ``rec``: (the logits (steps, B, V) on the host, each
+    step's wall, each MoE call's picks and router probabilities on the
+    host, copied after the steps). ``force``: another run's picks, which
+    each MoE call takes (``tp_routing``)."""
+    import torch
+    c = TP_SERVE
+    logits, walls = [], []
+    with torch.inference_mode(), tp_routing(force) as picks:
+        for step in range(c["steps"]):
+            recorded = group is not None and step == c["steps"] - 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with rec if recorded else contextlib.nullcontext():
+                got, cache = model.decode_step(
+                    dtoks[:, step:step + 1], cache,
+                    c["S"] - c["steps"] + step)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            logits.append(got[:, 0].float())
+    return torch.stack(logits).cpu(), walls, tp_host(picks)
+
+
+def tp_routed_alike(arch, got, want):
+    """The (steps, B) mask of the decode tokens whose MoE routing equals
+    one rank's at every layer and step so far: the same top-k picks in
+    order and the same picks kept under the capacity (a flip elsewhere
+    moves the places behind it); and the largest gap between one rank's
+    K-th and (K+1)-th router probability where a token's picks first
+    differ (0.0 when none do). ``got`` / ``want``: ``tp_serve``'s
+    ``picks``."""
+    import torch
+    from repro_torch.models.layers import expert_places
+    steps, E, K = TP_SERVE["steps"], arch.n_experts, arch.top_k
+    per = len(want) // steps
+    B = want[0][0].shape[0]
+    C = max(int(B * K / E * arch.capacity_factor), 4)
+    alike, rows, gap = torch.ones(B, dtype=torch.bool), [], 0.0
+    for s in range(steps):
+        for (tg, _), (to, probs) in zip(got[s * per:(s + 1) * per],
+                                        want[s * per:(s + 1) * per]):
+            kept = [(expert_places(t.reshape(-1), E) < C).view(B, K)
+                    for t in (tg, to)]
+            # a flip's gap, where the token's routing was one rank's
+            # until this call (after it, its input is another)
+            flip = alike & (tg.sort(-1).values != to.sort(-1).values).any(-1)
+            alike &= (tg == to).all(-1) & (kept[0] == kept[1]).all(-1)
+            if flip.any():
+                top = probs.sort(-1, descending=True).values
+                gap = max(gap, float((top[:, K - 1] - top[:, K])[flip].max()))
+        rows.append(alike.clone())
+    return torch.stack(rows), gap
+
+
+def tp_full_run(name, group, c=None, m=None, force=None):
     """One full-width path on this rank (``group``: the two ranks, or None
     for one process; ``c``: the run, TP_FULL[name] by default; ``m``: the
     model axis, TP_M on the two ranks by default, 1 for (d)'s FSDP):
@@ -6440,6 +6707,7 @@ def tp_full_run(name, group, c=None, m=None):
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import layers as L
 
+    serve = c is None                        # (g) before (a)-(f) train
     c = c or TP_FULL[name]
     arch = get_config(name)
     if m is None:
@@ -6448,6 +6716,11 @@ def tp_full_run(name, group, c=None, m=None):
     torch.cuda.reset_peak_memory_stats()
     tr = tp_trainer(arch, c["B"], c["S"], c["steps"], c["k"], c["sp"], m,
                     group)
+    # the build's peak, kept: the window restarts after (g)'s serving
+    build = torch.cuda.max_memory_allocated()
+    served = tp_serve(arch, tr.model, group, c["S"], force=force) \
+        if serve else None
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     resident = path_bytes(tr.model, tr.opt_state)
@@ -6484,6 +6757,7 @@ def tp_full_run(name, group, c=None, m=None):
     got = dict(read_counts(), **{"k5 " + b: n for b, n in
                                  flash_attention.route_launches.items()})
     peak = measured_peak(before, resident)
+    peak["peak"] = max(peak["peak"], build - peak["other"])
     groups = rec.collectives_by_group()
     grid = tr.grid
     by = {"data": groups.get(grid.data.group.group_name, {})
@@ -6498,7 +6772,7 @@ def tp_full_run(name, group, c=None, m=None):
            "collectives": by, "k5_shape": None, "k5_err": None,
            "k5_ok": None,
            "params": sum(p.numel() for p in tr.model.parameters()),
-           "events": res["events"], "lost": res["lost"]}
+           "events": res["events"], "lost": res["lost"], "serve": served}
     del tr
     if "qkv" in kept:                        # an arch with attention
         (q, k, v), kw = kept.pop("qkv")
@@ -6524,6 +6798,8 @@ def tp_f32_run(name, sp, group, tmp, rank):
     opt = TpRecording(tp_schedule())
     tr = tp_trainer(arch, TP_F32["B"], TP_F32["S"], TP_F32["steps"],
                     sp=sp, m=TP_M, group=group, opt=opt)
+    # (g) at f32, once an arch, before it trains
+    served = None if sp else tp_serve(arch, tr.model, group, TP_F32["S"])
     res = tr.run()
     ref = torch.load(os.path.join(tmp, f"ref_{name}.pt"), weights_only=False)
     lay = par.layout(arch, TP_M)
@@ -6533,7 +6809,7 @@ def tp_f32_run(name, sp, group, tmp, rank):
         worst = max(worst, leaf_err(g, want))
     del tr, opt, ref
     torch.cuda.empty_cache()
-    return {"losses": res["losses"], "grad_err": worst}
+    return {"losses": res["losses"], "grad_err": worst, "serve": served}
 
 
 def tp_rank(rank, world, tmp):
@@ -6541,8 +6817,10 @@ def tp_rank(rank, world, tmp):
     import torch
     import torch.distributed as dist
     out = {}
+    picks = torch.load(os.path.join(tmp, "picks.pt"), weights_only=False)
     for name in TP_FULL:
-        out[name] = tp_full_run(name, dist.group.WORLD)
+        out[name] = tp_full_run(name, dist.group.WORLD,
+                                force=picks.get(name))
     out["fsdp"] = tp_full_run(TRAIN_ARCH, dist.group.WORLD, TP_FSDP, m=1)
     for name in TP_F32_ARCHS:
         for sp in (False, True):
@@ -6561,7 +6839,8 @@ def phase_tp(smi: str):
     at full width, with the dry run's 1x2 prediction of each rank's
     argument bytes (exact) and peak (within phase 20's PEAK_RATIO), and
     (c); then (d), FSDP over the two ranks as data 2 (TP_FSDP,
-    ``phase_tp_fsdp``)."""
+    ``phase_tp_fsdp``); (g), their split serving before they train
+    (TP_SERVE, ``phase_tp_serve``)."""
     import tempfile
     import torch
     from repro_torch.configs import get_config
@@ -6576,11 +6855,18 @@ def phase_tp(smi: str):
         f"through the host, not NCCL over NVLink; {smi}")
     with tempfile.TemporaryDirectory(prefix="phase21_") as tmp:
         one = {name: tp_full_run(name, None) for name in TP_FULL}
+        # (g): one rank's MoE decode picks, which the ranks decode with too
+        torch.save({name: {"prefill": one[name]["serve"]["prefill_picks"],
+                           "decode": one[name]["serve"]["picks"]}
+                    for name in TP_FULL if get_config(name).n_experts},
+                   os.path.join(tmp, "picks.pt"))
         for name in TP_F32_ARCHS:
             arch = tp_f32_arch(name)
             opt = TpRecording(tp_schedule())
             tr = tp_trainer(arch, TP_F32["B"], TP_F32["S"], TP_F32["steps"],
                             opt=opt)
+            one[("f32 serve", name)] = tp_serve(arch, tr.model, None,
+                                                TP_F32["S"])
             losses = tr.run()["losses"]
             torch.save({"grads": opt.grads}, os.path.join(tmp,
                                                          f"ref_{name}.pt"))
@@ -6667,6 +6953,7 @@ def phase_tp(smi: str):
                 raise AssertionError(f"phase 21 {part} rank {r}: peak "
                                      f"ratio {ratio}")
     phase_tp_fsdp(one[TRAIN_ARCH]["losses"], ranks)
+    phase_tp_serve(one, ranks, cells, smi)
     for name in TP_F32_ARCHS:
         want = one[("f32", name)]
         for sp in (False, True):
@@ -6699,6 +6986,162 @@ def phase_tp(smi: str):
                              f"ranks: {counts}")
     per_step[TRAIN_ARCH + " fsdp"] = counts.pop() // TP_FSDP["steps"]
     return {"tp_launches_per_step": per_step}
+
+
+def tp_logit_err(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def tp_within(got, want, f32):
+    """(passed, max |got - want|, one rank's own max |want - f32|): got
+    within SERVE_BAR of want, or no farther from it than twice one rank's
+    own bf16 error (two bf16 roundings of the same function apart)."""
+    import torch
+    gap = float((got - want).abs().max())
+    own = float((want - f32).abs().max())
+    return (bool(torch.allclose(got, want, **SERVE_BAR))
+            or gap <= 2 * own), gap, own
+
+
+def phase_tp_serve(one, ranks, cells, smi):
+    """Phase 21 (g)'s checks: each rank's prefill and decode logits
+    against one rank's at TP_BAR (f32, (c)'s models); at full depth, the
+    rank's f32 copy against one rank's f32 copy within TP_SERVE_F32_BAR
+    (both routed with one rank's bf16 picks; one rank's own sensitivity,
+    its copy with every weight moved one ulp, logged), and at bf16 within
+    ``tp_within``'s bar (an MoE's decode taken again with one rank's
+    picks; its own picks may differ only at a top-k near-tie), K5 in
+    each split prefill
+    (one wgmma launch an attention layer at the rank's heads, or at the
+    whole heads of a flat column split, held to its plain version), a
+    rank's argument bytes equal to the dry run's 1x2 decode cell; the
+    greedy tokens' agreement, the decode ms a step on two ranks against
+    one and the collectives a step logged. Every arch and rank is logged
+    before a failure raises."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    c = TP_SERVE
+    failed = []
+    for name in TP_F32_ARCHS:
+        o = one[("f32 serve", name)]
+        for r in range(TP_M):
+            g = ranks[r][(name, False)]["serve"]
+            pre, dec = (tp_logit_err(g[k], o[k]) for k in ("prefill",
+                                                           "decode"))
+            log(f"  (g) f32 {name} widths at {TP_F32['layers']} layers, "
+                f"rank {r}: prefill B 1 S {TP_F32['S']} and {c['steps']} "
+                f"decode steps, max |m2 - m1| / max |m1| {pre:.3e} / "
+                f"{dec:.3e} (bar {TP_BAR})")
+            if not (pre <= TP_BAR and dec <= TP_BAR):
+                failed.append(f"f32 {name} rank {r}: {pre} {dec}")
+    log(f"  (g) split serving, before training, on the runs' weights: "
+        f"prefill at B 1 and each run's S, then {c['steps']} decode steps "
+        f"at batch {c['B']} against a cache of {c['S']} positions from "
+        f"seed {c['seed']} cut to each rank's share, at positions "
+        f"{c['S'] - c['steps']}-{c['S'] - 1}; one rank and each rank also "
+        f"serve an f32 copy (one rank's own bf16 error, and the split held "
+        f"in f32 at full depth); {smi}")
+    for name, run in TP_FULL.items():
+        arch = get_config(name)
+        o = one[name]["serve"]
+        mem = cells[name + " decode"]
+        if mem["status"] != "ok":
+            raise AssertionError(f"phase 21 (g) {name}: the dry run failed: "
+                                 f"{mem.get('traceback')}")
+        mem = mem["memory"]
+        per = sum(arch.block_at(i) in lm.ATTENTION_KINDS
+                  for i in range(arch.n_layers))
+        heads = arch.n_heads // TP_M if arch.n_heads % TP_M == 0 \
+            and arch.n_kv_heads % TP_M == 0 else arch.n_heads
+        one_ms = 1e3 * float(np.median(o["walls"][1:]))
+        walls = ", ".join(f"{ranks[r][name]['serve']['wall']:.1f}"
+                          for r in range(TP_M))
+        log(f"    {name}: one rank served in {o['wall']:.1f} s (each rank "
+            f"{walls} s); prefill S {run['S']} "
+            f"{o['prefill_s']:.4f} s, decode {one_ms:.2f} ms a step (median "
+            f"of steps 2-{c['steps']}), cache {o['held']['kv']} B of k and "
+            f"v, {o['held']['states']} B of states; launches "
+            f"{o['launches']}")
+        for r in range(TP_M):
+            g = ranks[r][name]["serve"]
+            alike = tp_routed_alike(arch, g["picks"], o["picks"]) \
+                if arch.n_experts else (None, 0.0)
+            share = float(alike[0].float().mean()) if arch.n_experts \
+                else 1.0
+            pre_ok, pre_gap, pre_own = tp_within(
+                g["prefill"], o["prefill"], o["prefill_f32"])
+            # an MoE held with one rank's picks: a flip at a near-tie
+            # moves the capacity's drops behind it, at batch 8 in every
+            # token within the 24 layers and 8 steps
+            dec_ok, dec_gap, dec_own = tp_within(
+                g["decode_forced"] if arch.n_experts else g["decode"],
+                o["decode"], o["decode_f32"])
+            # the same function in f32 at full depth, routed alike
+            f32 = [tp_logit_err(g[k], o[k]) for k in ("prefill_f32",
+                                                      "decode_f32")]
+            agree = float((g["tokens"] == o["tokens"]).float().mean())
+            ms = 1e3 * float(np.median(g["walls"][1:-1]))
+            log(f"    {name} rank {r}: f32 copies at full depth (one "
+                f"rank's MoE picks), max |m2 - m1| / max |m1| prefill "
+                f"{f32[0]:.3e} (max |m1| "
+                f"{float(o['prefill_f32'].abs().max()):.4f}; one rank's "
+                f"copy with every weight moved one ulp "
+                f"{tp_logit_err(o['prefill_f32_ulp'], o['prefill_f32']):.3e})"
+                f", decode {f32[1]:.3e} (max |m1| "
+                f"{float(o['decode_f32'].abs().max()):.4f}), bars "
+                f"{TP_SERVE_F32_BAR}")
+            log(f"    {name} rank {r}: prefill {g['prefill_s']:.4f} s, "
+                f"last-position logits {tuple(g['prefill'].shape)} max "
+                f"|m2 - m1| {pre_gap:.4e} (max |m1| "
+                f"{float(o['prefill'].abs().max()):.4f}; one rank's own "
+                f"bf16 error {pre_own:.4e}); decode max |m2 - m1| "
+                f"{dec_gap:.4e} (max |m1| "
+                f"{float(o['decode'].abs().max()):.4f}; its own "
+                f"{dec_own:.4e})"
+                + (f" with one rank's MoE picks (the f32 copy's too); its "
+                   f"own routing is one rank's at {share:.4f} of the "
+                   f"token-steps, a flip's largest top-k gap "
+                   f"{alike[1]:.3e} (bar 1e-2), and its own decode's max "
+                   f"|m2 - m1| "
+                   f"{float((g['decode'] - o['decode']).abs().max()):.4e}"
+                   if arch.n_experts else "")
+                + f"; bar: atol {SERVE_BAR['atol']} rtol "
+                f"{SERVE_BAR['rtol']}, or within twice one rank's own; "
+                f"greedy tokens agree {agree:.4f}; {ms:.2f} ms a decode "
+                f"step (median of steps 2-{c['steps'] - 1}) against one "
+                f"rank's {one_ms:.2f}; the last step's collectives on the "
+                f"model group {g['collectives']}")
+            log(f"    {name} rank {r}: K5 launches {g['launches']} at "
+                f"{g['k5_shape']} (expected {per} wgmma"
+                + (f" at {heads} heads" if per else "") + "), "
+                f"max_abs_err against its plain version {g['k5_err']}; "
+                f"holds {g['held']['kv']} B of k and v, "
+                f"{g['held']['states']} B of states; arguments "
+                f"{g['args']} B, the dry run's 1x2 decode cell "
+                f"{mem['argument_bytes']} B")
+            if not (pre_ok and dec_ok) or not torch.isfinite(
+                    g["decode"]).all() or g["prefill"].shape \
+                    != (1, 1, arch.vocab_size) or alike[1] >= 1e-2:
+                failed.append(f"{name} rank {r}: logits off one rank's")
+            if not (f32[0] <= TP_SERVE_F32_BAR["prefill"]
+                    and f32[1] <= TP_SERVE_F32_BAR["decode"]):
+                failed.append(f"{name} rank {r}: f32 logits off one "
+                              f"rank's: {f32}")
+            if g["launches"]["flash_attention"] != per \
+                    or g["launches"]["k5 wgmma"] != per \
+                    or g["launches"]["k5 simt"] != 0 \
+                    or (per and (g["k5_shape"][0][1] != heads
+                                 or not g["k5_ok"])):
+                failed.append(f"{name} rank {r}: K5 {g['launches']} "
+                              f"{g['k5_shape']}")
+            if g["args"] != mem["argument_bytes"]:
+                failed.append(f"{name} rank {r}: argument bytes "
+                              f"{g['args']} != {mem['argument_bytes']}")
+    if failed:
+        raise AssertionError(f"phase 21 (g): {failed}")
 
 
 def phase_tp_fsdp(want, ranks):

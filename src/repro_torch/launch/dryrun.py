@@ -43,7 +43,12 @@ The steps are the port's own: train is ``runtime.driver.make_train_step``
 (microbatches into one f32 buffer, AdamW), prefill is ``LM.prefill``
 (only the last position is unembedded, where ``repro``'s prefill step
 makes every position's logits), decode is ``LM.decode_step`` at the last
-position of a full cache.
+position of a full cache, its arguments the tokens, the cache and ``pos``
+(not the frames, which ``repro``'s decode batch carries and does not
+read: their cross k and v are in the cache). On a mesh with a model axis
+the decode cell's argument bytes are what a rank of the port's split
+decode holds (``lm.init_cache(..., axis=)``: the KV and cross caches'
+sequence split, the recurrent states whole).
 
 Usage (no card needed):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
@@ -202,6 +207,11 @@ def build_step(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh,
     """(fn, args, specs): ``fn(*args)`` runs one step eagerly on the meta
     device; ``specs`` are the partition specs of ``args``, leaf for leaf."""
     batch = input_specs(arch, shape, META)
+    if shape.kind == "decode":
+        # decode reads the tokens, the cache and pos: an encoder-decoder
+        # arch's frames are in the cache's cross k and v, which a rank
+        # holds instead (``repro``'s decode batch carries them unread)
+        batch.pop("frames", None)
     model = lm.param_specs(arch)
     # the port's own layout, what a rank of its trainer holds: repro's
     # sanitized rules on the model axis, its fsdp rule on the data axis

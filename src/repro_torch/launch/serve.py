@@ -17,6 +17,15 @@ unless ``--device cpu`` is given. As in ``repro``, the
 prompt is fed through the decode path one token at a time (teacher
 forcing: correct, though not the fast path; the bulk prefill is
 ``LM.prefill``), then ``gen_len`` tokens are decoded greedily.
+
+On a model split over a model axis (``lm.LM(arch, device, axis)``) every
+rank of the model group calls ``generate`` with the same prompts: each
+allocates its shares of the cache (``lm.init_cache(..., axis=)``), the
+logits are whole on every rank, and every rank takes the same greedy
+tokens. Over a ``data`` axis that divides the batch, each rank decodes
+its rows (an MoE routing the data group's tokens as one) and the tokens
+are gathered back to the whole batch. No flag: the CLI serves one rank,
+as ``repro``'s does.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import lm
+from repro_torch.parallel import tensor as par
 
 
 class BatchedServer:
@@ -35,10 +45,13 @@ class BatchedServer:
     and v linear, or a ring for a sliding-window layer, the recurrent
     layers' states, and an encoder-decoder arch's cross k and v)."""
 
-    def __init__(self, arch, model, max_seq: int):
+    def __init__(self, arch, model, max_seq: int, data=None):
+        """``data``: the data axis (``parallel.tensor.Axis``) whose ranks
+        split the batch, or None."""
         self.arch = arch
         self.model = model
         self.max_seq = max_seq
+        self.data = data if data is not None and data.size > 1 else None
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, gen_len: int,
@@ -50,22 +63,31 @@ class BatchedServer:
         it. Other extras (patches) are not decoded, as in ``repro``."""
         B, P = prompts.shape
         dev = self.model.embed.device
-        cache = lm.init_cache(self.arch, B, self.max_seq, dev)
+        # the batch splits over the data axis only where it divides
+        data = self.data if self.data and B % self.data.size == 0 \
+            else None
+        rows = slice(None)
+        if data is not None:
+            n = B // data.size
+            rows = slice(data.index * n, (data.index + 1) * n)
+        cache = lm.init_cache(self.arch, B, self.max_seq, dev,
+                              self.model.axis, data)
         if extras and "frames" in extras and self.arch.is_encdec:
-            self.model.fill_cross_cache(cache, extras["frames"])
-        toks = torch.as_tensor(np.asarray(prompts), device=dev)
+            self.model.fill_cross_cache(cache, extras["frames"][rows])
+        toks = torch.as_tensor(np.asarray(prompts)[rows], device=dev)
         logits = None
         for t in range(P):
             logits, cache = self.model.decode_step(toks[:, t:t + 1], cache,
-                                                   t)
+                                                   t, data)
         out = []
         tok = torch.argmax(logits[:, -1], dim=-1)
         for t in range(gen_len):
             out.append(tok)
             logits, cache = self.model.decode_step(tok[:, None], cache,
-                                                   P + t)
+                                                   P + t, data)
             tok = torch.argmax(logits[:, -1], dim=-1)
-        return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+        out = par.gather_rows(torch.stack(out, dim=1), data)
+        return out.to(torch.int32).cpu().numpy()
 
 
 def build_parser() -> argparse.ArgumentParser:

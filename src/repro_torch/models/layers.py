@@ -22,6 +22,12 @@ its d_ff / m hidden columns, and ``MoE`` its E / m experts where m
 divides E (EP, ``repro``'s ``_moe_buffer_spec`` branch) or else each
 expert's d_ff / m (expert-TP); such a module's output is the rank's
 partial sum, which the block sums over the model group (``models.lm``).
+Decode on such a model (``attention_decode`` and
+``cross_attention_decode`` with ``axis``) gathers the new token's q, k
+and v to every head, attends over the rank's block of the cache's
+sequence slots and merges the ranks' partial softmaxes
+(``parallel.tensor.merge_softmax``), then multiplies the rank's heads'
+(or flat columns') rows of wo.
 The MoE's router, top-k, capacity and aux loss stay replicated and equal
 to ``repro``'s; under EP each rank fills only its experts' rows of the
 dispatch buffer and takes only their picks in the combine. Not ported:
@@ -154,61 +160,139 @@ def attention_train(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     return par.local_chunk(o, tp, -1) @ p["wo"], (k, v)
 
 
+def project_gathered(ys, widths, tp=None) -> list:
+    """The products ``ys`` with all their ``widths`` columns: those that
+    hold this rank's block of a flat column split over ``tp`` (fewer
+    columns than their width) gathered in ONE all-gather a dtype
+    (``parallel.tensor.gather_last``; no gradient: decode), the whole ones
+    as they are."""
+    ys = list(ys)
+    part = [i for i, (y, n) in enumerate(zip(ys, widths)) if y.shape[-1] != n]
+    for dt in dict.fromkeys(ys[i].dtype for i in part):
+        same = [i for i in part if ys[i].dtype == dt]
+        for i, y in zip(same, par.gather_last([ys[i] for i in same], tp)):
+            ys[i] = y
+    return ys
+
+
+def decode_qkv(p, x, n_heads, n_kv_heads, head_dim, tp=None):
+    """The new token's q (B, Hq, 1, Dh), k and v (B, Hkv, 1, Dh) at every
+    head from x (B, 1, D): the products that ``tp`` splits (by heads or
+    flat columns) gathered in ONE all-gather (``parallel.tensor.
+    gather_last``), those it leaves whole as they are. ``p`` without wk
+    gives q alone (cross-attention)."""
+    B = x.shape[0]
+    names = [(w, b, n) for w, b, n in (("wq", "bq", n_heads),
+                                       ("wk", "bk", n_kv_heads),
+                                       ("wv", "bv", n_kv_heads)) if w in p]
+    ys = []
+    for w, b, _ in names:
+        y = x @ p[w]
+        ys.append(y if p.get(b) is None else y + p[b])
+    ys = project_gathered(ys, [n * head_dim for _, _, n in names], tp)
+    return [y.reshape(B, 1, n, head_dim).transpose(1, 2)
+            for y, (_, _, n) in zip(ys, names)]
+
+
+def split_kv_attention(q, cache_k, cache_v, valid, head_dim: int, axis):
+    """One token's attention over the cache slots this rank holds, merged
+    over the model ``axis`` (``parallel.tensor.merge_softmax``; None: the
+    rank holds the whole sequence): q (B, Hq, 1, Dh) at every head,
+    cache_k/v (B, Hkv, n, Dh), ``valid`` (n,) the live slots (None: all).
+    Returns the f32 output (B, Hq, 1, Dh)."""
+    group = q.shape[1] // cache_k.shape[1]
+    kf = torch.repeat_interleave(cache_k.float(), group, dim=1)
+    vf = torch.repeat_interleave(cache_v.float(), group, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) \
+        / (head_dim ** 0.5)
+    if valid is not None:
+        scores = torch.where(valid[None, None, None, :], scores, -1e30)
+    if axis is None or axis.size == 1:      # the whole sequence: one softmax
+        return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, -1), vf)
+    mx = scores.amax(-1)
+    e = torch.exp(scores - mx[..., None])
+    return par.merge_softmax(mx, e.sum(-1),
+                             torch.einsum("bhqk,bhkd->bhqd", e, vf), axis)
+
+
+def _slots(cache_k, seq: int, axis):
+    """(first, count) of the rank's slots of a cache of ``seq``
+    (``parallel.tensor.cache_slots``), checked against what it holds."""
+    first, n = par.cache_slots(seq, axis)
+    if cache_k.shape[2] != n:
+        raise ValueError(f"this rank's cache holds {cache_k.shape[2]} slots"
+                         f", not the {n} of a cache of {seq} over a model "
+                         f"axis of {axis.size if axis else 1}")
+    return first, n
+
+
+def _merged_out(p, q, cache_k, cache_v, valid, seq: int, tp, axis, dtype):
+    """q's attention over the rank's slots, merged over ``axis`` unless
+    the rank holds all ``seq`` of them, cast to ``dtype``; then the rank's
+    heads' (or flat columns') rows of wo: its partial sum where ``tp``
+    splits, else the whole output."""
+    B, H, _, Dh = q.shape
+    o = split_kv_attention(q, cache_k, cache_v, valid, Dh,
+                           axis if cache_k.shape[2] != seq else None)
+    o = o.to(dtype).transpose(1, 2).reshape(B, 1, H * Dh)
+    return par.local_chunk(o, tp, -1) @ p["wo"]
+
+
 def attention_decode(p, x, cache_k, cache_v, pos: int, *, n_heads,
-                     n_kv_heads, head_dim, rope_theta, window: int = 0):
+                     n_kv_heads, head_dim, rope_theta, window: int = 0,
+                     seq: int = None, tp=None, axis=None):
     """Single-token decode against a KV cache, plain PyTorch (``repro``
     computes it outside any kernel too).
 
-    x: (B, 1, D); cache_k/v: (B, Hkv, S, Dh); pos: the position of the new
-    token. Its k/v are written IN PLACE at slot min(pos, S - 1), or
-    pos % S for a sliding-window ring cache, where ``repro`` returns a
-    new cache. Returns (out, cache_k, cache_v).
+    x: (B, 1, D); cache_k/v: (B, Hkv, n, Dh), the slots
+    ``parallel.tensor.cache_slots(seq, axis)`` of a cache of ``seq``
+    (default n: the whole cache); pos: the position of the new token,
+    whose k/v are written IN PLACE at slot min(pos, seq - 1), or pos % seq
+    for a sliding-window ring cache, by the rank holding it, where
+    ``repro`` returns a new cache. On a model split over the model
+    ``axis`` (n_heads / n_kv_heads the whole counts, ``tp`` the axis of
+    wq's split or None) the new token's q, k and v are gathered to every
+    head (``decode_qkv``), every rank attends over its slots for every
+    head, their live mask from the slots' global indices (a ring wraps
+    across the ranks), the partials merge over the axis, and the rank's
+    rows of wo give its partial sum. Returns (out, cache_k, cache_v).
     """
-    B = x.shape[0]
-    S = cache_k.shape[2]
-    q, k, v = project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    seq = seq or cache_k.shape[2]
+    first, n = _slots(cache_k, seq, axis)
+    q, k, v = decode_qkv(p, x, n_heads, n_kv_heads, head_dim, tp)
     if rope_theta > 0:
         posv = torch.full((1,), pos, device=x.device)   # no host copy
         q = apply_rope(q, posv, rope_theta)
         k = apply_rope(k, posv, rope_theta)
-    slot = pos % S if window > 0 else min(pos, S - 1)
-    cache_k[:, :, slot] = k[:, :, 0].to(cache_k.dtype)
-    cache_v[:, :, slot] = v[:, :, 0].to(cache_v.dtype)
-
-    group = n_heads // n_kv_heads
-    kpos = torch.arange(S, device=x.device)
+    slot = (pos % seq if window > 0 else min(pos, seq - 1)) - first
+    if 0 <= slot < n:
+        cache_k[:, :, slot] = k[:, :, 0].to(cache_k.dtype)
+        cache_v[:, :, slot] = v[:, :, 0].to(cache_v.dtype)
+    kpos = torch.arange(first, first + n, device=x.device)
     valid = kpos <= pos
-    if window > 0 and pos >= S:       # ring cache: all slots live once full
+    if window > 0 and pos >= seq:     # ring cache: all slots live once full
         valid = torch.ones_like(valid)
-    qf = q.float()
-    kf = torch.repeat_interleave(cache_k.float(), group, dim=1)
-    vf = torch.repeat_interleave(cache_v.float(), group, dim=1)
-    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) / (head_dim ** 0.5)
-    scores = torch.where(valid[None, None, None, :], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(x.dtype)
-    o = o.transpose(1, 2).reshape(B, 1, n_heads * head_dim)
-    return o @ p["wo"], cache_k, cache_v
+    return _merged_out(p, q, cache_k, cache_v, valid, seq, tp, axis,
+                       x.dtype), cache_k, cache_v
 
 
 def cross_attention_decode(p, x, cross_k, cross_v, *, n_heads, n_kv_heads,
-                           head_dim, **_):
+                           head_dim, seq: int = None, tp=None, axis=None,
+                           **_):
     """One token's cross-attention over the cached k and v of the encoder
     output, plain PyTorch with an f32 softmax (``repro``'s ``xattn``
     step of ``_block_decode``; no kernel, no mask, no rope, no bias).
-    x: (B, 1, D); cross_k/v: (B, Hkv, Se, Dh). Returns (B, 1, D)."""
-    B = x.shape[0]
-    q = (x @ p["wq"]).reshape(B, 1, n_heads, head_dim).transpose(1, 2)
-    group = n_heads // n_kv_heads
-    scores = torch.einsum(
-        "bhqd,bhkd->bhqk", q.float(),
-        torch.repeat_interleave(cross_k.float(), group, dim=1)) \
-        / (head_dim ** 0.5)
-    probs = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", probs,
-                     torch.repeat_interleave(cross_v.float(), group, dim=1))
-    o = o.to(x.dtype).transpose(1, 2).reshape(B, 1, n_heads * head_dim)
-    return o @ p["wo"]
+    x: (B, 1, D); cross_k/v: (B, Hkv, n, Dh), the slots
+    ``parallel.tensor.cache_slots(seq, axis)`` of the ``seq`` frames
+    (default n: all of them). Returns (B, 1, D). On a model split over
+    ``axis`` (n_heads, n_kv_heads the whole counts, ``tp`` wq's split or
+    None) q is gathered to every head, attends over the rank's frames,
+    the partials merge, and the rank's rows of wo give its partial sum."""
+    seq = seq or cross_k.shape[2]
+    _slots(cross_k, seq, axis)
+    q, = decode_qkv({"wq": p["wq"]}, x, n_heads, n_kv_heads, head_dim, tp)
+    return _merged_out(p, q, cross_k, cross_v, None, seq, tp, axis,
+                       x.dtype)
 
 
 class Attention(nn.Module):
@@ -239,6 +323,7 @@ class Attention(nn.Module):
                 f"({nq}): the port runs no such attention")
         self.heads = self.tp is None or (n_heads % m == 0
                                          and n_kv_heads % m == 0)
+        whole = dict(n_heads=n_heads, n_kv_heads=n_kv_heads)
         self.partial = ()
         if self.tp is not None:
             nq //= m
@@ -253,6 +338,9 @@ class Attention(nn.Module):
         self.shape = dict(n_heads=n_heads, n_kv_heads=n_kv_heads,
                           head_dim=head_dim, rope_theta=rope_theta,
                           window=window)
+        # decode's: the whole heads, wq's split and the model axis
+        self.decode_shape = dict(self.shape, **whole, tp=self.tp,
+                                 axis=tp if m > 1 else None)
         self.wq = empty_param((d_model, nq), dtype, device)
         self.wk = empty_param((d_model, nkv), dtype, device)
         self.wv = empty_param((d_model, nkv), dtype, device)
@@ -274,13 +362,15 @@ class Attention(nn.Module):
         return attention_train(self.params(), x, causal=self.causal,
                                kv_override=kv, tp=self.flat(), **self.shape)
 
-    def decode(self, x, cache_k, cache_v, pos: int):
+    def decode(self, x, cache_k, cache_v, pos: int, seq: int = None):
+        """One token (``attention_decode``); on a split model cache_k/v
+        are the rank's slots of a cache of ``seq``."""
         return attention_decode(self.params(), x, cache_k, cache_v, pos,
-                                **self.shape)
+                                seq=seq, **self.decode_shape)[0]
 
-    def cross_decode(self, x, cross_k, cross_v):
+    def cross_decode(self, x, cross_k, cross_v, seq: int = None):
         return cross_attention_decode(self.params(), x, cross_k, cross_v,
-                                      **self.shape)
+                                      seq=seq, **self.decode_shape)
 
 
 # ---------------------------------------------------------------------------

@@ -84,10 +84,17 @@ hymba-smoke's at m = 8) runs on the gathered sequence and keeps its
 rank's positions. A
 split vocabulary embeds the rank's rows (zero elsewhere) and sums, and
 the loss is a vocab-parallel cross entropy (the max and the sums over
-the model group; the gold logit ``repro``'s masked reduction). A model
-on a model axis of m > 1 trains; it does not decode (the server runs on
-one rank), and its ``forward`` logits are its rank's vocabulary columns
-where the vocabulary is split.
+the model group; the gold logit ``repro``'s masked reduction), while
+``forward`` and ``prefill`` gather the vocabulary's column blocks to all
+V logits on every rank. A split model serves too: ``init_cache(...,
+axis=, data=)`` allocates a rank's shares of the cache under ``repro``'s
+decode rule (:func:`shard_cache`: the KV and cross caches' sequence
+split over the model axis where it divides, the recurrent states whole,
+the batch over the data axis where it divides), and
+``decode_step`` runs split-KV attention over the rank's slots, the
+recurrent mixers on their heads or flat columns, each split mixer's
+partial output summed over the model group, and with ``data=`` an MoE
+routing the data group's tokens as one.
 """
 from __future__ import annotations
 
@@ -101,8 +108,10 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
+from repro_torch.parallel import sharding
 from repro_torch.parallel import tensor as par
 
 REMAT = ("none", "full", "dots")
@@ -168,14 +177,17 @@ def sinusoid(positions, d: int):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def cross_kv(xattn: L.Attention, enc_out):
+def cross_kv(xattn: L.Attention, enc_out, every_head: bool = False):
     """``repro``'s ``_cross_kv``: the encoder output (B, Se, D) projected
     by ``xattn``'s wk and wv to k and v (B, Hkv, Se, Dh), no rope (of a
-    flat column split, gathered to the whole heads); both are transposed
+    flat column split, gathered to the whole heads; ``every_head``: of a
+    split by heads too, the decode cache's layout); both are transposed
     views of the projections."""
     B, Se, _ = enc_out.shape
-    Hkv, Hd = xattn.shape["n_kv_heads"], xattn.shape["head_dim"]
-    k, v = (L.project(enc_out, w, Hkv * Hd, xattn.flat())
+    Hd = xattn.shape["head_dim"]
+    Hkv, tp = (xattn.decode_shape["n_kv_heads"], xattn.tp) if every_head \
+        else (xattn.shape["n_kv_heads"], xattn.flat())
+    k, v = (L.project(enc_out, w, Hkv * Hd, tp)
             .reshape(B, Se, Hkv, Hd).transpose(1, 2)
             for w in (xattn.wk, xattn.wv))
     return k, v
@@ -241,6 +253,7 @@ class Block(nn.Module):
                 self.mlp = L.MLP(D, arch.d_ff, dt, device, arch.mlp_type,
                                  arch.act, tp=tp)
         if arch.is_encdec and not encoder:
+            self.cross_len = arch.encoder_seq
             self.norm_x = L.RMSNorm(D, dt, device)
             self.xattn = L.Attention(D, arch.n_heads, arch.n_kv_heads,
                                      arch.head_dim_, False, 0.0, dt, device,
@@ -317,34 +330,52 @@ class Block(nn.Module):
         f, aux = self._ffn(x, sp, dp)
         return x + f, aux
 
-    def decode(self, x, cache: Dict[str, List], i: int, pos: int):
+    def _step(self, mod, method: str, h, *args, **kw):
+        """(the output of ``mod.<method>`` on one token as the stream
+        holds it, the new state or None): a split mixer enters through
+        ``copy_to`` and its partial output is summed (:meth:`_leave`, no
+        SP at decode)."""
+        if getattr(mod, "tp", None) is not None:
+            h = par.copy_to(h, self.tp)
+        y = getattr(mod, method)(h, *args, **kw)
+        y, state = (y, None) if torch.is_tensor(y) else y
+        return self._leave(y, mod, False), state
+
+    def decode(self, x, cache: Dict[str, List], i: int, pos: int,
+               seq: int = None, dp=None):
         """One token through the block against layer ``i``'s entries of
-        ``cache``, which are updated in place."""
+        ``cache``, which are updated in place. On a split model ``seq``
+        is the whole length of the layer's KV cache (the rank holds its
+        slots, ``parallel.tensor.cache_slots``); ``dp``: the data axis
+        whose ranks' tokens the MoE routes together."""
         h = self.norm1(x)
         if self.kind == "mlstm":
-            a, (state, norm) = self.mlstm.step(
-                h, cache["mlstm_state"][i], cache["mlstm_norm"][i])
+            a, (state, norm) = self._step(self.mlstm, "step", h,
+                                          cache["mlstm_state"][i],
+                                          cache["mlstm_norm"][i])
             cache["mlstm_state"][i].copy_(state)
             cache["mlstm_norm"][i].copy_(norm)
             return x + a
         if self.kind == "slstm":
-            a, state = self.slstm.step(h, tuple(cache[n][i]
-                                                for n in SLSTM_STATE))
+            a, state = self._step(self.slstm, "step", h,
+                                  tuple(cache[n][i] for n in SLSTM_STATE))
             for n, s in zip(SLSTM_STATE, state):
                 cache[n][i].copy_(s)
             return x + a
         if self.kind in ATTENTION_KINDS:
-            a, _, _ = self.attn.decode(h, cache["k"][i], cache["v"][i], pos)
+            a, _ = self._step(self.attn, "decode", h, cache["k"][i],
+                              cache["v"][i], pos, seq=seq)
         if self.kind in SSM_KINDS:
-            s, state = self.ssm.step(h, cache["ssm_state"][i])
+            s, state = self._step(self.ssm, "step", h,
+                                  cache["ssm_state"][i])
             cache["ssm_state"][i].copy_(state)
             a = 0.5 * (a + s) if self.kind == "hybrid" else s
         x = x + a
         if hasattr(self, "xattn"):
-            x = x + self.xattn.cross_decode(self.norm_x(x),
-                                            cache["cross_k"][i],
-                                            cache["cross_v"][i])
-        return x + self._ffn(x)[0]
+            x = x + self._step(self.xattn, "cross_decode", self.norm_x(x),
+                               cache["cross_k"][i], cache["cross_v"][i],
+                               seq=self.cross_len)[0]
+        return x + self._ffn(x, dp=dp)[0]
 
 
 class Encoder(nn.Module):
@@ -450,9 +481,12 @@ class LM(nn.Module):
         return x
 
     def _logits(self, x):
+        """All V logits of x: of a split vocabulary, the ranks' column
+        blocks gathered over the model group (``gather_cols``)."""
         x = self.final_norm(x)
         unembed = self.embed.T if self.arch.tie_embeddings else self.unembed
-        return x @ unembed
+        y = x @ unembed
+        return par.gather_cols(y, self.axis) if self.vocab_split else y
 
     def _hidden(self, tokens, extras=None, remat: str = "none",
                 sp: bool = False, dp=None):
@@ -508,29 +542,44 @@ class LM(nn.Module):
         each decoder layer's cross-attention k and v of its output
         (``cross_kv``) into ``cache["cross_k"]`` / ``["cross_v"]`` IN
         PLACE: what ``repro``'s ``decode_step`` reads from
-        ``cache["cross"]``. Returns ``cache``."""
+        ``cache["cross"]``. On a split model the encoder runs whole on
+        every rank, as in training, and the rank writes every head of its
+        frame slots (``parallel.tensor.cache_slots``); ``frames`` are the
+        cache's batch rows. Returns ``cache``."""
         enc_out = self.encoder(torch.as_tensor(frames,
                                                device=self.embed.device))
+        first, n = par.cache_slots(enc_out.shape[1], self.axis)
         for i, blk in enumerate(self.layers):
-            k, v = cross_kv(blk.xattn, enc_out)
-            cache["cross_k"][i].copy_(k)
-            cache["cross_v"][i].copy_(v)
+            k, v = cross_kv(blk.xattn, enc_out, every_head=True)
+            cache["cross_k"][i].copy_(k[:, :, first:first + n])
+            cache["cross_v"][i].copy_(v[:, :, first:first + n])
         return cache
 
     def decode_step(self, tokens, cache: Dict[str, List[torch.Tensor]],
-                    pos: int):
+                    pos: int, data=None):
         """One decode step: tokens (B, 1) at position ``pos`` against
         ``cache`` (from ``init_cache``), which is updated IN PLACE; an
         MoE layer routes the B tokens together; an encoder-decoder arch's
         layers attend to their ``cross_k`` / ``cross_v``. Returns (logits
-        (B, 1, V), cache). One rank only: a model on a model axis of m >
-        1 raises."""
+        (B, 1, V), cache). On a model axis of m > 1 ``cache`` is the
+        rank's (``init_cache(..., axis=)`` or :func:`shard_cache`), the
+        logits all V on every rank. ``data``: the data
+        axis (``parallel.tensor.Axis``) over whose ranks the batch is
+        split, whose tokens an MoE layer routes as one, as ``repro``'s
+        jitted step routes its global batch."""
+        seq = None
         if self.axis is not None:
-            raise ValueError("decode runs on one rank: this model is split "
-                             f"over a model axis of {self.axis.size}")
+            seq = getattr(cache, "seq_len", None)
+            if seq is None:
+                raise ValueError(
+                    "a model split over a model axis decodes against a "
+                    "rank's cache from init_cache(..., axis=) or "
+                    "shard_cache")
+        dp = data if data is not None and data.size > 1 else None
         x = self._embed(tokens, pos0=pos, prefix=False)
         for i, blk in enumerate(self.layers):
-            x = blk.decode(x, cache, i, pos)
+            x = blk.decode(x, cache, i, pos, seq and cache_len(
+                self.arch, blk.kind, seq), dp)
         return self._logits(x), cache
 
 
@@ -661,8 +710,15 @@ def init_params(arch: ArchConfig, seed: int = 0, device="cuda",
     return model
 
 
+class Cache(dict):
+    """A decode cache, {entry: one tensor a layer or None}, that knows the
+    ``seq_len`` it was made for (a split model's rank reads its slots'
+    place in the whole sequence from it)."""
+    seq_len = None
+
+
 def init_cache(arch: ArchConfig, batch: int, seq_len: int,
-               device="cuda") -> Dict[str, List]:
+               device="cuda", axis=None, data=None) -> Cache:
     """The decode cache (``repro``'s ``cache_specs``, allocated, zeros on
     ``device``): {entry: a list with one tensor a layer, None for a layer
     without the entry}, over the entries the arch's kinds carry: "k" and
@@ -674,14 +730,24 @@ def init_cache(arch: ArchConfig, batch: int, seq_len: int,
     H, dh), dh = d_model / H; for an encoder-decoder arch, "cross_k" and
     "cross_v" (B, Hkv, encoder_seq, head_dim) in the config dtype on every
     layer (``repro``'s ``cache["cross"]``; ``LM.fill_cross_cache`` fills
-    them)."""
+    them). With a model ``axis`` or a ``data`` axis
+    (``parallel.tensor.Axis``), a rank's shares of that cache under
+    ``repro``'s decode rule (:func:`shard_cache`)."""
     check_ported(arch)
     dev = resolve_device(device)
+    if any(a is not None and a.size > 1 for a in (axis, data)):
+        whole = init_cache(arch, batch, seq_len, "meta")
+        out = shard_cache(whole, axis, data)
+        for layers in out.values():
+            layers[:] = [None if t is None else torch.zeros(
+                t.shape, dtype=t.dtype, device=dev) for t in layers]
+        return out
     H, Hd = arch.n_heads, arch.head_dim_
     Hs = arch.ssm_heads or H
     dh = arch.d_model // H
     f32 = torch.float32
-    cache: Dict[str, List] = {}
+    cache = Cache()
+    cache.seq_len = seq_len
     for i in range(arch.n_layers):
         kind = arch.block_at(i)
         shapes = {}
@@ -705,6 +771,35 @@ def init_cache(arch: ArchConfig, batch: int, seq_len: int,
             cache.setdefault(name, [None] * arch.n_layers)[i] = torch.zeros(
                 shape, dtype=dtype, device=dev)
     return cache
+
+
+def shard_cache(cache: Cache, axis=None, data=None) -> Cache:
+    """A rank's decode cache cut from a whole ``cache`` (``init_cache``'s,
+    of its ``seq_len``): each tensor's block under ``repro``'s decode
+    specs (``sharding.batch_partition_specs``) sanitized on the (data,
+    model) grid of ``data`` and the model ``axis``
+    (``parallel.tensor.Axis``): the batch over 'data', the KV and cross
+    caches' sequence over 'model', the recurrent states' other dims
+    whole; a contiguous copy. The cache's counterpart of
+    ``parallel.tensor.shard_model``, equal in layout to
+    ``init_cache(..., axis, data)``."""
+    mesh = make_mesh(tuple(a.size if a is not None else 1
+                           for a in (data, axis)), ("data", "model"))
+    specs = sharding.batch_partition_specs({"cache": cache}, mesh,
+                                           "decode")["cache"]
+    parts = {"model": axis, "data": data}
+    out = Cache()
+    out.seq_len = cache.seq_len
+    for name, layers in cache.items():
+        held = []
+        for t, spec in zip(layers, specs[name]):
+            for d, part in enumerate(spec if t is not None else ()):
+                if part in parts:
+                    t = par.cut(t, d, parts[part])
+            held.append(None if t is None else t.clone(
+                memory_format=torch.contiguous_format))
+        out[name] = held
+    return out
 
 
 def param_specs(arch: ArchConfig, axis=None) -> LM:

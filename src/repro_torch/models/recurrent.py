@@ -33,7 +33,12 @@ whole leaves), else by flat columns (the products gathered to the whole
 heads, the recurrence whole on every rank, the rank's columns of its
 output kept for its rows of ``wo``). The output is the rank's partial
 sum; ``partial`` names the whole leaves, whose gradient on a rank is its
-part (``parallel.tensor.tp_partial``).
+part (``parallel.tensor.tp_partial``). A step (decode) takes the whole f32
+state, which ``repro``'s spec replicates over the model axis, and
+returns the whole new state on every rank: by heads the rank updates its
+heads' slice and the slices are gathered in one all-gather for all the
+mixer's state tensors (``parallel.tensor.gather_heads``); by flat columns
+every rank updates the whole state from the gathered products.
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import act_fn, empty_param, project
+from repro_torch.models.layers import (act_fn, empty_param, project,
+                                       project_gathered)
 from repro_torch.parallel import tensor as par
 
 _GATES = ("z", "i", "f", "o")
@@ -176,23 +182,51 @@ def _inputs(module, dims):
     return p, None if module.heads else module.tp
 
 
+def _products(x, p, cols, tp, packed: bool) -> list:
+    """x @ p[w] with all n columns for each (w, n) of ``cols``, x cast to
+    the weight's dtype (the mLSTM's f32 gates take the f32 input): a flat
+    column split's products gathered one by one (``layers.project``, with
+    a gradient), or, ``packed`` (a decode step), in one all-gather a
+    dtype (``layers.project_gathered``)."""
+    ins = [x.to(p[w].dtype) for w, _ in cols]
+    if not packed:
+        return [project(xi, p[w], n, tp) for xi, (w, n) in zip(ins, cols)]
+    return project_gathered([xi @ p[w] for xi, (w, _) in zip(ins, cols)],
+                            [n for _, n in cols], tp)
+
+
+def _own(module) -> slice:
+    """The slice of a whole state's heads (dim 1) that this rank's step
+    updates: its heads in the heads form of a split mixer, else all."""
+    if module.tp is None or not module.heads:
+        return slice(None)
+    h = module.shape["n_heads"]
+    return slice(module.tp.index * h, (module.tp.index + 1) * h)
+
+
+def _whole(module, states) -> list:
+    """The whole new states from each rank's slices (the heads form of a
+    split mixer: one all-gather), else ``states`` as they are."""
+    if module.tp is None or not module.heads:
+        return list(states)
+    return par.gather_heads(states, module.tp)
+
+
 # ---------------------------------------------------------------------------
 # Mamba-style SSM heads (alone in ``mamba_mlp``, beside attention in hymba)
 # ---------------------------------------------------------------------------
 
-def _ssm_qkva(p, x, n_heads: int, dk: int, dv: int, tp=None):
+def _ssm_qkva(p, x, n_heads: int, dk: int, dv: int, tp=None,
+              packed: bool = False):
     """q, k (B, H, S, dk), v (B, H, S, dv) and log a (B, H, S) =
     log sigmoid(x w_decay + b_decay), the last in f32; ``tp``: the model
-    axis of a flat column split (``layers.project`` gathers)."""
+    axis of a flat column split, ``packed``: see ``_products``."""
     B, S, _ = x.shape
-
-    def heads(w, d):
-        return project(x, p[w], n_heads * d, tp).reshape(
-            B, S, n_heads, d).transpose(1, 2)
-
+    q, k, v = (y.reshape(B, S, n_heads, -1).transpose(1, 2) for y in
+               _products(x, p, (("wq", n_heads * dk), ("wk", n_heads * dk),
+                                ("wv", n_heads * dv)), tp, packed))
     la = F.logsigmoid(x.float() @ p["w_decay"] + p["b_decay"])
-    return (heads("wq", dk), heads("wk", dk), heads("wv", dv),
-            la.transpose(1, 2))
+    return q, k, v, la.transpose(1, 2)
 
 
 def ssm_heads_train(p, x, *, n_heads: int, dk: int, dv: int = None,
@@ -211,15 +245,19 @@ def ssm_heads_train(p, x, *, n_heads: int, dk: int, dv: int = None,
     return (o * gate) @ p["wo"], state
 
 
-def ssm_heads_step(p, x, state, *, n_heads: int, dk: int):
-    """One token: x (B, 1, D), state (B, H, dk, D / H). Returns (out,
-    state')."""
+def ssm_heads_step(p, x, state, *, n_heads: int, dk: int, dv: int = None,
+                   tp=None):
+    """One token: x (B, 1, D), state (B, H, dk, dv) (dv = D / H by
+    default). Returns (out, state'). ``tp``: the model axis of a flat
+    column split (see ``ssm_heads_train``)."""
     B, _, D = x.shape
-    q, k, v, la = _ssm_qkva(p, x, n_heads, dk, D // n_heads)
+    dv = dv or D // n_heads
+    q, k, v, la = _ssm_qkva(p, x, n_heads, dk, dv, tp, packed=True)
     o, state, _ = gla_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], la[:, :, 0],
                            state)
+    o = par.local_chunk(o.reshape(B, 1, n_heads * dv), tp, -1)
     gate = act_fn("silu")(x @ p["w_gate"])
-    return (o.reshape(B, 1, D) * gate) @ p["wo"], state
+    return (o * gate) @ p["wo"], state
 
 
 class SSMHeads(nn.Module):
@@ -261,33 +299,37 @@ class SSMHeads(nn.Module):
         return ssm_heads_train(p, x, tp=tp, **self.shape)
 
     def step(self, x, state):
-        return ssm_heads_step(dict(self.named_parameters()), x, state,
-                              n_heads=self.shape["n_heads"],
-                              dk=self.shape["dk"])
+        """(out, the whole new state) of one token against the whole
+        state (B, H, dk, dv)."""
+        p, tp = _inputs(self, {"w_decay": -1, "b_decay": -1})
+        out, new = ssm_heads_step(p, x, state[:, _own(self)], tp=tp,
+                                  **self.shape)
+        return out, _whole(self, [new])[0]
 
 
 # ---------------------------------------------------------------------------
 # xLSTM: mLSTM (chunkwise parallel) and sLSTM (sequential)
 # ---------------------------------------------------------------------------
 
-def _mlstm_qkvifa(p, x, n_heads: int, dh: int, tp=None):
+def _mlstm_qkvifa(p, x, n_heads: int, dh: int, tp=None,
+                  packed: bool = False):
     """q / sqrt(dh), k times the input gate sigmoid(x w_i), v, each (B, H,
     S, dh), and log a = log sigmoid(x w_f + b_f) (B, H, S) in f32;
-    ``tp``: the model axis of a flat column split (``layers.project``
-    gathers)."""
+    ``tp``: the model axis of a flat column split, ``packed``: see
+    ``_products``."""
     B, S, _ = x.shape
+    wq, wk, wv, wi, wf = _products(
+        x, p, [(w, n_heads * dh) for w in ("wq", "wk", "wv")]
+        + [(w, n_heads) for w in ("w_i", "w_f")], tp, packed)
 
-    def heads(w):
-        return project(x, p[w], n_heads * dh, tp).reshape(
-            B, S, n_heads, dh).transpose(1, 2)
+    def heads(y):
+        return y.reshape(B, S, n_heads, dh).transpose(1, 2)
 
-    q = heads("wq") / (dh ** 0.5)
-    k = heads("wk")
-    v = heads("wv")
-    xf = x.float()
-    i_gate = torch.sigmoid(project(xf, p["w_i"], n_heads, tp)).transpose(1, 2)
-    la = F.logsigmoid(project(xf, p["w_f"], n_heads, tp)
-                      + p["b_f"]).transpose(1, 2)
+    q = heads(wq) / (dh ** 0.5)
+    k = heads(wk)
+    v = heads(wv)
+    i_gate = torch.sigmoid(wi).transpose(1, 2)
+    la = F.logsigmoid(wf + p["b_f"]).transpose(1, 2)
     return q, k * i_gate[..., None].to(k.dtype), v, la
 
 
@@ -306,15 +348,19 @@ def mlstm_train(p, x, *, n_heads: int, dh: int = None, chunk: int = 128,
     return (o * gate) @ p["wo"], (state, norm)
 
 
-def mlstm_step(p, x, state, norm, *, n_heads: int):
-    """One token: x (B, 1, D), state (B, H, dh, dh), norm (B, H, dh).
-    Returns (out, (state', norm'))."""
+def mlstm_step(p, x, state, norm, *, n_heads: int, dh: int = None,
+               tp=None):
+    """One token: x (B, 1, D), state (B, H, dh, dh), norm (B, H, dh) (dh =
+    D / H by default). Returns (out, (state', norm')). ``tp``: the model
+    axis of a flat column split."""
     B, _, D = x.shape
-    q, k, v, la = _mlstm_qkvifa(p, x, n_heads, D // n_heads)
+    dh = dh or D // n_heads
+    q, k, v, la = _mlstm_qkvifa(p, x, n_heads, dh, tp, packed=True)
     o, state, norm = gla_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
                               la[:, :, 0], state, norm, normalize=True)
+    o = par.local_chunk(o.reshape(B, 1, n_heads * dh), tp, -1)
     gate = act_fn("silu")(x @ p["w_gate"])
-    return (o.reshape(B, 1, D) * gate) @ p["wo"], (state, norm)
+    return (o * gate) @ p["wo"], (state, norm)
 
 
 class MLSTM(nn.Module):
@@ -350,18 +396,22 @@ class MLSTM(nn.Module):
         return mlstm_train(p, x, tp=tp, **self.shape)
 
     def step(self, x, state, norm):
-        return mlstm_step(dict(self.named_parameters()), x, state, norm,
-                          n_heads=self.shape["n_heads"])
+        """(out, (state', norm')) whole, as ``SSMHeads.step``."""
+        p, tp = _inputs(self, {"b_f": -1})
+        own = _own(self)
+        out, new = mlstm_step(p, x, state[:, own], norm[:, own], tp=tp,
+                              **self.shape)
+        return out, tuple(_whole(self, new))
 
 
-def _slstm_pre(p, x, n_heads: int, dh: int, tp=None):
+def _slstm_pre(p, x, n_heads: int, dh: int, tp=None, packed: bool = False):
     """The input pre-activations of the four gates, f32, laid out (S, H,
     B, 4 dh) (gates z, i, f, o side by side), so that a step's recurrent
     products add to them in one ``baddbmm``; ``tp``: the model axis of a
-    flat column split (``layers.project`` gathers)."""
+    flat column split, ``packed``: see ``_products``."""
     B, S, _ = x.shape
-    pre = [project(x, p[f"w_{g}"], n_heads * dh, tp).float().reshape(
-        B, S, n_heads, dh) for g in _GATES]
+    pre = [y.float().reshape(B, S, n_heads, dh) for y in _products(
+        x, p, [(f"w_{g}", n_heads * dh) for g in _GATES], tp, packed)]
     return torch.cat(pre, dim=-1).permute(1, 2, 0, 3).contiguous()
 
 
@@ -393,7 +443,7 @@ def slstm_scan(pre, r, state):
 
 
 def slstm_train(p, x, *, n_heads: int, dh: int = None, state0=None,
-                tp=None):
+                tp=None, packed: bool = False):
     """The sLSTM over x (B, S, D), step by step (its memory mixing has no
     parallel form, xLSTM Sec. 2), from ``state0`` = (c, n, h, m), each
     (B, H, dh) f32, or zeros (head width ``dh``, D / H by default).
@@ -402,7 +452,7 @@ def slstm_train(p, x, *, n_heads: int, dh: int = None, state0=None,
     meet its rows of wo."""
     B, S, D = x.shape
     dh = dh or D // n_heads
-    pre = _slstm_pre(p, x, n_heads, dh, tp)
+    pre = _slstm_pre(p, x, n_heads, dh, tp, packed)
     r = torch.cat([p[f"r_{g}"].float() for g in _GATES], dim=-1)
     if state0 is None:
         state = tuple(pre.new_zeros((n_heads, B, dh)) for _ in range(4))
@@ -415,9 +465,11 @@ def slstm_train(p, x, *, n_heads: int, dh: int = None, state0=None,
                                             for s in state)
 
 
-def slstm_step(p, x, state, *, n_heads: int):
-    """One token: the train path at S = 1."""
-    return slstm_train(p, x, n_heads=n_heads, state0=state)
+def slstm_step(p, x, state, *, n_heads: int, dh: int = None, tp=None):
+    """One token: the train path at S = 1 (a flat column split's
+    products gathered in one all-gather)."""
+    return slstm_train(p, x, n_heads=n_heads, dh=dh, state0=state, tp=tp,
+                       packed=True)
 
 
 class SLSTM(nn.Module):
@@ -449,5 +501,9 @@ class SLSTM(nn.Module):
         return slstm_train(p, x, tp=tp, **self.shape)
 
     def step(self, x, state):
-        return slstm_step(dict(self.named_parameters()), x, state,
-                          n_heads=self.shape["n_heads"])
+        """(out, (c, n, h, m)) whole, as ``SSMHeads.step``."""
+        p, tp = _inputs(self, {f"r_{g}": 0 for g in _GATES})
+        own = _own(self)
+        out, new = slstm_step(p, x, tuple(s[:, own] for s in state), tp=tp,
+                              **self.shape)
+        return out, tuple(_whole(self, new))

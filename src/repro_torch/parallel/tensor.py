@@ -71,6 +71,20 @@ A leaf that is whole on the model axis and used on the decoder's stream
 gradient of its rank's positions or heads only: :func:`sp_partial` names
 them, and the trainer sums their gradients over the model group once a
 step. The encoder runs without SP.
+
+Decode (``LM.decode_step`` on a split model) keeps ``repro``'s decode
+layout, ``batch_partition_specs`` sanitized on the rank's (data, model)
+grid (``models.lm.shard_cache``): a KV or cross-attention cache holds the
+rank's contiguous block of S / m sequence slots where m divides S
+(:func:`cache_slots`; else the whole sequence), its batch rows split over
+the data axis where D divides the batch, and the recurrent states whole
+on every rank of the model group. Each attention layer gathers the new
+token's q, k and v to every head (:func:`gather_last`, one all-gather),
+attends over the rank's slots, and merges the ranks' partial softmaxes
+(:func:`merge_softmax`: the max over the group, then one all-reduce of
+the rescaled sums); a recurrent mixer split by heads updates its heads'
+slice of the whole state and gathers the slices (:func:`gather_heads`,
+one all-gather for all its state tensors).
 """
 from __future__ import annotations
 
@@ -86,7 +100,8 @@ __all__ = ["Axis", "Grid", "build_grid", "copy_to", "reduce_from",
            "gather_seq", "scatter_seq", "gather_cols", "local_chunk",
            "gather_rows", "max_over", "scale_grad", "seq_split", "layout",
            "partition_specs", "sp_partial", "tp_partial", "full_shape",
-           "cut", "shard_model"]
+           "cut", "shard_model", "gather_last", "gather_heads",
+           "cache_slots", "merge_softmax"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -412,3 +427,66 @@ def shard_model(model, axis: Axis):
         for name, p in out.named_parameters():
             p.copy_(cut(whole[name], lay[name], axis))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Decode over the model axis
+# ---------------------------------------------------------------------------
+
+def gather_last(xs, axis: Optional[Axis]) -> list:
+    """The ranks' blocks of the last dim of each tensor of ``xs`` (the
+    same leading dims and dtype), gathered to the whole (..., m n_i) in
+    rank order in ONE all-gather of their concatenation (no gradient)."""
+    xs = list(xs)
+    if not _split(axis) or not xs:
+        return xs
+    widths = [x.shape[-1] for x in xs]
+    lead = xs[0].shape[:-1]
+    got = linalg.pall_gather(torch.cat(xs, -1).movedim(-1, 0), axis.group)
+    got = got.reshape((axis.size, sum(widths)) + tuple(lead))
+    return [g.reshape((-1,) + tuple(lead)).movedim(0, -1)
+            for g in got.split(widths, dim=1)]
+
+
+def gather_heads(xs, axis: Optional[Axis]) -> list:
+    """The ranks' slices of dim 1 (heads) of each tensor of ``xs`` (B, h,
+    ...) (one dtype; the same h on each), gathered to (B, m h, ...) in
+    rank order in ONE all-gather (no gradient): the slices of a recurrent
+    state that the ranks' heads updated."""
+    xs = list(xs)
+    if not _split(axis) or not xs:
+        return xs
+    h = xs[0].shape[1]
+    flat = [x.transpose(0, 1).reshape(h, -1) for x in xs]
+    widths = [f.shape[1] for f in flat]
+    got = linalg.pall_gather(torch.cat(flat, 1), axis.group)
+    got = got.reshape(axis.size * h, sum(widths))
+    return [g.reshape((axis.size * h, x.shape[0]) + tuple(x.shape[2:]))
+            .transpose(0, 1) for g, x in zip(got.split(widths, dim=1), xs)]
+
+
+def cache_slots(length: int, axis: Optional[Axis]) -> tuple:
+    """(first, count): the slots of a decode cache's sequence of
+    ``length`` that this rank holds under ``repro``'s split-KV rule,
+    sanitized: its contiguous block [i length / m, (i + 1) length / m)
+    where m divides ``length``, else all of them."""
+    if not _split(axis) or length % axis.size:
+        return 0, length
+    n = length // axis.size
+    return axis.index * n, n
+
+
+def merge_softmax(mx, total, o, axis: Optional[Axis]):
+    """The softmax-weighted output of attention split over the model
+    axis's sequence slots, from each rank's partial over its slots, in
+    f32: ``mx`` (...) the row max of its scores, ``total`` (...) the sum
+    of exp(s - mx), ``o`` (..., Dh) the sum of exp(s - mx) v.
+    The group's max M (:func:`max_over`), then one all-reduce of total
+    exp(mx - M) and o exp(mx - M) packed, then O / L. A rank whose slots
+    are all masked (scores -1e30) adds exp(-1e30 - M) = 0 of its sums."""
+    if not _split(axis):
+        return o / total[..., None]
+    scale = torch.exp(mx - max_over(mx, axis))[..., None]
+    sums = linalg.preduce(torch.cat([total[..., None] * scale, o * scale],
+                                    -1), axis.group, counted=False)
+    return sums[..., 1:] / sums[..., :1]

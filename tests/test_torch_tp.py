@@ -732,9 +732,13 @@ def test_shard_acts_needs_a_sequence_the_axis_divides():
         lm.train_loss(model, {"tokens": np.zeros((1, 7), np.int32),
                               "targets": np.zeros((1, 7), np.int32)},
                       shard_acts=True)
-    with pytest.raises(ValueError, match="decode runs on one rank"):
+    # a split model decodes (tests/test_torch_serve_tp.py) against a
+    # rank's shares of the cache, which know the whole sequence
+    mine = lm.init_cache(arch, 1, 8, "cpu", par.Axis(None, 2, 0))
+    assert mine.seq_len == 8 and mine["k"][0].shape[2] == 4
+    with pytest.raises(ValueError, match="decodes against a rank's cache"):
         model.decode_step(torch.zeros((1, 1), dtype=torch.long),
-                          lm.init_cache(arch, 1, 8, "cpu"), 0)
+                          dict(mine), 0)
 
 
 def test_dryrun_argument_bytes_at_1x2_are_a_ranks():

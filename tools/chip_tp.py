@@ -7,7 +7,9 @@ sequence parallelism in the trainer.
 Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds the kernels (one ``nvcc`` per source, together) and calls
 ``chip_smoke.phase_tp``: two gloo ranks sharing the card as one model
-group train tinyllama-1.1b (with sequence parallelism),
+group first serve the four archs below split over the model axis (phase
+21 (g): prefill and split-KV decode, each against one rank), then train
+tinyllama-1.1b (with sequence parallelism),
 granite-moe-1b-a400m (expert parallelism), hymba-1.5b (attention and SSM
 heads split by flat columns, with sequence parallelism) and xlstm-350m
 (mLSTM and sLSTM split by heads) at full width and depth, each against
