@@ -6284,9 +6284,8 @@ def phase_dryrun(smi: str):
 # read 5.694e-03 from one rank's (H100 80GB HBM3, 700 W), AdamW's first
 # steps amplifying bf16 rounding: its split is held exactly by (c) at f32
 # instead, at hymba's widths. Each rank of (e) runs the whole recurrence
-# and K5 at all heads, which the dry run's even split of one process's
-# temp does not see: its peak is held below one rank's, and its ratio to
-# the dry run's logged.
+# and K5 at all heads, which the dry run's count of the rank's own step
+# sees.
 #
 # (f) xlstm-350m at full width and depth, bf16, S 512 (the sLSTM's S
 # host-launched steps a layer make S 2048's backward cost minutes), global
@@ -6339,34 +6338,58 @@ TP_SERVE_F32_BAR = dict(prefill=1e-3, decode=1e-4)
 TP_BF16_BAR = 5e-3
 
 
-# The dry run's 1x2 cell of each of TP_FULL's runs, counted in a
-# subprocess at the lowest priority from the script's start: xlstm's (its
-# sLSTM's 12 x 512 steps a microbatch, forward and backward, op by op on
-# the meta device) costs minutes of host, spent beside the phases before
-# phase 21, which reads the cells (``tp_dry_cells``).
+# The dry run's cells of phase 21's runs, each a rank's own step counted
+# on the meta device (1x2 for TP_FULL's runs and (g)'s decode, 2x1 for
+# (d)'s FSDP), in two subprocesses at the lowest priority from the
+# script's start: xlstm's (its sLSTM's 12 x 512 steps a microbatch,
+# forward and backward, op by op on the meta device) costs minutes of
+# host, spent beside the phases before phase 21, which reads the cells
+# (``tp_dry_cells``). The subprocesses also keep the count's process
+# group (the ``fake`` backend's) out of the script's process.
 TP_DRY = {}
 
 
-def tp_dry_write(path: str) -> None:
-    """The dry run's 1x2 cells of TP_FULL's runs, {arch name: cell},
-    written to ``path`` as JSON (what the subprocess runs)."""
+def tp_dry_runs():
+    """{key: (arch name, run, mesh)} of the runs whose cells phase 21
+    reads: TP_FULL's at 1x2, and "fsdp", (d)'s at 2x1."""
+    from repro_torch.launch.mesh import make_mesh
+    runs = {name: (name, c, make_mesh((1, TP_M), ("data", "model")))
+            for name, c in TP_FULL.items()}
+    runs["fsdp"] = (TRAIN_ARCH, TP_FSDP,
+                    make_mesh((TP_M, 1), ("data", "model")))
+    return runs
+
+
+def tp_dry_write(path: str, keys: str) -> None:
+    """The dry run's cells of the phase 21 runs ``keys`` (comma-separated
+    keys of ``tp_dry_runs``), {key: its train cell, key + " decode": the
+    arch's 1x2 decode cell (TP_FULL's runs)}, each rank 0's, and rank 1's
+    of a run with shard_acts (key + " rank 1"), written to ``path`` as
+    JSON (what a subprocess runs). Only under shard_acts do a model
+    group's ranks run different shapes: the prefix rows (hymba's meta
+    tokens) sit on rank 0 and, with a vocabulary the axis does not split,
+    carry no logits there."""
     import dataclasses
     import torch
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_mesh
     torch.set_num_threads(1)
-    mesh = make_mesh((1, TP_M), ("data", "model"))
+    runs = tp_dry_runs()
     cells = {}
-    for name, c in TP_FULL.items():
+    for key in keys.split(","):
+        name, c, mesh = runs[key]
         shape = dataclasses.replace(SHAPES["train_4k"], global_batch=c["B"],
                                     seq_len=c["S"])
         # a cell of its own name: run_cell reads microbatches=1 as the
         # named cell's default (xlstm-350m's train_4k: 2)
-        cells[name] = dryrun.run_cell(
-            name, "phase 21", mesh=mesh, arch=get_config(name), shape=shape,
-            opts=dryrun.DryrunOptions(cost_fit=False, remat="none",
-                                      microbatches=c["k"]), verbose=False)
+        for r in range(TP_M if c["sp"] else 1):
+            cells[key + (f" rank {r}" if r else "")] = dryrun.run_cell(
+                name, "phase 21", mesh=mesh, arch=get_config(name),
+                shape=shape, opts=dryrun.DryrunOptions(
+                    cost_fit=False, remat="none", microbatches=c["k"],
+                    shard_acts=c["sp"]), verbose=False, rank=r)
+        if key == "fsdp":
+            continue
         # (g)'s decode at its batch and cache length
         shape = dataclasses.replace(SHAPES["decode_32k"],
                                     global_batch=TP_SERVE["B"],
@@ -6380,41 +6403,50 @@ def tp_dry_write(path: str) -> None:
 
 
 def tp_dry_start() -> None:
-    """Start ``tp_dry_write`` in a subprocess at nice 19 (once); it is
-    killed at exit if phase 21 never collects it."""
+    """Start ``tp_dry_write`` in two subprocesses at nice 19 (once): one
+    for xlstm-350m's cells (its sLSTM's steps, op by op on the meta
+    device, are most of the work), one for the rest, so the cells are
+    ready no later than xlstm's alone. They are killed at exit if phase
+    21 never collects them."""
     if TP_DRY:
         return
     import atexit
     import tempfile
-    fd, path = tempfile.mkstemp(prefix="phase21_dry_", suffix=".json")
-    os.close(fd)
     me = os.path.splitext(os.path.basename(__file__))[0]
-    proc = subprocess.Popen(
-        [sys.executable, "-c", f"import sys, {me}; "
-         f"{me}.tp_dry_write(sys.argv[1])", path],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [os.path.dirname(os.path.abspath(__file__)), SRC])),
-        preexec_fn=lambda: os.nice(19), stdout=subprocess.DEVNULL,
-        stderr=subprocess.PIPE, text=True)
-    TP_DRY.update(proc=proc, path=path, t0=time.perf_counter())
-    atexit.register(lambda: proc.poll() is None and proc.kill())
+    keys = list(TP_FULL) + ["fsdp"]
+    heavy = "xlstm-350m"
+    procs = []
+    for part in (heavy, ",".join(k for k in keys if k != heavy)):
+        fd, path = tempfile.mkstemp(prefix="phase21_dry_", suffix=".json")
+        os.close(fd)
+        proc = subprocess.Popen(
+            [sys.executable, "-c", f"import sys, {me}; "
+             f"{me}.tp_dry_write(sys.argv[1], sys.argv[2])", path, part],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [os.path.dirname(os.path.abspath(__file__)), SRC])),
+            preexec_fn=lambda: os.nice(19), stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        procs.append((proc, path))
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+    TP_DRY.update(procs=procs, t0=time.perf_counter())
 
 
 def tp_dry_cells() -> dict:
-    """Wait for the dry run's cells ({arch name: cell})."""
+    """Wait for the dry run's cells ({key: cell})."""
     tp_dry_start()
-    proc, path = TP_DRY["proc"], TP_DRY["path"]
     t0 = time.perf_counter()
-    _, err = proc.communicate(timeout=1200)
-    log(f"  the dry run's 1x2 cells (a subprocess at nice 19): done "
-        f"{time.perf_counter() - TP_DRY['t0']:.1f} s after its start, "
-        f"waited {time.perf_counter() - t0:.1f} s for")
-    if proc.returncode:
-        raise AssertionError(f"phase 21: the dry run's subprocess failed: "
-                             f"{err[-3000:]}")
-    with open(path) as f:
-        cells = json.load(f)
-    os.remove(path)
+    cells = {}
+    for proc, path in TP_DRY["procs"]:
+        _, err = proc.communicate(timeout=1200)
+        if proc.returncode:
+            raise AssertionError(f"phase 21: the dry run's subprocess "
+                                 f"failed: {err[-3000:]}")
+        with open(path) as f:
+            cells.update(json.load(f))
+        os.remove(path)
+    log(f"  the dry run's 1x2 and 2x1 cells (two subprocesses at nice 19): "
+        f"done {time.perf_counter() - TP_DRY['t0']:.1f} s after their "
+        f"start, waited {time.perf_counter() - t0:.1f} s for")
     return cells
 
 
@@ -6472,6 +6504,7 @@ def tp_routing(force=None):
     (its weights renormalised from its own probabilities), so that
     another model computes that run's routing."""
     import torch
+    from torch.utils._python_dispatch import _disable_current_modes
     from repro_torch.models import layers as L
     picks, real_route = [], L.moe_route
     forced = None
@@ -6480,7 +6513,10 @@ def tp_routing(force=None):
 
     def route(router, xf, top_k, dp=None):
         got = real_route(router, xf, top_k, dp)
-        probs = torch.softmax(xf.float() @ router, -1)
+        # the probabilities kept are this harness's product, not the
+        # model's: an open Recorder does not count it
+        with _disable_current_modes():
+            probs = torch.softmax(xf.float() @ router, -1)
         if forced is not None:
             tope = forced[len(picks)]
             topw = probs.gather(-1, tope)
@@ -6617,10 +6653,10 @@ def tp_serve(arch, model, group, S, B=1, force=None):
         again.seq_len = c["S"]
     rec = Recorder()
     decode, walls, picks = tp_decode(model, cache, dtoks, group, rec)
-    groups = rec.collectives_by_group()
     out.update(decode=decode, tokens=decode.argmax(-1), walls=walls,
                picks=picks, collectives={} if group is None else
-               groups.get(model.axis.group.group_name, {}))
+               tp_group(rec, model.axis.group),
+               decode_flops=sum(t.flops for t in rec.spans()))
     del cache
     force.setdefault("decode", picks)
     if again is not None:
@@ -6692,13 +6728,43 @@ def tp_routed_alike(arch, got, want):
     return torch.stack(rows), gap
 
 
+def tp_group(rec, group) -> dict:
+    """{kind: {"count", "bytes"}} of the collectives ``rec`` saw on
+    ``group`` (None: none), the dry run's ``collectives_by_axis``
+    layout: each kind's count and result bytes."""
+    if group is None:
+        return {}
+    return rec.collective_traffic().get(group.group_name, {})
+
+
+def tp_counts(kinds) -> dict:
+    """{kind: count} of ``tp_group``'s layout."""
+    return {kind: v["count"] for kind, v in kinds.items()}
+
+
+def tp_held_to_dry(got, cell) -> list:
+    """What differs between a rank's last step (``tp_full_run``'s
+    collectives by axis and FLOPs) and the dry run's cell of it (rank 0's
+    step on the meta device): [] when the collectives (each axis's kinds,
+    count and result bytes) and the FLOPs are equal, exactly."""
+    want = {a: k for a, k in cell["collectives_by_axis"].items() if k}
+    have = {a: k for a, k in got["collectives"].items() if k}
+    out = []
+    if have != want:
+        out.append(f"collectives {have} != the dry run's {want}")
+    if got["flops"] != cell["per_device"]["flops_macs"]:
+        out.append(f"FLOPs {got['flops']} != the dry run's "
+                   f"{cell['per_device']['flops_macs']}")
+    return out
+
+
 def tp_full_run(name, group, c=None, m=None, force=None):
     """One full-width path on this rank (``group``: the two ranks, or None
     for one process; ``c``: the run, TP_FULL[name] by default; ``m``: the
     model axis, TP_M on the two ranks by default, 1 for (d)'s FSDP):
     losses, step walls, launches, peak and argument bytes, counted
-    reductions, the last step's collectives by group, K5 on layer 0's
-    q/k/v."""
+    reductions, the last step's collectives by axis (``tp_group``'s
+    count and result bytes) and FLOPs, K5 on layer 0's q/k/v."""
     import torch
     from repro_torch.analysis.record import Recorder
     from repro_torch.configs import get_config
@@ -6758,19 +6824,16 @@ def tp_full_run(name, group, c=None, m=None, force=None):
                                  flash_attention.route_launches.items()})
     peak = measured_peak(before, resident)
     peak["peak"] = max(peak["peak"], build - peak["other"])
-    groups = rec.collectives_by_group()
     grid = tr.grid
-    by = {"data": groups.get(grid.data.group.group_name, {})
-          if grid.data.group is not None else {},
-          "model": groups.get(grid.model.group.group_name, {})
-          if grid.model.group is not None else {}}
     rows = c["B"] // grid.data.size          # the rank's tokens and targets
     out = {"losses": res["losses"], "walls": walls, "launches": got,
            "args": peak["args"] + 2 * rows * c["S"] * 4,
            "reductions": counted.n,
            "peak": peak["peak"], "other": peak["other"],
-           "collectives": by, "k5_shape": None, "k5_err": None,
-           "k5_ok": None,
+           "collectives": {"model": tp_group(rec, grid.model.group),
+                           "data": tp_group(rec, grid.data.group)},
+           "flops": sum(t.flops for t in rec.spans()),
+           "k5_shape": None, "k5_err": None, "k5_ok": None,
            "params": sum(p.numel() for p in tr.model.parameters()),
            "events": res["events"], "lost": res["lost"], "serve": served}
     del tr
@@ -6837,10 +6900,12 @@ def phase_tp(smi: str):
     """Phase 21: tensor, expert and sequence parallelism over two gloo
     ranks sharing the card (see TP_FULL, TP_F32): (a), (b), (e) and (f)
     at full width, with the dry run's 1x2 prediction of each rank's
-    argument bytes (exact) and peak (within phase 20's PEAK_RATIO), and
-    (c); then (d), FSDP over the two ranks as data 2 (TP_FSDP,
-    ``phase_tp_fsdp``); (g), their split serving before they train
-    (TP_SERVE, ``phase_tp_serve``)."""
+    argument bytes, its last step's FLOPs and collectives (by axis and
+    kind, count and result bytes; all exact) and its peak (within phase
+    20's PEAK_RATIO), and (c); then (d), FSDP over the two ranks as data
+    2 (TP_FSDP, ``phase_tp_fsdp``, held to the 2x1 cell the same way);
+    (g), their split serving before they train (TP_SERVE,
+    ``phase_tp_serve``)."""
     import tempfile
     import torch
     from repro_torch.configs import get_config
@@ -6880,15 +6945,11 @@ def phase_tp(smi: str):
                                weights_only=False) for r in range(TP_M)}
         log(f"  {TP_M} ranks done in {time.perf_counter() - t1:.1f} s")
     cells = tp_dry_cells()
+    failed = []
     for name, c in TP_FULL.items():
         arch = get_config(name)
         part = c["part"]
         want = one[name]["losses"]
-        cell = cells[name]
-        if cell["status"] != "ok":
-            raise AssertionError(f"phase 21 {part}: the dry run failed: "
-                                 f"{cell.get('traceback')}")
-        mem = cell["memory"]
         layers, k = arch.n_layers, c["k"]
         log(f"  {part} {name}: full width and depth ({layers} layers, "
             f"{arch.dtype}), S {c['S']}, global batch {c['B']} in {k} "
@@ -6906,10 +6967,15 @@ def phase_tp(smi: str):
                   for i in range(layers)) * k * c["steps"]
         heads = arch.n_heads // TP_M if arch.n_heads % TP_M == 0 \
             and arch.n_kv_heads % TP_M == 0 else arch.n_heads
-        flat = heads == arch.n_heads      # mixers split by flat columns
         for r in range(TP_M):
             got = ranks[r][name]
             rel = tp_rel(got["losses"], want)
+            # the rank's own cell, where the ranks' steps differ (SP)
+            cell = cells.get(f"{name} rank {r}", cells[name])
+            if cell["status"] != "ok":
+                raise AssertionError(f"phase 21 {part}: the dry run "
+                                     f"failed: {cell.get('traceback')}")
+            mem = cell["memory"]
             ratio = mem["total_bytes"] / got["peak"]
             log(f"    rank {r}: losses "
                 f"{' '.join(f'{x:.4f}' for x in got['losses'])} (max rel to "
@@ -6918,15 +6984,17 @@ def phase_tp(smi: str):
                 f"{got['params']} parameters; peak "
                 f"{got['peak'] / 2 ** 30:.3f} GiB; arguments {got['args']} "
                 f"B, the dry run's 1x2 prediction {mem['argument_bytes']} B; "
-                f"predicted peak {mem['total_bytes']} B, ratio {ratio:.4f}"
-                + (f" (no bar: flat columns; one rank's peak "
-                   f"{o['peak'] / 2 ** 30:.3f} GiB)" if flat else ""))
+                f"predicted peak {mem['total_bytes']} B (temp "
+                f"{mem['temp_bytes']}), ratio {ratio:.4f} (bar {PEAK_RATIO})")
             log(f"    rank {r}: launches {got['launches']} (K5 at "
                 f"{got['k5_shape']}; expected {per} wgmma, "
-                f"{per // c['steps']} a step); the last step's collectives "
-                f"by group {got['collectives']}; K5 against its plain "
-                f"version on layer 0's q/k/v max_abs_err {got['k5_err']} "
-                f"(rtol 2^-7, atol 4e-3)")
+                f"{per // c['steps']} a step); the last step's FLOPs "
+                f"{got['flops']:.0f} (the dry run's 1x2 rank "
+                f"{cell['per_device']['flops_macs']:.0f}) and collectives "
+                f"by axis, count and result bytes {got['collectives']} "
+                f"(the dry run's {cell['collectives_by_axis']}); K5 against "
+                f"its plain version on layer 0's q/k/v max_abs_err "
+                f"{got['k5_err']} (rtol 2^-7, atol 4e-3)")
             if got["lost"] or got["events"] or rel > TP_BF16_BAR \
                     or not all(math.isfinite(x) for x in got["losses"]):
                 raise AssertionError(f"phase 21 {part} rank {r}: {got}")
@@ -6937,7 +7005,7 @@ def phase_tp(smi: str):
                                  or not got["k5_ok"])):
                 raise AssertionError(f"phase 21 {part} rank {r}: K5 "
                                      f"{got['launches']} {got['k5_shape']}")
-            if got["collectives"]["data"] != {"all-reduce": 1} \
+            if tp_counts(got["collectives"]["data"]) != {"all-reduce": 1} \
                     or not got["collectives"]["model"]:
                 raise AssertionError(f"phase 21 {part} rank {r}: "
                                      f"collectives {got['collectives']}")
@@ -6945,15 +7013,18 @@ def phase_tp(smi: str):
                 raise AssertionError(f"phase 21 {part} rank {r}: argument "
                                      f"bytes {got['args']} != "
                                      f"{mem['argument_bytes']}")
-            if flat and not got["peak"] < o["peak"]:
-                raise AssertionError(f"phase 21 {part} rank {r}: peak "
-                                     f"{got['peak']} not below one rank's "
-                                     f"{o['peak']}")
-            if not flat and not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
-                raise AssertionError(f"phase 21 {part} rank {r}: peak "
-                                     f"ratio {ratio}")
-    phase_tp_fsdp(one[TRAIN_ARCH]["losses"], ranks)
-    phase_tp_serve(one, ranks, cells, smi)
+            # every rank and part is logged before these raise
+            failed += [f"{part} rank {r}: {x}"
+                       for x in tp_held_to_dry(got, cell)]
+            if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+                failed.append(f"{part} rank {r}: peak ratio {ratio}")
+    failed += phase_tp_fsdp(one[TRAIN_ARCH]["losses"], ranks, cells["fsdp"])
+    try:
+        phase_tp_serve(one, ranks, cells, smi)
+    except AssertionError as e:
+        failed.append(str(e))
+    if failed:
+        raise AssertionError(f"phase 21: {failed}")
     for name in TP_F32_ARCHS:
         want = one[("f32", name)]
         for sp in (False, True):
@@ -7015,10 +7086,11 @@ def phase_tp_serve(one, ranks, cells, smi):
     each split prefill
     (one wgmma launch an attention layer at the rank's heads, or at the
     whole heads of a flat column split, held to its plain version), a
-    rank's argument bytes equal to the dry run's 1x2 decode cell; the
-    greedy tokens' agreement, the decode ms a step on two ranks against
-    one and the collectives a step logged. Every arch and rank is logged
-    before a failure raises."""
+    rank's argument bytes equal to the dry run's 1x2 decode cell, and its
+    last decode step's collectives (count and result bytes) and FLOPs
+    equal to the cell's (rank 0's step on the meta device); the greedy
+    tokens' agreement and the decode ms a step on two ranks against one
+    logged. Every arch and rank is logged before a failure raises."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -7047,11 +7119,11 @@ def phase_tp_serve(one, ranks, cells, smi):
     for name, run in TP_FULL.items():
         arch = get_config(name)
         o = one[name]["serve"]
-        mem = cells[name + " decode"]
-        if mem["status"] != "ok":
+        cell = cells[name + " decode"]
+        if cell["status"] != "ok":
             raise AssertionError(f"phase 21 (g) {name}: the dry run failed: "
-                                 f"{mem.get('traceback')}")
-        mem = mem["memory"]
+                                 f"{cell.get('traceback')}")
+        mem = cell["memory"]
         per = sum(arch.block_at(i) in lm.ATTENTION_KINDS
                   for i in range(arch.n_layers))
         heads = arch.n_heads // TP_M if arch.n_heads % TP_M == 0 \
@@ -7113,7 +7185,11 @@ def phase_tp_serve(one, ranks, cells, smi):
                 f"greedy tokens agree {agree:.4f}; {ms:.2f} ms a decode "
                 f"step (median of steps 2-{c['steps'] - 1}) against one "
                 f"rank's {one_ms:.2f}; the last step's collectives on the "
-                f"model group {g['collectives']}")
+                f"model group, count and result bytes {g['collectives']} "
+                f"(the dry run's 1x2 decode cell "
+                f"{cell['collectives_by_axis']}), its FLOPs "
+                f"{g['decode_flops']:.0f} (the cell's "
+                f"{cell['per_device']['flops_macs']:.0f})")
             log(f"    {name} rank {r}: K5 launches {g['launches']} at "
                 f"{g['k5_shape']} (expected {per} wgmma"
                 + (f" at {heads} heads" if per else "") + "), "
@@ -7140,35 +7216,33 @@ def phase_tp_serve(one, ranks, cells, smi):
             if g["args"] != mem["argument_bytes"]:
                 failed.append(f"{name} rank {r}: argument bytes "
                               f"{g['args']} != {mem['argument_bytes']}")
+            # the decode's collectives are the model group's: the cell's
+            # data axis (one rank) has none
+            failed += [f"{name} rank {r}: {x}" for x in tp_held_to_dry(
+                {"collectives": {"model": g["collectives"]},
+                 "flops": g["decode_flops"]}, cell)]
     if failed:
         raise AssertionError(f"phase 21 (g): {failed}")
 
 
-def phase_tp_fsdp(want, ranks):
+def phase_tp_fsdp(want, ranks, cell) -> list:
     """Phase 21 (d)'s checks: each rank's losses within TP_BF16_BAR of (a)'s
     one-rank run (``want``), its argument bytes equal to the dry run's 2x1
-    prediction, one counted reduction a step (a reduce-scatter over the
-    data group), 22 K5 wgmma launches a step at the full heads, K5 held to
-    its plain version; the peak against the dry run's, the step walls and
-    the collectives by group logged."""
-    import dataclasses
-    from repro_torch.configs import SHAPES, get_config
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_mesh
+    cell (``cell``, from ``tp_dry_write``'s subprocess), one counted
+    reduction a step (a reduce-scatter over the data group), 22 K5 wgmma
+    launches a step at the full heads, K5 held to its plain version, all
+    raising at once; and the ones returned, which the caller raises after
+    the other parts are logged: the last step's collectives (count and
+    result bytes) and FLOPs equal to the cell's, the peak within
+    PEAK_RATIO of the cell's. The step walls are logged."""
+    from repro_torch.configs import get_config
 
     c, D = TP_FSDP, TP_M
     arch = get_config(TRAIN_ARCH)
-    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=c["B"],
-                                seq_len=c["S"])
-    cell = dryrun.run_cell(arch.name, shape.name,
-                           mesh=make_mesh((D, 1), ("data", "model")),
-                           arch=arch, shape=shape, opts=dryrun.DryrunOptions(
-                               cost_fit=False, remat="none",
-                               microbatches=c["k"]), verbose=False)
     if cell["status"] != "ok":
         raise AssertionError(f"phase 21 (d): the dry run failed: "
                              f"{cell.get('traceback')}")
-    mem = cell["memory"]
+    mem, failed = cell["memory"], []
     per = arch.n_layers * c["k"] * c["steps"]
     log(f"  (d) {TRAIN_ARCH} FSDP over data {D} x model 1: full width and "
         f"depth ({arch.n_layers} layers, {arch.dtype}), S {c['S']}, global "
@@ -7186,14 +7260,17 @@ def phase_tp_fsdp(want, ranks):
             f"{got['params']} parameters held (shards); peak "
             f"{got['peak'] / 2 ** 30:.3f} GiB; arguments {got['args']} B, "
             f"the dry run's 2x1 prediction {mem['argument_bytes']} B; "
-            f"predicted peak {mem['total_bytes']} B, ratio {ratio:.4f} (no "
-            f"bar: the dry run's temp is the even split)")
+            f"predicted peak {mem['total_bytes']} B (temp "
+            f"{mem['temp_bytes']}), ratio {ratio:.4f} (bar {PEAK_RATIO})")
         log(f"    rank {r}: launches {got['launches']} (K5 at {got['k5_shape']};"
             f" expected {per} wgmma); counted reductions "
-            f"{got['reductions']}; the last step's collectives by group "
-            f"{got['collectives']}; K5 against its plain version on layer "
-            f"0's q/k/v max_abs_err {got['k5_err']:.3e} (rtol 2^-7, atol "
-            f"4e-3)")
+            f"{got['reductions']}; the last step's FLOPs {got['flops']:.0f} "
+            f"(the dry run's 2x1 rank {cell['per_device']['flops_macs']:.0f})"
+            f" and collectives by axis, count and result bytes "
+            f"{got['collectives']} (the dry run's "
+            f"{cell['collectives_by_axis']}); K5 against its plain version "
+            f"on layer 0's q/k/v max_abs_err {got['k5_err']:.3e} (rtol 2^-7, "
+            f"atol 4e-3)")
         if got["lost"] or got["events"] or rel > TP_BF16_BAR \
                 or not all(math.isfinite(x) for x in got["losses"]):
             raise AssertionError(f"phase 21 (d) rank {r}: {got}")
@@ -7210,7 +7287,7 @@ def phase_tp_fsdp(want, ranks):
         step = {"reduce-scatter": 1, "all-reduce": 1,
                 "all-gather": c["k"] * (arch.n_layers + 1) + 1}
         if got["reductions"] != c["steps"] \
-                or got["collectives"]["data"] != step \
+                or tp_counts(got["collectives"]["data"]) != step \
                 or got["collectives"]["model"]:
             raise AssertionError(f"phase 21 (d) rank {r}: reductions "
                                  f"{got['reductions']}, collectives "
@@ -7218,6 +7295,10 @@ def phase_tp_fsdp(want, ranks):
         if got["args"] != mem["argument_bytes"]:
             raise AssertionError(f"phase 21 (d) rank {r}: argument bytes "
                                  f"{got['args']} != {mem['argument_bytes']}")
+        failed += [f"(d) rank {r}: {x}" for x in tp_held_to_dry(got, cell)]
+        if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+            failed.append(f"(d) rank {r}: peak ratio {ratio}")
+    return failed
 
 
 def main() -> int:

@@ -9,15 +9,24 @@ end-of-solve gathers (``seams.gathering``):
   * collectives: the ``c10d`` operations ``torch.distributed`` dispatches
     (:data:`COLLECTIVE_PRIMS` maps them to ``repro``'s HLO names), with
     the all-reduces' payload elements and bytes, and by process group
-    (``collectives_by_group``: a trainer's data group and model group);
+    (``collectives_by_group``: a trainer's data group and model group),
+    each with its result bytes (``collective_traffic``) in
+    ``repro``'s convention (``collective_stats_from_hlo``'s): an
+    all-gather's gathered output, a reduce-scatter's block of the rank,
+    an all-reduce's reduced tensor, an all-to-all's or a permute's
+    output: the tensors of the operation's first argument, which is its
+    output in every ``c10d`` schema (a barrier's dummy counts none);
   * flops in ``repro.analysis``'s convention: 2 x output x contraction
     for each matrix product (``mm``, ``addmm``, ``bmm``, ``baddbmm``,
-    ``mv``, ``addmv``, ``dot``, ``vdot``), the update elements of each
-    scatter-add (``index_put`` with ``accumulate``, ``index_add``,
-    ``scatter_add``), and each kernel seam's event. Inside a seam the
-    recorder counts nothing, so the plain version's products (the CPU)
-    and the kernel (the card, which no dispatch mode sees) count the
-    same: the event's;
+    ``mv``, ``addmv``, ``dot``, ``vdot``; a composite operation such as
+    ``matmul`` or ``einsum``, which reaches the recorder whole under
+    ``inference_mode``, is run as its decomposition, so a step counts
+    the same under ``no_grad`` and ``inference_mode``), the update
+    elements of each scatter-add (``index_put`` with ``accumulate``,
+    ``index_add``, ``scatter_add``), and each kernel seam's event.
+    Inside a seam the recorder counts nothing, so the plain version's
+    products (the CPU) and the kernel (the card, which no dispatch mode
+    sees) count the same: the event's;
   * with ``narrowing=True``, every operation that reads a float64 tensor
     and yields a narrower float one, and every seam event of a float64
     call that returns another type or takes a body that computes in
@@ -139,9 +148,22 @@ class Tally:
     allreduce_elements: float = 0.0
     allreduce_bytes: float = 0.0
     gather_bytes: float = 0.0
-    # (process group name, kind) -> count
+    # (process group name, kind) -> count, and -> result bytes
     by_group: Dict[Tuple[str, str], int] = dataclasses.field(
         default_factory=collections.Counter)
+    bytes_by_group: Dict[Tuple[str, str], float] = dataclasses.field(
+        default_factory=collections.Counter)
+
+
+_COMPOSITE: Dict[object, bool] = {}
+
+
+def _composite(func) -> bool:
+    """Whether ``func`` has a ``CompositeImplicitAutograd`` kernel."""
+    if func not in _COMPOSITE:
+        _COMPOSITE[func] = torch._C._dispatch_has_kernel_for_dispatch_key(
+            func.name(), "CompositeImplicitAutograd")
+    return _COMPOSITE[func]
 
 
 def _group_name(args) -> str:
@@ -162,6 +184,16 @@ def _tensors(x):
     elif isinstance(x, (list, tuple)):
         for v in x:
             yield from _tensors(v)
+
+
+def result_bytes(kind: str, args) -> float:
+    """The result bytes of one ``c10d`` operation of ``kind`` at dispatch:
+    the bytes of its first argument's tensors, the output in every
+    schema (a barrier's dummy tensor: 0)."""
+    if kind == "barrier":
+        return 0.0
+    return float(sum(t.numel() * t.element_size()
+                     for t in _tensors(args[0])))
 
 
 class Recorder(TorchDispatchMode):
@@ -238,8 +270,26 @@ class Recorder(TorchDispatchMode):
         self._seam -= 1
 
     # -- dispatch -------------------------------------------------------
+    def decomposed(self, func, args, kwargs):
+        """A composite operation (one with a ``CompositeImplicitAutograd``
+        kernel: ``matmul``, ``einsum``, ...) run as its decomposition,
+        whose operations this recorder sees and counts; NotImplemented
+        for any other. Under ``no_grad`` the autograd layer decomposes
+        them before a dispatch mode sees them; under ``inference_mode``
+        they arrive whole, and would hide their products."""
+        if not _composite(func):
+            return NotImplemented
+        TorchDispatchMode.__enter__(self)
+        try:
+            return func.decompose(*args, **kwargs)
+        finally:
+            TorchDispatchMode.__exit__(self, None, None, None)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        out = self.decomposed(func, args, kwargs)
+        if out is not NotImplemented:
+            return out
         out = func(*args, **kwargs)
         ns, _, name = func._schema.name.partition("::")
         if ns == "c10d" and name in COLLECTIVE_PRIMS:
@@ -258,7 +308,9 @@ class Recorder(TorchDispatchMode):
     def _collective(self, kind: str, args) -> None:
         tally = self._tally()
         tally.collectives[kind] += 1
-        tally.by_group[(_group_name(args), kind)] += 1
+        key = (_group_name(args), kind)
+        tally.by_group[key] += 1
+        tally.bytes_by_group[key] += result_bytes(kind, args)
         if kind == "all-reduce":
             for t in _tensors(args[0]):
                 tally.allreduce_elements += t.numel()
@@ -291,6 +343,17 @@ class Recorder(TorchDispatchMode):
                 per = out.setdefault(group, {})
                 per[kind] = per.get(kind, 0) + n
         return out
+
+    def collective_traffic(self) -> Dict[str, Dict[str, Dict[str, float]]]:
+        """{process group name: {kind: {"count": n, "bytes": result
+        bytes}}} over every span: :meth:`collectives_by_group`'s counts
+        with each kind's result bytes beside them, kinds in name order."""
+        sizes: Dict[Tuple[str, str], float] = collections.Counter()
+        for tally in self.spans():
+            sizes.update(tally.bytes_by_group)
+        return {group: {kind: {"count": n, "bytes": sizes[(group, kind)]}
+                        for kind, n in sorted(per.items())}
+                for group, per in self.collectives_by_group().items()}
 
     def kernel_flops(self) -> Dict[str, float]:
         """Flops of the seam events by entry, "kernel.entry"."""

@@ -12,15 +12,27 @@ same arithmetic serves both. ``HW_H100`` is the default machine: the
 NVIDIA H100 SXM5 80GB data sheet's peaks (bf16 dense on the tensor
 cores, HBM3, NVLink 4) and the device memory the card itself reports.
 
-Scoped out (ROADMAP Queue 1, item 7): ``HW_V5E`` describes a TPU, and
-``collective_stats_from_hlo``, ``collective_bytes_from_hlo``,
-``CollectiveStats`` and ``cost_analysis_dict`` read compiled XLA, which
-an eager program does not have. The port counts no collectives yet.
+The collective term's bytes are a :class:`CollectiveStats`, ``repro``'s
+typed counts and result bytes over its five kinds. ``repro`` parses them
+from a compiled program's HLO; the port builds them from what an
+``analysis.record.Recorder`` saw of one rank's step
+(:func:`collective_stats` of its ``collective_traffic()``; the dry run
+runs the step on the meta device inside a process group of the ``fake``
+backend, ``launch.dryrun``).
+
+Scoped out: ``HW_V5E`` describes a TPU, and
+``collective_stats_from_hlo``, ``collective_bytes_from_hlo`` and
+``cost_analysis_dict`` read compiled XLA, which an eager program does not
+have.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterable, Mapping, Optional
+
+# repro's five kinds, its CollectiveStats' keys
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +49,42 @@ class Hardware:
 # (``torch.cuda.get_device_properties(0)``, an H100 80GB HBM3 at 700 W).
 HW_H100 = Hardware(name="h100-sxm5-80gb", peak_flops=989e12, hbm_bw=3.35e12,
                    ici_bw=900e9, hbm_bytes=85_017_493_504)
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveStats:
+    """Typed per-collective counts and result bytes (``repro``'s), over
+    :data:`COLLECTIVES`."""
+
+    counts: Mapping[str, int]
+    bytes: Mapping[str, float]
+
+    @property
+    def total_bytes(self) -> float:
+        return float(sum(self.bytes.values()))
+
+    @property
+    def total_count(self) -> int:
+        return int(sum(self.counts.values()))
+
+
+def collective_stats(traffic: Mapping[str, Mapping[str, Mapping]],
+                     groups: Optional[Iterable[str]] = None
+                     ) -> CollectiveStats:
+    """The collectives of ``traffic`` ({group: {kind: {"count", "bytes"}}}:
+    ``Recorder.collective_traffic()``, or a dry-run cell's
+    ``collectives_by_axis``) summed over the groups ``groups`` (default:
+    all), as a :class:`CollectiveStats`: each kind's count and result
+    bytes (the ``Recorder``'s convention is ``repro``'s). Kinds outside
+    ``repro``'s five (a broadcast, a barrier) are left out."""
+    counts = dict.fromkeys(COLLECTIVES, 0)
+    bytes_ = dict.fromkeys(COLLECTIVES, 0.0)
+    for group in traffic if groups is None else groups:
+        for kind, v in traffic.get(group, {}).items():
+            if kind in counts:
+                counts[kind] += v["count"]
+                bytes_[kind] += v["bytes"]
+    return CollectiveStats(counts=counts, bytes=bytes_)
 
 
 def two_point_fit(cost1: float, cost2: float, n1: int, n2: int,

@@ -81,8 +81,8 @@ def test_run_cell_small_mesh():
     assert r["per_device"]["flops_macs"] > 0
     assert r["roofline"]["dominant"] in ("compute", "memory", "collective")
     assert 0 < r["useful_ratio"] < 10
-    assert r["flops_split"] == "even" and r["n_chips"] == 4
-    assert r["roofline"]["collective_s"] is None
+    assert r["flops_split"] == "rank" and r["n_chips"] == 4
+    assert r["roofline"]["collective_s"] > 0
     assert r["opts"]["microbatches"] == 2
     # the fit over depth equals the direct count, per device
     assert r["cost_fit"]["flops"] == r["per_device"]["flops_macs"]
@@ -242,12 +242,10 @@ SCOPED_OUT = {
     # a TPU v5e: the port's machine is HW_H100
     "HW_V5E": "describes a TPU",
     # readers of compiled XLA: an eager program has no HLO or
-    # cost_analysis; the port counts no collectives yet (ROADMAP Queue 1,
-    # item 7)
+    # cost_analysis (the port builds CollectiveStats from a Recorder)
     "collective_stats_from_hlo": "reads compiled XLA",
     "collective_bytes_from_hlo": "reads compiled XLA",
     "cost_analysis_dict": "reads compiled XLA",
-    "CollectiveStats": "reads compiled XLA",
 }
 REPRO_MODULES = {"roofline/__init__.py": "roofline",
                  "roofline/analysis.py": "roofline.analysis",

@@ -47,7 +47,8 @@ FSDP-sharded, as ``repro``'s are.
   one-process gradient at m = 2 without SP, and the recurrent archs'
   checkpoints written at m = 2 resume in one process.
 * The layout equal to ``repro``'s rules for every leaf of all ten archs
-  at 1x2, 1x4, 1x8, 2x1, 4x1 and 2x2, the cutting and gathering,
+  at 1x2, 1x4, 1x8, 1x16 (the production mesh's model axis), 2x1, 4x1
+  and 2x2, the cutting and gathering,
   ``convert`` with an axis, the dry run's argument bytes at those meshes
   against a rank's, and ``build_grid``'s order.
 
@@ -620,7 +621,7 @@ def test_checkpoint_written_at_d4_resumes_in_one_process_and_repro(job):
 # The layout, cutting and gathering (one process)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("m", [2, 4, 8])
+@pytest.mark.parametrize("m", [2, 4, 8, 16])
 @pytest.mark.parametrize("name", list_archs())
 def test_layout_is_repros_rules(name, m):
     """Every leaf's split dim on a model axis of m is the one of

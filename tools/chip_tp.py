@@ -14,9 +14,11 @@ granite-moe-1b-a400m (expert parallelism), hymba-1.5b (attention and SSM
 heads split by flat columns, with sequence parallelism) and xlstm-350m
 (mLSTM and sLSTM split by heads) at full width and depth, each against
 the same steps in one process, then f32 at 2 layers against one rank,
-each rank's argument bytes and peak against the dry run's 1x2
-prediction; then FSDP over the two ranks as data 2. Any failed check
-raises.
+each rank's argument bytes, peak, last step's FLOPs and collectives (by
+axis and kind, count and result bytes) against the dry run's count of a
+rank's own step at 1x2; then FSDP over the two ranks as data 2, held to
+the 2x1 cell the same way. The cells are counted on the meta device in a
+subprocess at nice 19 started before the build. Any failed check raises.
 """
 import os
 import subprocess
@@ -43,6 +45,7 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; {smi}",
           flush=True)
+    chip_smoke.tp_dry_start()
     t0 = time.perf_counter()
     _build.build(KERNEL_PACKAGES)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
