@@ -174,7 +174,7 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    with phase 13's fitted machine; (e) ``python -m repro_torch.analysis
    --json --families lasso --checks collectives`` as a subprocess on the
    card (the CLI path; (a) ran the whole registry), exit 0 and ``ok:
-   true``;
+   true``, started with the launchers that run beside phase 21;
 15. (run last, after the LM phases 7-10, so that nothing it might leave
    behind, an NCCL group, ranks or save threads, is there while another
    phase is timed) the elastic runtime (``api.solve_elastic``):
@@ -205,7 +205,8 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    --checkpoint-every 1 --inject-failure 10:2 --device cuda`` as a
    subprocess (its rendezvous on a free port): exit 0, gloo
    at world size 4, a failure and a restore event, the final objective
-   within rel 1e-3 of the same command without the elastic flags;
+   within rel 1e-3 of the same command without the elastic flags (the
+   two started together, beside phase 21);
 16. (run after phase 10, before phase 15) LM training
    (``repro_torch.runtime.Trainer``, one gradient reduction per step):
    (a) tinyllama-1.1b at full width and depth (22 layers, bf16, random
@@ -227,13 +228,22 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    "dots" against "none" on the card (the loss bit for bit, gradients
    within 1e-6 of each leaf's max, K5 launched twice a layer); (c)
    microbatches 1 against 4 on the card, 3 steps, losses within rel
-   1e-5; (d) four gloo ranks on the one card at tinyllama widths, 2
-   layers, f32, a checkpoint every 4 steps: undisturbed 12 steps, then
-   ranks 2 and 3 killed at step 6, resumed at step 4 on [0, 1] to 12
-   with losses within rel 1e-5 of the undisturbed run; the checkpoint's
-   bytes, write and restore times; (e) ``python -m
-   repro_torch.launch.train --arch tinyllama-1.1b --smoke --steps 20
-   --ckpt-dir <tmp>`` exits 0;
+   1e-5; (d) four gloo ranks on the one card at tinyllama's vocabulary
+   and head dimension, d_model 256, 2 layers, f32, a checkpoint every 2
+   steps: undisturbed 4 steps, then ranks 2 and 3 killed at step 3,
+   resumed at step 2 on [0, 1] to 4 with losses within rel 1e-5 of the
+   undisturbed run; the checkpoint's bytes, write and restore times; (e)
+   ``python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke
+   --steps 20 --ckpt-dir <tmp>`` exits 0 (with the other launchers,
+   beside phase 21); (f) whisper-large-v3 at full
+   width and depth (bf16) trained 3 steps through ``make_train_step`` on
+   8 clips of 1,500 stub frames and 448 tokens in 2 microbatches, and
+   (g) pixtral-12b at full width, 8 layers, 3 steps at S 4096 (1,024 patch
+   rows) in 2 microbatches: finite losses, exactly 96 (whisper: the
+   encoder's, the causal and the cross calls) or 8 K5 launches a
+   microbatch, all ``wgmma``, K5 on the first call's q/k/v against its
+   plain version (the prefill's bar), the step's split (the encoder and
+   the cross steps apart), the peak;
 17. (run after phase 10, before phase 16) sliding-window attention and
    the MoE block: (a) mixtral-8x7b at full width (d 4096, 32/8 heads of
    128, 8 experts top 2, d_ff 14,336, vocab 32,000, window 4096, bf16),
@@ -326,10 +336,12 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    same for whisper-large-v3 exits 1 with repro's refusal;
 20. (run after phase 16, before phase 15) the dry run against the card:
    ``repro_torch.launch.dryrun.run_cell`` on a one-card mesh, on the meta
-   device, at the own arch and shape of five paths measured above (phase
+   device, at the own arch and shape of nine paths measured above (phase
    8's llama3-8b prefill, 16 (a)'s tinyllama-1.1b training step, 17 (a)'s
    mixtral-8x7b prefill at 16 layers, 19 (a)'s whisper prefill of 8
-   clips, 19 (b)'s pixtral-12b prefill; nothing is run again): the
+   clips, 19 (b)'s pixtral-12b prefill, 16 (f)'s and (g)'s training
+   steps, 22's qwen1.5-4b and stablelm-12b prefills; nothing is run
+   again; 16 (f) and (g)'s cells counted in the dry run's subprocess): the
    argument bytes equal the bytes of the card's model, inputs and (the
    training step) AdamW state exactly; the predicted peak (argument +
    temp) within [0.8, 1.25] of the card's peak device memory in the
@@ -341,7 +353,28 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    mixtral-8x7b's prefill_32k cell at full depth, and phase 17's path at
    full depth, do not fit one card, and the path at 16 layers does; the
    one-card ``DeviceMesh`` over NCCL at world size 1 places a tensor by
-   the port's partition specs.
+   the port's partition specs;
+21. (run after phase 20, before phase 15) tensor, expert and sequence
+   parallelism and FSDP over two gloo ranks sharing the card (see the
+   comments above TP_FULL): (a) tinyllama-1.1b, (b) granite-moe-1b, (e)
+   hymba-1.5b, (f) xlstm-350m at S 256, (h) whisper-large-v3 and (i)
+   pixtral-12b (8 layers) with their frames or patches, each at full
+   width on data 1 x model 2 against one rank; (c) f32 at 2 layers; (d)
+   FSDP as data 2 x model 1; (g) split serving. Every rank's argument
+   bytes, last step's FLOPs and collectives equal its own dry-run cell,
+   its peak within [0.8, 1.25] of the cell's;
+22. (run after phase 19, before phase 16) qwen1.5-4b and stablelm-12b at
+   full width and depth (bf16): phase 8's prefill at B 1, S 8192 (40 K5
+   launches, on the ``wgmma`` body at qwen's D 128 and the ``simt`` body
+   at stablelm's D 160, as ``dispatch.flash_attention_route`` names
+   them), K5 on layer 0's q/k/v against its plain version with its times,
+   SDPA's and its bound, phase 9's serving, and the served generate's
+   decode logits at the last prompt position against prefill's (atol
+   0.12, rtol 0.05). Phases 9, 18 and 19 take those decode logits from
+   their served generate too (its prompt is the check's).
+
+Before the kernels' line, the timeline: each phase's and part's seconds
+and the whole script's.
 
 Any failed check raises, so the exit code is non-zero. The last lines
 are the kernels' JSON line (for each of ``gram``, ``sa_inner``, ``spmm``,
@@ -373,6 +406,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -461,8 +495,27 @@ ATTN_CASES = [
 ]
 
 
+# (seconds since the script's start, the line) of each line that opens a
+# phase or a part of one, for ``log_timeline``
+TIMELINE = []
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):
+        TIMELINE.append((time.perf_counter() - T_START, msg[:48]))
     print(msg, flush=True)
+
+
+def log_timeline() -> None:
+    """Each phase's and part's seconds, from its opening line to the next
+    one's (a phase that logs in parts is split by them), and the whole
+    script's."""
+    now = time.perf_counter() - T_START
+    log(f"timeline (s from the start, s until the next line):")
+    for (t, what), nxt in zip(TIMELINE, TIMELINE[1:] + [(now, "")]):
+        log(f"  {t:8.1f} {nxt[0] - t:8.1f}  {what}")
+    log(f"the whole script: {now:.1f} s")
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -3052,7 +3105,6 @@ def full_width_contract(what, problem, cfg, fam, dims, want_bytes):
 def phase_contracts(smi, tuner):
     """Phase 14: the static contracts of repro_torch.analysis on the
     card."""
-    import subprocess as sp
     import torch
     from repro_torch import analysis, api, tune
     from repro_torch.core.cost_model import Machine, ProblemDims
@@ -3133,22 +3185,8 @@ def phase_contracts(smi, tuner):
     del svm
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    # the CLI path on the card, one pass on the Lasso family: (a) ran the
-    # whole registry in this process already
-    out = sp.run([sys.executable, "-m", "repro_torch.analysis", "--json",
-                  "--families", "lasso", "--checks", "collectives"],
-                 cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
-                 capture_output=True, text=True, timeout=600)
-    cli = json.loads(out.stdout) if out.returncode == 0 else {}
-    log(f"  (e) python -m repro_torch.analysis --json --families lasso "
-        f"--checks collectives on the card in "
-        f"{time.perf_counter() - t0:.1f} s: exit {out.returncode}, ok "
-        f"{cli.get('ok')}, {len(cli.get('checked', ()))} subjects, "
-        f"{cli.get('errors')} error(s)")
-    if out.returncode or not cli.get("ok"):
-        raise AssertionError(f"the analysis CLI: {out.stdout[-2000:]} "
-                             f"{out.stderr[-2000:]}")
+    # (e), the CLI on the card, runs with the launchers beside phase 21
+    # (``launchers_start``, ``analysis_cli_ok``)
     log(f"  phase 14 in {time.perf_counter() - t_phase:.1f} s; record: "
         f"{json.dumps(record)}")
     return record
@@ -3631,11 +3669,12 @@ def phase_elastic_gloo():
     return rec
 
 
-def phase_elastic_cli():
-    """Phase 15 (d): repro's verify recipe through torchrun on the card."""
-    import re
-    import subprocess as sp
-    t0 = time.perf_counter()
+def elastic_cli_start():
+    """Phase 15 (d): repro's verify recipe through torchrun on the card,
+    the elastic run and the plain one started together (each its own
+    free rendezvous port); ``elastic_cli_finish`` checks them. Run beside
+    phase 21, as the launchers are: one after the other they took ~49 s."""
+    import tempfile
     env = dict(os.environ, PYTHONPATH=SRC)
     # "--" ends torchrun's options: the argparse of some Python 3.12
     # releases reads the launcher's --s as an abbreviation of torchrun's.
@@ -3644,19 +3683,44 @@ def phase_elastic_cli():
     torchrun = [sys.executable, "-m", "torch.distributed.run",
                 "--standalone", "--nproc-per-node", str(P_GLOO), "-m", "--",
                 "repro_torch.launch.solve"] + CLI_RECIPE
-    outs = {}
+    procs = {}
     for k, cmd in (("elastic", torchrun + ["--checkpoint-every", "1",
                                            "--inject-failure", "10:2"]),
                    ("plain", torchrun)):
-        out = sp.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                     timeout=600)
-        outs[k] = (out.stdout, out.stderr, out.returncode)
+        out = tempfile.TemporaryFile(mode="w+")
+        err = tempfile.TemporaryFile(mode="w+")
+        procs[k] = (out, err, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=out, stderr=err, text=True))
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def elastic_cli_finish(state) -> None:
+    """Wait for ``elastic_cli_start``'s two runs (600 s at most) and hold
+    them: exit 0 at gloo world size 4, a failure and a restore event, and
+    the recovered objective within rel 1e-3 of the plain run's."""
+    import re
+    outs = {}
+    for k, (out, err, p) in state["procs"].items():
+        left = 600 - (time.perf_counter() - state["t0"])
+        try:
+            p.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            for *_, q in state["procs"].values():
+                q.kill()
+            raise AssertionError("(d) the CLI ran past 600 s")
+        texts = []
+        for f in (out, err):
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        outs[k] = (*texts, p.returncode)
     summary = re.compile(r"obj ([^,\s]+) -> ([^,\s]+)")
     lines = outs["elastic"][0].strip().splitlines()
-    log(f"  (d) torchrun --standalone --nproc-per-node {P_GLOO} -m -- "
-        f"repro_torch.launch.solve {' '.join(CLI_RECIPE)} "
-        f"--checkpoint-every 1 --inject-failure 10:2, exit {outs['elastic'][2]}, in "
-        f"{time.perf_counter() - t0:.1f} s (with the plain run after it):")
+    log(f"  phase 15 (d): torchrun --standalone --nproc-per-node {P_GLOO} "
+        f"-m -- repro_torch.launch.solve {' '.join(CLI_RECIPE)} "
+        f"--checkpoint-every 1 --inject-failure 10:2, exit "
+        f"{outs['elastic'][2]} (with the plain run beside it, both done "
+        f"{time.perf_counter() - state['t0']:.1f} s after their start):")
     for ln in lines:
         log(f"    {ln}")
     plain = summary.search(outs["plain"][0])
@@ -3679,12 +3743,14 @@ def phase_elastic_cli():
         raise AssertionError("(d) the recovered objective differs")
 
 
-def phase_elastic():
-    """Phase 15: (a), then (b) and (c), then (d)."""
+def phase_elastic(cli: bool = True):
+    """Phase 15: (a), then (b) and (c), then (d) (unless ``cli`` is
+    False: ``chip_smoke.py`` runs it beside phase 21)."""
     t0 = time.perf_counter()
     rec = {"nccl": phase_elastic_nccl()}
     rec["gloo"] = phase_elastic_gloo()
-    phase_elastic_cli()
+    if cli:
+        elastic_cli_finish(elastic_cli_start())
     log(f"  phase 15 in {time.perf_counter() - t0:.1f} s; record: "
         f"{json.dumps(rec)}")
     return rec
@@ -4097,9 +4163,10 @@ def phase_serve(arch, model):
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = server.generate(prompts, G)
-    wall = time.perf_counter() - t0
+    with served_logits(model, P - 1) as kept:
+        t0 = time.perf_counter()
+        out = server.generate(prompts, G)
+        wall = time.perf_counter() - t0
     got = read_counts()
     steps = P + G
     log(f"  launches in generate: {got} (expected none: decode attention "
@@ -4160,16 +4227,14 @@ def phase_serve(arch, model):
     log_profile("16 decode steps", device_profile(
         lambda: server.generate(prompts[:, :8], 8)), wall / steps * 1e3, n)
 
-    # The kernel path against the decode path at full width: teacher-forced
-    # decode's logits at the last prompt position against prefill's.
+    # The kernel path against the decode path at full width: the served
+    # generate's teacher-forced decode logits at the last prompt position
+    # (its cache P + G long) against prefill's.
     with torch.no_grad():
-        toks = torch.as_tensor(prompts, device="cuda")
-        cache = lm.init_cache(arch, B, P, "cuda")
-        for t in range(P):
-            logits, cache = model.decode_step(toks[:, t:t + 1], cache, t)
-        last = model.prefill(toks)
-    check_close(f"decode logits at position {P - 1} vs prefill (B={B})",
-                logits.float(), last.float(), 0.05, 0.12)
+        last = model.prefill(torch.as_tensor(prompts, device="cuda"))
+    check_close(f"decode logits at position {P - 1} (the served generate's "
+                f"step, cache {P + G}) vs prefill (B={B})",
+                kept[0].float(), last.float(), 0.05, 0.12)
 
 
 def phase_f32_lm():
@@ -4335,7 +4400,7 @@ def prefill_inputs(arch, B, S, gen, dtype=None):
     arch's)."""
     import torch
     dtype = dtype or arch.torch_dtype
-    n = min(arch.n_patches, S // 4) if arch.frontend == "vision_stub" else 0
+    n = S - x_text_len(arch, S)
     toks = torch.randint(0, arch.vocab_size, (B, S - n), generator=gen,
                          device="cuda", dtype=torch.int32)
     rows = {"frames": arch.encoder_seq if arch.is_encdec else 0,
@@ -4395,17 +4460,25 @@ def recorded_flops(fn) -> float:
 
 
 def counted_prefill(arch, model, toks, extras=None, want_k5=None,
-                    steady=3):
+                    steady=3, route="wgmma", kept=None):
     """``model.prefill(toks, extras)`` counted and timed: exactly
-    ``want_k5`` K5 launches (default: one a layer with attention), all
-    wgmma, and no other kernel; finite (B, 1, V) logits; the first
-    prefill, peak memory and the median of ``steady`` more, with tokens/s
-    over the tokens and patch rows (and frames/s for an encoder-decoder
-    arch's frames). Returns (K5's launches, the median s)."""
+    ``want_k5`` K5 launches (default: one a layer with attention), all of
+    body ``route``, and no other kernel; finite (B, 1, V) logits; the
+    first prefill, peak memory and the median of ``steady`` more, with
+    tokens/s over the tokens and patch rows (and frames/s for an
+    encoder-decoder arch's frames). ``kept``: a dict that receives K5's
+    first call's ((q, k, v), kw) of the last steady prefill. Returns (K5's
+    launches, the median s)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import layers as L
     from repro_torch.models import lm
     extras = extras or {}
+    real_fa = L.flash_attention
+
+    def first_call(q, k, v, **kw):
+        kept.setdefault("qkv", ((q, k, v), kw))
+        return real_fa(q, k, v, **kw)
     if want_k5 is None:
         want_k5 = sum(arch.block_at(i) in lm.ATTENTION_KINDS
                       for i in range(arch.n_layers))
@@ -4425,7 +4498,8 @@ def counted_prefill(arch, model, toks, extras=None, want_k5=None,
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         want = dict.fromkeys(got, 0)
         want["flash_attention"] = want_k5
-        want_routes = {"wgmma": want_k5, "simt": 0}
+        want_routes = {"wgmma": 0, "simt": 0}
+        want_routes[route] = want_k5
         shapes = {k: tuple(v.shape) for k, v in extras.items()}
         meta = f", {arch.meta_tokens} meta rows first" \
             if arch.meta_tokens else ""
@@ -4442,12 +4516,19 @@ def counted_prefill(arch, model, toks, extras=None, want_k5=None,
             raise AssertionError(f"{arch.name} prefill logits "
                                  f"{tuple(logits.shape)} not finite")
         walls = []
-        for _ in range(steady):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.prefill(toks, extras)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        for i in range(steady):
+            # the last one keeps K5's first call (not the first, whose peak
+            # phase 20 reads)
+            if kept is not None and i == steady - 1:
+                L.flash_attention = first_call
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.prefill(toks, extras)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            finally:
+                L.flash_attention = real_fa
     med = sorted(walls)[steady // 2]
     tokens = toks.numel() + (extras["patches"].shape[0]
                              * extras["patches"].shape[1]
@@ -4505,14 +4586,38 @@ def moe_prefill(arch, model):
     return launches, err, (q, k, v), kw
 
 
-def moe_serve(arch, model, nbytes_read, patches=None, split=None):
+@contextlib.contextmanager
+def served_logits(model, pos: int):
+    """Within the block, the logits of each ``model.decode_step`` at
+    position ``pos`` (a generate's last prompt position: its prompt is
+    teacher-forced through decode_step), appended to the list it
+    yields."""
+    kept, real = [], model.decode_step
+
+    def step(tokens, cache, p, *args, **kw):
+        out = real(tokens, cache, p, *args, **kw)
+        if p == pos:
+            kept.append(out[0].detach().clone())
+        return out
+    model.decode_step = step
+    try:
+        yield kept
+    finally:
+        del model.decode_step
+
+
+def moe_serve(arch, model, nbytes_read, patches=None, split=None,
+              diagnose=True):
     """Phase 17's serving run: ``BatchedServer.generate`` at phase 9's
     batch, prompt and length; no kernel launched (decode attention is
     plain PyTorch); ms per step against the bytes a step reads (every
     weight but the embedding table, whose B rows are gathered, since the
-    dispatch runs all E experts' buffers) at the HBM rate; the split of a
-    decode step over ``patches`` by ``split(total, tot, timer)``
-    (default: the MoE's). Phase 18 serves the recurrent archs through it."""
+    dispatch runs all E experts' buffers) at the HBM rate; with
+    ``diagnose``, the split of a decode step over ``patches`` by
+    ``split(total, tot, timer)`` (default: the MoE's) and the busy share.
+    Phase 18 serves the recurrent archs through it. Returns the timed
+    generate's decode logits at the last prompt position (its prompt is
+    ``decode_vs_prefill``'s, teacher-forced)."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import BatchedServer
@@ -4525,9 +4630,10 @@ def moe_serve(arch, model, nbytes_read, patches=None, split=None):
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = server.generate(prompts, G)
-    wall = time.perf_counter() - t0
+    with served_logits(model, P - 1) as kept:
+        t0 = time.perf_counter()
+        out = server.generate(prompts, G)
+        wall = time.perf_counter() - t0
     got = read_counts()
     steps = P + G
     step_ms = wall / steps * 1e3
@@ -4545,6 +4651,8 @@ def moe_serve(arch, model, nbytes_read, patches=None, split=None):
     if out.shape != (B, G) or out.dtype != np.int32 \
             or not ((out >= 0) & (out < arch.vocab_size)).all():
         raise AssertionError(f"generate gave {out.dtype} {out.shape}")
+    if not diagnose:
+        return kept[0]
     t0 = time.perf_counter()
     total, tot, timer = timed_split(
         lambda: server.generate(prompts[:, :8], 8), keep=(),
@@ -4559,6 +4667,7 @@ def moe_serve(arch, model, nbytes_read, patches=None, split=None):
                   else split(total, tot, timer), 16)
     log_profile("16 decode steps", device_profile(
         lambda: server.generate(prompts[:, :8], 8)), step_ms, 16)
+    return kept[0]
 
 
 def sdpa_backend(q, k, v, mask):
@@ -4944,35 +5053,44 @@ def traced_prefill(arch, model, toks, extras=None, steady=3):
     return 0, None, None
 
 
-def decode_vs_prefill(arch, model, what, hold=True, extras=None):
+def decode_vs_prefill(arch, model, what, hold=True, extras=None,
+                      logits=None):
     """Teacher-forced decode's logits at the last of 128 prompt positions
     (batch 8) against ``prefill``'s, with the meta tokens off: decode
     never sees them, in ``repro`` too, so with them the two differ by
     design. ``extras["frames"]`` (an encoder-decoder arch) fill decode's
-    cross cache and go to the prefill. Held to ``repro``'s bar (atol
-    0.12, rtol 0.05) if ``hold``, else only logged."""
+    cross cache and go to the prefill. ``logits``: those decode logits
+    as a served generate of the same prompts gave them
+    (``served_logits``, its cache P + G long), in place of a decode of
+    its own. Held to ``repro``'s bar (atol 0.12, rtol 0.05) if ``hold``,
+    else only logged."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.models import lm
     B, P = SERVE_B, SERVE_P
+    served = None if logits is None else SERVE_P + SERVE_G
     prompts = np.random.default_rng(0).integers(
         0, arch.vocab_size, (B, P)).astype(np.int32)
     model.arch = dataclasses.replace(arch, meta_tokens=0)
     try:
         with torch.no_grad():
             toks = torch.as_tensor(prompts, device="cuda")
-            cache = lm.init_cache(model.arch, B, P, "cuda")
-            if extras:
-                model.fill_cross_cache(cache, extras["frames"])
-            for t in range(P):
-                logits, cache = model.decode_step(toks[:, t:t + 1], cache, t)
+            if logits is None:
+                cache = lm.init_cache(model.arch, B, P, "cuda")
+                if extras:
+                    model.fill_cross_cache(cache, extras["frames"])
+                for t in range(P):
+                    logits, cache = model.decode_step(toks[:, t:t + 1],
+                                                      cache, t)
             last = model.prefill(toks, extras)
     finally:
         model.arch = arch
+    source = "" if served is None else \
+        f", the served generate's step (cache {served})"
     name = (f"{arch.name}{what} decode logits at position {P - 1} vs "
-            f"prefill (B={B}, meta_tokens 0, {arch.dtype}; max |prefill "
-            f"logit| {float(last.float().abs().max()):.4f})")
+            f"prefill (B={B}, meta_tokens 0, {arch.dtype}{source}; max "
+            f"|prefill logit| {float(last.float().abs().max()):.4f})")
     if hold:
         check_close(name, logits.float(), last.float(), 0.05, 0.12)
     else:
@@ -5011,10 +5129,13 @@ def recurrent_serve(arch, model, nbytes):
     f32. The bf16 models are held to it at 2 layers, in (c)."""
     import dataclasses
     embed = model.embed.numel() * model.embed.element_size()
-    moe_serve(arch, model, nbytes - embed, patches=recurrent_patches(),
-              split=lambda total, tot, timer: recurrent_split(
-                  total, tot, unembed_ms(tot, timer), decode=True))
-    decode_vs_prefill(arch, model, " (full depth)", hold=False)
+    served = moe_serve(arch, model, nbytes - embed,
+                       patches=recurrent_patches(),
+                       split=lambda total, tot, timer: recurrent_split(
+                           total, tot, unembed_ms(tot, timer), decode=True))
+    decode_vs_prefill(arch, model, " (full depth)", hold=False,
+                      logits=served)
+    del served
     model.float()
     decode_vs_prefill(dataclasses.replace(arch, dtype="float32"), model,
                       " (full depth)")
@@ -5319,9 +5440,10 @@ def whisper_serve(arch, model, nbytes, frames):
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = server.generate(prompts, G, extras)
-        wall = time.perf_counter() - t0
+        with served_logits(model, P - 1) as kept:
+            t0 = time.perf_counter()
+            out = server.generate(prompts, G, extras)
+            wall = time.perf_counter() - t0
     finally:
         del model.fill_cross_cache
     got = read_counts()
@@ -5385,6 +5507,7 @@ def whisper_serve(arch, model, nbytes, frames):
     }, 16)
     log_profile("16 decode steps", device_profile(
         lambda: server.generate(prompts[:, :8], 8)), step_ms, 16)
+    return kept[0]
 
 
 def encdec_f32_card_vs_cpu():
@@ -5485,9 +5608,10 @@ def phase_encdec():
                              arch.encoder_layers + 2 * arch.n_layers)
     rows = whisper_prefill(arch, model, toks, extras, med)
     frames = extras["frames"][:SERVE_B]
-    whisper_serve(arch, model, nbytes, frames)
+    served = whisper_serve(arch, model, nbytes, frames)
     decode_vs_prefill(arch, model, " (full depth)", hold=False,
-                      extras={"frames": frames})
+                      extras={"frames": frames}, logits=served)
+    del served
     model.float()
     decode_vs_prefill(dataclasses.replace(arch, dtype="float32"), model,
                       " (full depth)", extras={"frames": frames.float()})
@@ -5518,6 +5642,102 @@ def phase_encdec():
 
 
 # ---------------------------------------------------------------------------
+# Phase 22: the two dense archs served on the card.
+# ---------------------------------------------------------------------------
+
+# qwen1.5-4b (40 layers, d 2560, 20/20 heads of 128, QKV bias, d_ff 6,912,
+# vocab 151,936) and stablelm-12b (40 layers, d 5120, 32/8 heads of 160,
+# d_ff 13,824, vocab 100,352) at full width and depth, bf16, random from a
+# seed: phase 8's prefill (B 1, S 8192) and phase 9's serving. K5 takes its
+# wgmma body at qwen's D 128 (group 1) and its simt body at stablelm's D
+# 160 (``dispatch.flash_attention_route``).
+DENSE_SERVED = ("qwen1.5-4b", "stablelm-12b")
+
+
+def dense_k5_row(q, k, v, kw, name, launches, err):
+    """K5's row at ``name``'s prefill shape: the wrapper's time and its
+    device time, the plain version's (one KV head group at a time), SDPA's
+    (causal, GQA) and the bound from the call's live pairs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    (B, Hq, Sq, D), (Hkv, Sk) = q.shape, k.shape[1:3]
+    g = Hq // Hkv
+    route = dispatch.flash_attention_route(q.dtype, D)
+
+    def plain():
+        return torch.cat([attention_ref(q[:, i * g:(i + 1) * g],
+                                        k[:, i:i + 1], v[:, i:i + 1], **kw)
+                          for i in range(Hkv)], dim=1)
+    with torch.no_grad():
+        ms = time_ms(lambda: flash_attention(q, k, v, **kw), 5, 1)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5, 1)
+        plain_ms = time_ms(plain, 2, 1)
+        dev = device_ms(lambda: flash_attention(q, k, v, **kw))
+    flops = 4.0 * Hq * D * B * live_pairs(Sq, Sk, True, 0)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b, why = bound_ms(nbytes, flops, BF16_FLOPS)
+    log(f"  K5 ({route}) at {name}'s prefill shape {tuple(q.shape)} / "
+        f"{tuple(k.shape)}: {ms:.4f} ms (device {fmt_ms(dev)}), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {b / ms:.3f} of the bound ({b:.4f}"
+        f" ms by {why}); SDPA {lib:.4f} ms; plain {plain_ms:.4f} ms")
+    return {"name": f"flash_attention ({name} prefill, {route}, "
+                    f"{tuple(q.shape)} / {tuple(k.shape)})",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b,
+            "bound_by": why, "library_ms": lib}
+
+
+def phase_dense():
+    """Phase 22: each of DENSE_SERVED at full width and depth: the prefill
+    at B 1, S 8192 (one K5 launch a layer, all on the body
+    ``dispatch.flash_attention_route`` names, no other kernel, finite
+    logits, the median of three; the path recorded for phase 20), K5 on
+    layer 0's q/k/v against its plain version (the prefill's bar) with
+    its times, bound and SDPA's; ``BatchedServer.generate`` at batch 8,
+    prompt 128, generate 32 (no kernel; ms a step against the weights'
+    bytes), and the served generate's decode logits at the last prompt
+    position against prefill's (``repro``'s bar). Returns K5's rows."""
+    import gc
+    import torch
+    from repro_torch.kernels import dispatch
+    t0 = time.perf_counter()
+    rows = []
+    for part, name in zip("ab", DENSE_SERVED):
+        log(f"phase 22 ({part}): {name} at full width and depth, prefill B "
+            f"{PREFILL_B} S {PREFILL_S}, serving batch {SERVE_B}, prompt "
+            f"{SERVE_P}, generate {SERVE_G}")
+        arch, model, nbytes = stub_model(name)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        toks = torch.randint(0, arch.vocab_size, (PREFILL_B, PREFILL_S),
+                             generator=gen, device="cuda", dtype=torch.int32)
+        route = dispatch.flash_attention_route(arch.torch_dtype,
+                                               arch.head_dim_)
+        kept = {}
+        launches, _ = counted_prefill(arch, model, toks, route=route,
+                                      kept=kept)
+        (q, k, v), kw = kept.pop("qkv")
+        err = k5_held(q, k, v, kw, f"the {name} prefill")
+        rows.append(dense_k5_row(q, k, v, kw, name, launches, err))
+        del q, k, v, toks
+        embed = model.embed.numel() * model.embed.element_size()
+        served = moe_serve(arch, model, nbytes - embed, diagnose=False)
+        decode_vs_prefill(arch, model, "", logits=served)
+        del model, served
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 22 done in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 16: LM training.
 # ---------------------------------------------------------------------------
 
@@ -5532,8 +5752,27 @@ TRAIN_ARCH, TRAIN_GB, TRAIN_K, TRAIN_STEPS = "tinyllama-1.1b", 2, 2, 8
 # killed at step 3 (the survivors resume at 2; (d) ran 12 steps, every 4,
 # killed at 6, before phase 21 took their time).
 TT_B, TT_S = 2, 512
+# (f), (g): the two archs whose batch carries extras, trained on one rank
+# through make_train_step: whisper-large-v3 at full width and depth, 8
+# clips of 1,500 stub frames and 448 decoder tokens (n_text_ctx) in 2
+# microbatches; pixtral-12b at full width, its depth cut from 40 to 8
+# layers, S 4096 (1,024 patch rows, 3,072 tokens), global batch 2 in 2
+# (all 40 layers need 196 GB at 16 B a parameter). The dry run's 1x1
+# cell at 8 layers: 73.64 GB (68.58 GiB of the card's 79.18), fits_hbm
+# with 11.4 GB to spare; 9 layers leave 6.6 GB, 10 layers 1.8 GB.
+TRAIN_X = {"whisper-large-v3": dict(B=8, S=448, k=2, steps=3, part="(f)"),
+           "pixtral-12b": dict(B=2, S=4096, k=2, steps=3, layers=8,
+                               part="(g)")}
 TT_MB = (8, 256, 3)                     # global batch, length, steps
 TT_GLOO = (8, 256, 4, 2)                # global batch, length, steps, every
+# (d)'s model: tinyllama's vocabulary and head dimension at d_model 256
+# (4 heads of 64 over one KV head), d_ff 704, 2 layers, f32: 17.8 M
+# parameters, a 0.21 GB checkpoint. Its checks (losses against the
+# undisturbed run, the events, the restore) need no width; at the 2-layer
+# tinyllama widths (219 M parameters, an 876 MB buffer through the host
+# and 2.63 GB checkpoints) the four ranks took 83.0 s (H100 80GB HBM3,
+# 700 W).
+TT_GLOO_WIDTHS = dict(d_model=256, n_heads=4, n_kv_heads=1, d_ff=704)
 TT_KILL = (3, [2, 3])
 
 
@@ -5754,11 +5993,247 @@ def phase_train_full():
         torch.cuda.empty_cache()
 
 
+def x_arch(name, c):
+    """``name``'s config at full width, its depth cut to ``c["layers"]``
+    where that is set (pixtral-12b's runs)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch = get_config(name)
+    if c.get("layers"):
+        arch = dataclasses.replace(arch, n_layers=c["layers"])
+    return arch
+
+
+def x_text_len(arch, S: int) -> int:
+    """The tokens of a train step of S positions in ``input_specs``' split
+    (a vision-stub arch's patch rows count in S)."""
+    return S - (min(arch.n_patches, S // 4)
+                if arch.frontend == "vision_stub" else 0)
+
+
+def x_extras(arch, B: int, S: int, seed: int):
+    """A train step's frames or patches (``prefill_inputs``' extras),
+    drawn by a generator of ``seed`` on the card: the same numbers in
+    every process that draws them."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return prefill_inputs(arch, B, S, gen)[1]
+
+
+def k5_per_microbatch(arch) -> int:
+    """K5's launches in one microbatch's forward: each decoder layer with
+    attention, and an encoder-decoder arch's encoder layers and each
+    decoder layer's cross-attention."""
+    from repro_torch.models import lm
+    n = sum(arch.block_at(i) in lm.ATTENTION_KINDS
+            for i in range(arch.n_layers))
+    return n + (arch.encoder_layers + arch.n_layers if arch.is_encdec
+                else 0)
+
+
+def x_shape(arch, c, part):
+    """The ``ShapeConfig`` of a train run ``c`` under its own name."""
+    import dataclasses
+    from repro_torch.configs import SHAPES
+    return dataclasses.replace(SHAPES["train_4k"], name=f"phase 16 {part}",
+                               global_batch=c["B"], seq_len=c["S"])
+
+
+def train_x_run(name, c):
+    """Phase 16 (f) or (g): ``name`` trained at full width on one rank
+    through ``make_train_step`` with its frames or patches in the batch
+    (``Trainer.run`` passes only tokens and targets, as ``repro``'s
+    does): c["steps"] steps of ``cosine_schedule(3e-4, 2, steps)``, the
+    same extras each step and the pipeline's tokens. Checks finite
+    losses, K5's launches (all wgmma), K5 on layer 0's q/k/v (the
+    encoder's, for whisper) against its plain version; records the path
+    for phase 20 under "``name`` train". Returns K5's launches a
+    microbatch."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime.driver import TrainerConfig, make_train_step
+
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = x_arch(name, c)
+    B, S, k, n, part = c["B"], c["S"], c["k"], c["steps"], c["part"]
+    T = x_text_len(arch, S)
+    cut = f", depth cut to {arch.n_layers} layers" if c.get("layers") \
+        else " and depth"
+    log(f"phase 16 {part}: training {name} at full width{cut} ({arch.dtype}"
+        f"), global batch {B} in {k} microbatches, {S} positions ({T} "
+        f"tokens{f', {S - T} patch rows' if S > T else ''}"
+        f"{f', {arch.encoder_seq} frames a clip' if arch.is_encdec else ''}"
+        f"), {n} steps of cosine_schedule(3e-4, 2, {n}), through "
+        f"make_train_step on one rank (device memory allocated before it "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
+    t0 = time.perf_counter()
+    model = lm.init_params(arch, seed=0, device="cuda")
+    model.requires_grad_(True)
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 2, n))
+    state = opt.init(dict(model.named_parameters()))
+    extras = x_extras(arch, B, S, 11)
+    torch.cuda.synchronize()
+    log(f"  {sum(p.numel() for p in model.parameters()):,} parameters, "
+        f"made on the card in {time.perf_counter() - t0:.2f} s; extras "
+        f"{ {e: tuple(v.shape) for e, v in extras.items()} }")
+    step = make_train_step(arch, opt, TrainerConfig(microbatches=k))
+    pipe = TokenPipeline(arch.vocab_size, B, T, seed=0)
+    timer = PhaseTimer()
+    real_grad = torch.autograd.grad
+    timed_grad = timer.wrap("backward", real_grad, False)
+    depth = [0]
+
+    def outer_grad(*args, **kw):          # K5's VJP calls grad inside
+        if depth[0]:
+            return real_grad(*args, **kw)
+        depth[0] += 1
+        try:
+            return timed_grad(*args, **kw)
+        finally:
+            depth[0] -= 1
+    k5_bwd = fa_ops._Flash.backward
+    patches = [
+        (lm, "train_loss", timer.wrap("forward", lm.train_loss, False)),
+        (L, "flash_attention", timer.wrap("k5_forward", L.flash_attention)),
+        (lm.Encoder, "forward", timer.wrap("encoder", lm.Encoder.forward,
+                                           False)),
+        (lm.Block, "_cross", timer.wrap("cross", lm.Block._cross, False)),
+        (torch.autograd, "grad", outer_grad),
+        (fa_ops._Flash, "backward",
+         staticmethod(timer.wrap("k5_backward", k5_bwd, False))),
+        (AdamW, "update", timer.wrap("optimizer", AdamW.update, False))]
+    saved = [(o, a, o.__dict__[a]) for o, a, _ in patches]
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    resident = path_bytes(model, state, extras)
+    losses, walls = [], []
+    for o, a, fn in patches:
+        setattr(o, a, fn)
+    try:
+        for i in range(n):
+            toks, tgts = pipe.batch_at(i)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            # the loss is a view of the step's f32 gradient buffer: kept
+            # into the next step, it would keep that buffer (4 B a
+            # parameter) too, as the trainer's float() does not
+            losses.append(float(timer.wrap("step", step, False)(
+                model, state, {"tokens": toks, "targets": tgts, **extras})))
+            walls.append(time.perf_counter() - t1)
+    finally:
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+    got, routes = read_counts(), dict(flash_attention.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    measured = measured_peak(before, resident)
+    per = k5_per_microbatch(arch)
+    want = dict.fromkeys(got, 0)
+    want["flash_attention"] = per * k * n
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  launches: {got} (expected {want}); K5 by body {routes} "
+        f"(expected wgmma {per} a microbatch x {k} x {n} steps)")
+    if got != want or routes != {"wgmma": per * k * n, "simt": 0}:
+        raise AssertionError(f"phase 16 {part} launches {got} {routes}")
+    if len(losses) != n or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 16 {part} losses {losses}")
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    log(f"  step walls (s): {' '.join(f'{w:.4f}' for w in walls)}; steady "
+        f"(median after the first) {steady:.4f} s, {B * S / steady:.1f} "
+        f"positions/s; peak device memory {peak / 2 ** 30:.3f} GiB")
+    # the tokens and targets, (B, T) int32, are made in the step: in the
+    # peak, and arguments of the dry run's step
+    MEASURED[f"{name} train"] = dict(
+        measured, args=resident + 2 * B * T * 4, arch=arch, seconds=steady,
+        shape=x_shape(arch, c, part),
+        opts={"remat": "none", "microbatches": k})
+
+    total, split = train_step_split(timer, k, per, n - 1)
+    # one rank, no group: make_train_step reduces nothing
+    del split["gradient reduction (one preduce, NCCL world 1)"]
+    if arch.is_encdec:
+        # the forward's K5 and rest, apart: each microbatch's K5 calls are
+        # the encoder's n_enc, then each decoder layer's self-attention and
+        # cross-attention in turn
+        n_enc, n_dec = arch.encoder_layers, arch.n_layers
+        k5 = [a.elapsed_time(b) for a, b in timer.events["k5_forward"]
+              [-k * per * (n - 1):]]
+        mbs = [k5[i * per:(i + 1) * per] for i in range(len(k5) // per)]
+        enc_k5, self_k5, cross_k5 = (
+            sum(sum(m[part]) for m in mbs) / (n - 1)
+            for part in (slice(n_enc), slice(n_enc, None, 2),
+                         slice(n_enc + 1, None, 2)))
+        last = {label: sum(a.elapsed_time(b) for a, b in timer.events[label]
+                           [-m * (n - 1):]) / (n - 1)
+                for label, m in (("encoder", k), ("cross", k * n_dec))}
+        fwd = split.pop("forward: K5 (wgmma)") \
+            + split.pop("forward: the rest (GEMMs, rope, norms, f32 logits, "
+                        "loss)")
+        split = {
+            f"forward: encoder ({n_enc} layers)": last["encoder"],
+            f"  of which K5 (bidirectional {arch.encoder_seq} x "
+            f"{arch.encoder_seq})": enc_k5,
+            f"forward: decoder cross steps ({n_dec})": last["cross"],
+            f"  of which K5 (bidirectional {T} x {arch.encoder_seq})":
+                cross_k5,
+            "forward: decoder K5 (causal)": self_k5,
+            "forward: decoder rest (GEMMs, norms, f32 logits, loss)":
+                fwd - last["encoder"] - last["cross"] - self_k5,
+            **split}
+    log(f"  where a step's time goes (device time by CUDA events, ms, mean "
+        f"of steps 2-{n}; the step {total:.1f} ms):")
+    for label, ms in split.items():
+        log(f"    {label:60s} {ms:10.2f}  {100 * ms / total:5.1f}%")
+    (q, kk, v), kw = timer.first["k5_forward"]
+    q, kk, v = (t.detach() for t in (q, kk, v))
+    what = "the encoder's layer 0" if arch.is_encdec else "layer 0"
+    err = k5_held(q, kk, v, kw, f"{what} in training step 1")
+    with torch.no_grad():
+        k5_ms = time_ms(lambda: flash_attention(q, kk, v, **kw), 10, 1)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, kk, v, is_causal=kw.get("causal", True), enable_gqa=True),
+            10, 1)
+    flops = 4.0 * q.shape[0] * q.shape[1] * q.shape[3] * live_pairs(
+        q.shape[2], kk.shape[2], kw.get("causal", True), 0)
+    nbytes = (2 * q.numel() + kk.numel() + v.numel()) * q.element_size()
+    bound, why = bound_ms(nbytes, flops, BF16_FLOPS)
+    log(f"  K5 at this shape {k5_ms:.4f} ms ({flops / k5_ms / 1e9:.1f} "
+        f"TFLOP/s), scaled_dot_product_attention {sdpa_ms:.4f} ms; bound "
+        f"{bound:.4f} ms by {why}")
+    del model, state, opt, extras, timer, q, kk, v, step
+    torch.cuda.empty_cache()
+    return {"launches_per_microbatch": per, "max_abs_err": err,
+            "ms": k5_ms, "library_ms": sdpa_ms, "bound_ms": bound}
+
+
+def phase_train_extras():
+    """Phase 16 (f), (g): TRAIN_X's runs. Returns K5's launches a
+    microbatch of each."""
+    return {name: train_x_run(name, c)["launches_per_microbatch"]
+            for name, c in TRAIN_X.items()}
+
+
 def tiny_train_arch():
     import dataclasses
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config(TINY), n_layers=TINY_LAYERS,
                                dtype="float32")
+
+
+def gloo_train_arch():
+    """(d)'s model: tiny_train_arch narrowed to TT_GLOO_WIDTHS."""
+    import dataclasses
+    return dataclasses.replace(tiny_train_arch(), **TT_GLOO_WIDTHS)
 
 
 def train_optimizer():
@@ -5940,7 +6415,7 @@ def train_rank(rank, world, tmp):
     from repro_torch.runtime import FailureInjector
     from repro_torch.runtime.driver import Trainer, TrainerConfig
 
-    arch = tiny_train_arch()
+    arch = gloo_train_arch()
     B, S, n, every = TT_GLOO
     out = {}
     for name in ("undisturbed", "failure"):
@@ -5980,7 +6455,8 @@ def phase_train_gloo():
     B, S, n, every = TT_GLOO
     step, dead = TT_KILL
     back = step // every * every        # the checkpoint the survivors resume
-    log(f"phase 16 (d): {TINY} widths at {TINY_LAYERS} layers, f32, {P_GLOO} "
+    log(f"phase 16 (d): {TINY} narrowed to {TT_GLOO_WIDTHS} at "
+        f"{TINY_LAYERS} layers, f32, {P_GLOO} "
         f"gloo ranks on the one card, global batch {B}, S={S}, {n} steps, a "
         f"checkpoint every {every}: undisturbed, then ranks {dead} killed at "
         f"step {step}")
@@ -6030,98 +6506,158 @@ def phase_train_gloo():
         raise AssertionError("(d) the recovered losses differ")
 
 
+# Phase 14 (e): the static contracts' CLI on the card, one pass on the
+# Lasso family (14 (a) ran the whole registry in the script's process).
+ANALYSIS_CLI = ["-m", "repro_torch.analysis", "--json", "--families",
+                "lasso", "--checks", "collectives"]
+
+
+def analysis_cli_ok(rc, out):
+    """Phase 14 (e)'s check: exit 0 and the JSON report's ``ok``; logs its
+    subjects and errors."""
+    try:
+        cli = json.loads(out) if rc == 0 else {}
+    except ValueError:
+        cli = {}
+    log(f"  phase 14 (e): python {' '.join(ANALYSIS_CLI)} on the card: "
+        f"exit {rc}, ok {cli.get('ok')}, {len(cli.get('checked', ()))} "
+        f"subjects, {cli.get('errors')} error(s)")
+    return rc == 0 and bool(cli.get("ok"))
+
+
 def launcher_cmd(module, arch, *args):
     return [sys.executable, "-m", f"repro_torch.launch.{module}", "--arch",
             arch, "--smoke", *args]
 
 
-def phase_launchers():
-    """Phases 17 (e), 18 (d), 19 (d) and 16 (e): the serving and training
-    launchers on the card, each a process of its own, started together
-    (the kernels are built; the smoke models share the card) and each
-    held to its own check: mixtral-smoke, hymba-smoke and xlstm-smoke
-    decode (hymba-smoke's heads of 20 are not a K5 head dimension, so
-    decode only), pixtral-smoke serves and whisper is refused with
-    ``repro``'s message; tinyllama-smoke trains 20 steps and writes its
-    checkpoint. Together they take about the longest one's time, where
-    one after another took their sum (they run so to make room for
-    phase 21)."""
-    import re
+def launchers_start():
+    """Phases 17 (e), 18 (d), 19 (d), 16 (e) and 14 (e): the serving and
+    training launchers and the static contracts' CLI on the card, and
+    phase 16 (d) (``phase_train_gloo`` in a process of its own), each a
+    process, started together (the kernels are built; the smoke models
+    share the card); ``launchers_finish`` holds each to its own check:
+    mixtral-smoke, hymba-smoke and xlstm-smoke decode (hymba-smoke's heads
+    of 20 are not a K5 head dimension, so decode only), pixtral-smoke
+    serves and whisper is refused with ``repro``'s message;
+    tinyllama-smoke trains 20 steps and writes its checkpoint; ``python
+    -m repro_torch.analysis --json --families lasso --checks collectives``
+    exits 0 with ``ok`` (``analysis_cli_ok``); 16 (d) exits 0. They run
+    beside phase 21, whose checks hold no time (its ranks' collectives
+    go through the host for minutes): one after another they took their
+    sum, together about the longest one's time (~29 s, and 16 (d) ~27 s
+    before), beside phase 21 nothing. Returns their state."""
     import tempfile
+    me = os.path.splitext(os.path.basename(__file__))[0]
     serve = ("--prompt-len", "40", "--gen-len", "16")
-    with tempfile.TemporaryDirectory(prefix="phase16_cli_") as tmp:
-        ckpt = os.path.join(tmp, "ckpt")
+    tmp = tempfile.TemporaryDirectory(prefix="phase16_cli_")
+    ckpt = os.path.join(tmp.name, "ckpt")
+    runs = [
+        ("phase 17 (e)", launcher_cmd("serve", MIXTRAL, *serve),
+         lambda rc, out, err: rc == 0
+         and "arch=mixtral-smoke generated (4, 16)" in out + err),
+        ("phase 18 (d)", launcher_cmd("serve", HYMBA, *serve),
+         lambda rc, out, err: rc == 0
+         and "arch=hymba-smoke generated (4, 16)" in out + err),
+        ("phase 18 (d)", launcher_cmd("serve", XLSTM, *serve),
+         lambda rc, out, err: rc == 0
+         and "arch=xlstm-smoke generated (4, 16)" in out + err),
+        ("phase 19 (d)", launcher_cmd("serve", PIXTRAL, *serve),
+         lambda rc, out, err: rc == 0
+         and "arch=pixtral-smoke generated (4, 16)" in out + err),
+        ("phase 19 (d)", launcher_cmd("serve", WHISPER, *serve),
+         lambda rc, out, err: rc == 1
+         and "use the audio pipeline for enc-dec archs" in out + err),
+        ("phase 16 (e)", launcher_cmd("train", TRAIN_ARCH, "--steps",
+                                      "20", "--ckpt-dir", ckpt),
+         lambda rc, out, err: launcher_trained(rc, out + err, ckpt)),
+        ("phase 14 (e)", [sys.executable, *ANALYSIS_CLI],
+         lambda rc, out, err: analysis_cli_ok(rc, out)),
+        # four gloo ranks of its own, whose checks (losses, events, the
+        # restore) raise in it: its log is printed whole
+        ("phase 16 (d)", [sys.executable, "-c", f"import {me}; "
+                          f"{me}.phase_train_gloo()"],
+         lambda rc, out, err: rc == 0)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), SRC]))
+    t0 = time.perf_counter()
+    procs, ends = [], {}
+    for i, (label, cmd, check) in enumerate(runs):
+        out = tempfile.TemporaryFile(mode="w+")
+        err = tempfile.TemporaryFile(mode="w+")
+        p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out, stderr=err,
+                             text=True)
+        procs.append((label, cmd, check, out, err, p))
+        # each one's end, seen when it comes (the script is busy then)
+        threading.Thread(target=lambda i=i, p=p: (
+            p.wait(), ends.setdefault(i, time.perf_counter() - t0)),
+            daemon=True).start()
+    return {"tmp": tmp, "ckpt": ckpt, "procs": procs, "t0": t0,
+            "ends": ends}
 
-        def trained(rc, text):
-            m = re.search(r"arch=tinyllama-smoke steps=20 loss (\S+) -> "
-                          r"(\S+)", text)
-            return rc == 0 and m is not None \
-                and sorted(os.listdir(ckpt)) == ["step_00000020"]
-        runs = [
-            ("phase 17 (e)", launcher_cmd("serve", MIXTRAL, *serve),
-             lambda rc, text: rc == 0
-             and "arch=mixtral-smoke generated (4, 16)" in text),
-            ("phase 18 (d)", launcher_cmd("serve", HYMBA, *serve),
-             lambda rc, text: rc == 0
-             and "arch=hymba-smoke generated (4, 16)" in text),
-            ("phase 18 (d)", launcher_cmd("serve", XLSTM, *serve),
-             lambda rc, text: rc == 0
-             and "arch=xlstm-smoke generated (4, 16)" in text),
-            ("phase 19 (d)", launcher_cmd("serve", PIXTRAL, *serve),
-             lambda rc, text: rc == 0
-             and "arch=pixtral-smoke generated (4, 16)" in text),
-            ("phase 19 (d)", launcher_cmd("serve", WHISPER, *serve),
-             lambda rc, text: rc == 1
-             and "use the audio pipeline for enc-dec archs" in text),
-            ("phase 16 (e)", launcher_cmd("train", TRAIN_ARCH, "--steps",
-                                          "20", "--ckpt-dir", ckpt),
-             trained)]
-        env = dict(os.environ, PYTHONPATH=SRC)
-        t0 = time.perf_counter()
-        procs = []
-        for label, cmd, check in runs:
-            out = tempfile.TemporaryFile(mode="w+")
-            procs.append((label, cmd, check, out, subprocess.Popen(
-                cmd, cwd=ROOT, env=env, stdout=out,
-                stderr=subprocess.STDOUT, text=True)))
-        ends = {}
+
+def launcher_trained(rc, text, ckpt):
+    """Phase 16 (e)'s check: exit 0, the loss line, one checkpoint."""
+    import re
+    m = re.search(r"arch=tinyllama-smoke steps=20 loss (\S+) -> (\S+)",
+                  text)
+    return rc == 0 and m is not None \
+        and sorted(os.listdir(ckpt)) == ["step_00000020"]
+
+
+def launchers_finish(state) -> None:
+    """Wait for ``launchers_start``'s processes (600 s at most from their
+    start), log each and raise if any failed its check."""
+    procs, t0, ckpt = state["procs"], state["t0"], state["ckpt"]
+    ends = state["ends"]
+    try:
         while len(ends) < len(procs):
-            for i, (*_, p) in enumerate(procs):
-                if i not in ends and p.poll() is not None:
-                    ends[i] = time.perf_counter() - t0
             if time.perf_counter() - t0 > 600:
                 for *_, p in procs:
                     p.kill()
                 raise AssertionError("the launchers ran past 600 s")
             time.sleep(0.05)
         failed = []
-        for i, (label, cmd, check, out, p) in enumerate(procs):
-            out.seek(0)
-            text = out.read()
-            out.close()
+        for i, (label, cmd, check, out, err, p) in enumerate(procs):
+            texts = []
+            for f in (out, err):
+                f.seek(0)
+                texts.append(f.read())
+                f.close()
+            text = "\n".join(t.strip() for t in texts if t.strip())
             shown = " ".join(cmd[1:]).replace(ckpt, "<tmp>")
+            tail = text[-300:] if "--json" not in cmd else \
+                f"{len(texts[0])} bytes of JSON"
+            if label == "phase 16 (d)":          # its own log, whole
+                tail = "\n" + texts[0].rstrip()
             log(f"{label}: {shown}: exit {p.returncode} in {ends[i]:.1f} s "
-                f"(started together): {text.strip()[-300:]}")
-            if not check(p.returncode, text):
+                f"(started together): {tail}")
+            if not check(p.returncode, *texts):
                 failed.append(f"{label} {shown}: {text[-3000:]}")
+    finally:
+        state["tmp"].cleanup()
     log(f"  the {len(procs)} launchers together in "
         f"{max(ends.values()):.1f} s")
     if failed:
         raise AssertionError(f"the launchers: {failed}")
 
 
+def phase_launchers():
+    """The launchers of ``launchers_start`` alone, waited for."""
+    launchers_finish(launchers_start())
+
 
 def phase_training():
-    """Phase 16: (a) full width, (b) card against CPU, (c) microbatches,
-    (d) the checkpoint and a failure over gloo ranks, (e) the CLI, run
-    with phases 17-19's launchers (``phase_launchers``). Returns what
+    """Phase 16: (a) full width, (f) and (g) the archs with extras at full
+    width (``phase_train_extras``), (b) card against CPU, (c)
+    microbatches; (d), the checkpoint and a failure over gloo ranks, and
+    (e), the CLI, run in processes of their own beside phase 21, with
+    phases 14 and 17-19's launchers (``launchers_start``). Returns what
     K5's row gains."""
     t0 = time.perf_counter()
     row = phase_train_full()
+    row["train_x_launches_per_microbatch"] = phase_train_extras()
     phase_train_card_vs_cpu()
     phase_train_microbatches()
-    phase_train_gloo()
-    phase_launchers()
     log(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
     return row
 
@@ -6133,11 +6669,12 @@ def phase_training():
 # The paths phase 20 holds the dry run to, by the arch name each measured
 # path recorded in MEASURED: phase 8, 16 (a), 17 (a), 19 (a) and (b).
 DRY_PATHS = (LLAMA, "tinyllama-1.1b", "mixtral-8x7b", "whisper-large-v3",
-             "pixtral-12b")
+             "pixtral-12b", "whisper-large-v3 train", "pixtral-12b train",
+             "qwen1.5-4b", "stablelm-12b")
 PEAK_RATIO = (0.8, 1.25)
 
 
-def phase_dryrun(smi: str):
+def phase_dryrun(smi: str, paths=DRY_PATHS):
     """Phase 20: ``repro_torch.launch.dryrun.run_cell`` on a one-card mesh
     at each measured path's own arch and shape (on the meta device, on
     this machine's CPU): (a) its argument bytes equal the card's model,
@@ -6168,13 +6705,19 @@ def phase_dryrun(smi: str):
         f"{HW_H100.hbm_bytes}; the card reports "
         f"{torch.cuda.get_device_properties(0).total_memory})")
     rows = []
-    for name in DRY_PATHS:
+    # phase 16 (f) and (g)'s cells come from the dry run's subprocess
+    # (``tp_dry_start``): whisper's train step takes ~10 s of host
+    waited = tp_dry_collect([1])
+    log(f"  (phase 16 (f) and (g)'s cells from the dry run's subprocess; "
+        f"waited {waited:.1f} s)")
+    for name in paths:
         got = MEASURED[name]
         arch, shape = got["arch"], got["shape"]
         opts = dryrun.DryrunOptions(cost_fit=False, **got.get("opts", {}))
         t1 = time.perf_counter()
-        r = dryrun.run_cell(arch.name, shape.name, mesh=one, arch=arch,
-                            shape=shape, opts=opts, verbose=False)
+        r = TP_DRY["cells"].get(f"phase 20 {name}") or dryrun.run_cell(
+            arch.name, shape.name, mesh=one, arch=arch, shape=shape,
+            opts=opts, verbose=False)
         if r["status"] != "ok":
             raise AssertionError(f"phase 20: the dry run of {name} failed: "
                                  f"{r.get('traceback')}")
@@ -6210,13 +6753,14 @@ def phase_dryrun(smi: str):
                 raise AssertionError(f"phase 20 (c) {name}: card "
                                      f"{got['card_flops']} != meta {meta}")
         rows.append((name, terms["bound_s"] / sec, mfu))
-    if not any("card_flops" in MEASURED[n] for n in DRY_PATHS):
+    if LLAMA in paths \
+            and not any("card_flops" in MEASURED[n] for n in paths):
         raise AssertionError("phase 20 (c): no path carried card FLOPs")
 
     full = get_config("mixtral-8x7b")
-    path = MEASURED["mixtral-8x7b"]
+    path = MEASURED.get("mixtral-8x7b")
     fits = {}
-    for what, arch, shape in (
+    for what, arch, shape in () if path is None else (
             ("prefill_32k, full depth", full, SHAPES["prefill_32k"]),
             ("prefill_32k, 16 layers", path["arch"], SHAPES["prefill_32k"]),
             ("phase 17's path, full depth", full, path["shape"]),
@@ -6232,7 +6776,7 @@ def phase_dryrun(smi: str):
     want = {"prefill_32k, full depth": False,
             "phase 17's path, full depth": False,
             "phase 17's path, 16 layers": True}
-    if any(fits[k] != v for k, v in want.items()):
+    if path is not None and any(fits[k] != v for k, v in want.items()):
         raise AssertionError(f"phase 20 (e): fits_hbm {fits}, expected "
                              f"{want}")
 
@@ -6317,8 +6861,20 @@ TP_FULL = {"tinyllama-1.1b": dict(B=2, S=2048, k=2, steps=2, sp=True,
                                         sp=False, part="(b)"),
            "hymba-1.5b": dict(B=2, S=2048, k=2, steps=2, sp=True,
                               part="(e)"),
-           "xlstm-350m": dict(B=2, S=512, k=1, steps=2, sp=False,
+           "xlstm-350m": dict(B=2, S=256, k=1, steps=2, sp=False,
                               part="(f)")}
+# (h), (i): the archs whose batch carries extras, their frames or patches
+# from a seed (the same on one rank and on each rank: the model axis does
+# not split the batch), through the trainer's step. whisper-large-v3 at full
+# width and depth, S 448 (its 1,500 frames a clip whole on each rank: the
+# encoder runs without sequence parallelism, the decoder with it); the
+# heads 10 a rank, the tied vocabulary 25,933. pixtral-12b at full width,
+# 8 layers (phase 16 (g)'s cut), S 2048 (512 patch rows first, on rank 0
+# under shard_acts), heads 16 / 4 a rank, the vocabulary 65,536.
+TP_X = {"whisper-large-v3": dict(B=2, S=448, k=2, steps=2, sp=True,
+                                 part="(h)"),
+        "pixtral-12b": dict(B=2, S=2048, k=2, steps=2, sp=True, layers=8,
+                            part="(i)")}
 TP_FSDP = dict(B=2, S=2048, k=1, steps=2, sp=False)
 TP_F32 = dict(B=4, S=256, steps=2, layers=2)
 # (c)'s widths: hymba's flat columns too
@@ -6351,32 +6907,46 @@ TP_DRY = {}
 
 def tp_dry_runs():
     """{key: (arch name, run, mesh)} of the runs whose cells phase 21
-    reads: TP_FULL's at 1x2, and "fsdp", (d)'s at 2x1."""
+    reads: TP_FULL's and TP_X's at 1x2, and "fsdp", (d)'s at 2x1."""
     from repro_torch.launch.mesh import make_mesh
     runs = {name: (name, c, make_mesh((1, TP_M), ("data", "model")))
-            for name, c in TP_FULL.items()}
+            for name, c in {**TP_FULL, **TP_X}.items()}
     runs["fsdp"] = (TRAIN_ARCH, TP_FSDP,
                     make_mesh((TP_M, 1), ("data", "model")))
     return runs
 
 
 def tp_dry_write(path: str, keys: str) -> None:
-    """The dry run's cells of the phase 21 runs ``keys`` (comma-separated
-    keys of ``tp_dry_runs``), {key: its train cell, key + " decode": the
-    arch's 1x2 decode cell (TP_FULL's runs)}, each rank 0's, and rank 1's
-    of a run with shard_acts (key + " rank 1"), written to ``path`` as
-    JSON (what a subprocess runs). Only under shard_acts do a model
-    group's ranks run different shapes: the prefix rows (hymba's meta
-    tokens) sit on rank 0 and, with a vocabulary the axis does not split,
+    """The dry run's cells of the runs ``keys`` (comma-separated keys of
+    ``tp_dry_runs``, or "``name`` train" for phase 16's TRAIN_X runs, which
+    phase 20 reads as "phase 20 ``name`` train"): {key: its train cell,
+    key + " decode": the arch's 1x2 decode cell (TP_FULL's runs)}, each
+    rank 0's, and rank 1's of a run
+    with shard_acts (key + " rank 1"), written to ``path`` as JSON (what a
+    subprocess runs). Only under shard_acts do a model group's ranks run
+    different shapes: the prefix rows (hymba's meta tokens, pixtral's
+    patches) sit on rank 0 and, with a vocabulary the axis does not split,
     carry no logits there."""
     import dataclasses
     import torch
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
     torch.set_num_threads(1)
     runs = tp_dry_runs()
     cells = {}
     for key in keys.split(","):
+        if key.endswith(" train"):            # phase 16 (f), (g) on one card
+            name = key[:-len(" train")]
+            c = TRAIN_X[name]
+            arch = x_arch(name, c)
+            shape = x_shape(arch, c, c["part"])
+            cells["phase 20 " + key] = dryrun.run_cell(
+                name, shape.name, mesh=make_mesh((1, 1), ("data", "model")),
+                arch=arch, shape=shape, opts=dryrun.DryrunOptions(
+                    cost_fit=False, remat="none", microbatches=c["k"]),
+                verbose=False)
+            continue
         name, c, mesh = runs[key]
         shape = dataclasses.replace(SHAPES["train_4k"], global_batch=c["B"],
                                     seq_len=c["S"])
@@ -6384,11 +6954,11 @@ def tp_dry_write(path: str, keys: str) -> None:
         # named cell's default (xlstm-350m's train_4k: 2)
         for r in range(TP_M if c["sp"] else 1):
             cells[key + (f" rank {r}" if r else "")] = dryrun.run_cell(
-                name, "phase 21", mesh=mesh, arch=get_config(name),
+                name, "phase 21", mesh=mesh, arch=x_arch(name, c),
                 shape=shape, opts=dryrun.DryrunOptions(
                     cost_fit=False, remat="none", microbatches=c["k"],
                     shard_acts=c["sp"]), verbose=False, rank=r)
-        if key == "fsdp":
+        if key not in TP_FULL:
             continue
         # (g)'s decode at its batch and cache length
         shape = dataclasses.replace(SHAPES["decode_32k"],
@@ -6405,15 +6975,16 @@ def tp_dry_write(path: str, keys: str) -> None:
 def tp_dry_start() -> None:
     """Start ``tp_dry_write`` in two subprocesses at nice 19 (once): one
     for xlstm-350m's cells (its sLSTM's steps, op by op on the meta
-    device, are most of the work), one for the rest, so the cells are
-    ready no later than xlstm's alone. They are killed at exit if phase
-    21 never collects them."""
+    device, are most of the work), one for the rest and phase 20's cells
+    of TRAIN_X's runs, so the cells are ready no later than xlstm's alone.
+    They are killed at exit if nothing collects them."""
     if TP_DRY:
         return
     import atexit
     import tempfile
     me = os.path.splitext(os.path.basename(__file__))[0]
-    keys = list(TP_FULL) + ["fsdp"]
+    keys = list(TP_FULL) + list(TP_X) + ["fsdp"] \
+        + [f"{name} train" for name in TRAIN_X]
     heavy = "xlstm-350m"
     procs = []
     for part in (heavy, ",".join(k for k in keys if k != heavy)):
@@ -6428,26 +6999,37 @@ def tp_dry_start() -> None:
             stderr=subprocess.PIPE, text=True)
         procs.append((proc, path))
         atexit.register(lambda p=proc: p.poll() is None and p.kill())
-    TP_DRY.update(procs=procs, t0=time.perf_counter())
+    TP_DRY.update(procs=procs, t0=time.perf_counter(), cells={}, done=set())
 
 
-def tp_dry_cells() -> dict:
-    """Wait for the dry run's cells ({key: cell})."""
+def tp_dry_collect(which) -> float:
+    """Wait for the subprocesses ``which`` (indices into TP_DRY["procs"])
+    and add their cells to TP_DRY["cells"]; the seconds waited."""
     tp_dry_start()
     t0 = time.perf_counter()
-    cells = {}
-    for proc, path in TP_DRY["procs"]:
+    for i in which:
+        if i in TP_DRY["done"]:
+            continue
+        proc, path = TP_DRY["procs"][i]
         _, err = proc.communicate(timeout=1200)
         if proc.returncode:
-            raise AssertionError(f"phase 21: the dry run's subprocess "
-                                 f"failed: {err[-3000:]}")
+            raise AssertionError(f"the dry run's subprocess failed: "
+                                 f"{err[-3000:]}")
         with open(path) as f:
-            cells.update(json.load(f))
+            TP_DRY["cells"].update(json.load(f))
         os.remove(path)
+        TP_DRY["done"].add(i)
+    return time.perf_counter() - t0
+
+
+def tp_dry_cells(heavy: bool = True) -> dict:
+    """Wait for the dry run's cells ({key: cell}; without xlstm-350m's
+    unless ``heavy``)."""
+    waited = tp_dry_collect([0, 1] if heavy else [1])
     log(f"  the dry run's 1x2 and 2x1 cells (two subprocesses at nice 19): "
         f"done {time.perf_counter() - TP_DRY['t0']:.1f} s after their "
-        f"start, waited {time.perf_counter() - t0:.1f} s for")
-    return cells
+        f"start, waited {waited:.1f} s for")
+    return TP_DRY["cells"]
 
 
 def tp_schedule():
@@ -6481,12 +7063,14 @@ def tp_f32_arch(name):
 
 def tp_trainer(arch, B, S, steps, k=1, sp=False, m=1, group=None, opt=None):
     """A trainer that keeps no checkpoint (its save is a no-op: a
-    full-width gather and write is phase 16's to time)."""
+    full-width gather and write is phase 16's to time); its pipeline's
+    rows hold the tokens of S positions (``x_text_len``)."""
     import tempfile
     from repro_torch.data import TokenPipeline
     from repro_torch.runtime.driver import Trainer, TrainerConfig
     tr = Trainer(arch, opt or tp_schedule(),
-                 TokenPipeline(arch.vocab_size, B, S, seed=0),
+                 TokenPipeline(arch.vocab_size, B, x_text_len(arch, S),
+                               seed=0),
                  TrainerConfig(steps=steps, ckpt_dir=tempfile.mkdtemp(
                      prefix="phase21_"), ckpt_every=steps + 1,
                      microbatches=k, model_axis=m, shard_acts=sp),
@@ -6775,7 +7359,7 @@ def tp_full_run(name, group, c=None, m=None, force=None):
 
     serve = c is None                        # (g) before (a)-(f) train
     c = c or TP_FULL[name]
-    arch = get_config(name)
+    arch = x_arch(name, c)
     if m is None:
         m = 1 if group is None else TP_M
     torch.cuda.empty_cache()
@@ -6786,10 +7370,13 @@ def tp_full_run(name, group, c=None, m=None, force=None):
     build = torch.cuda.max_memory_allocated()
     served = tp_serve(arch, tr.model, group, c["S"], force=force) \
         if serve else None
+    # (h), (i): the frames or patches, every row on each rank (data 1),
+    # the same each step
+    extras = x_extras(arch, c["B"], c["S"], 13)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    resident = path_bytes(tr.model, tr.opt_state)
+    resident = path_bytes(tr.model, tr.opt_state, extras)
     inner, walls, kept = tr.step_fn, [], {}
     real_fa = L.flash_attention
 
@@ -6798,17 +7385,18 @@ def tp_full_run(name, group, c=None, m=None, force=None):
         return real_fa(q, k, v, **kw)
     rec = Recorder()
 
-    def step(*args):
+    def step(model, state, batch):
         # the ranks' last step under the Recorder (one rank has no
         # collectives to tally, and the Recorder's dispatch costs host)
         last = len(walls) == c["steps"] - 1 and group is not None
+        batch = dict(batch, **extras)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if last:
             with rec:
-                out = inner(*args)
+                out = inner(model, state, batch)
         else:
-            out = inner(*args)
+            out = inner(model, state, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         return out
@@ -6827,7 +7415,7 @@ def tp_full_run(name, group, c=None, m=None, force=None):
     grid = tr.grid
     rows = c["B"] // grid.data.size          # the rank's tokens and targets
     out = {"losses": res["losses"], "walls": walls, "launches": got,
-           "args": peak["args"] + 2 * rows * c["S"] * 4,
+           "args": peak["args"] + 2 * rows * x_text_len(arch, c["S"]) * 4,
            "reductions": counted.n,
            "peak": peak["peak"], "other": peak["other"],
            "collectives": {"model": tp_group(rec, grid.model.group),
@@ -6836,7 +7424,7 @@ def tp_full_run(name, group, c=None, m=None, force=None):
            "k5_shape": None, "k5_err": None, "k5_ok": None,
            "params": sum(p.numel() for p in tr.model.parameters()),
            "events": res["events"], "lost": res["lost"], "serve": served}
-    del tr
+    del tr, extras
     if "qkv" in kept:                        # an arch with attention
         (q, k, v), kw = kept.pop("qkv")
         with torch.no_grad():
@@ -6875,11 +7463,17 @@ def tp_f32_run(name, sp, group, tmp, rank):
     return {"losses": res["losses"], "grad_err": worst, "serve": served}
 
 
-def tp_rank(rank, world, tmp):
-    """Phase 21 on one of the two gloo ranks sharing the card."""
+def tp_rank(rank, world, tmp, extras_only=False):
+    """Phase 21 on one of the two gloo ranks sharing the card (only (h)
+    and (i) with ``extras_only``)."""
     import torch
     import torch.distributed as dist
     out = {}
+    for name, c in TP_X.items():
+        out[name] = tp_full_run(name, dist.group.WORLD, c)
+    if extras_only:
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+        return
     picks = torch.load(os.path.join(tmp, "picks.pt"), weights_only=False)
     for name in TP_FULL:
         out[name] = tp_full_run(name, dist.group.WORLD,
@@ -6896,16 +7490,17 @@ def tp_rel(got, want):
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
 
-def phase_tp(smi: str):
+def phase_tp(smi: str, extras_only: bool = False):
     """Phase 21: tensor, expert and sequence parallelism over two gloo
-    ranks sharing the card (see TP_FULL, TP_F32): (a), (b), (e) and (f)
-    at full width, with the dry run's 1x2 prediction of each rank's
-    argument bytes, its last step's FLOPs and collectives (by axis and
-    kind, count and result bytes; all exact) and its peak (within phase
-    20's PEAK_RATIO), and (c); then (d), FSDP over the two ranks as data
-    2 (TP_FSDP, ``phase_tp_fsdp``, held to the 2x1 cell the same way);
-    (g), their split serving before they train (TP_SERVE,
-    ``phase_tp_serve``)."""
+    ranks sharing the card (see TP_FULL, TP_X, TP_F32): (a), (b), (e),
+    (f), (h) and (i) at full width, with the dry run's 1x2 prediction of
+    each rank's argument bytes, its last step's FLOPs and collectives (by
+    axis and kind, count and result bytes; all exact; a rank's own cell
+    under shard_acts) and its peak (within phase 20's PEAK_RATIO), and
+    (c); then (d), FSDP over the two ranks as data 2 (TP_FSDP,
+    ``phase_tp_fsdp``, held to the 2x1 cell the same way); (g), their
+    split serving before they train (TP_SERVE, ``phase_tp_serve``). With
+    ``extras_only``, (h) and (i) alone."""
     import tempfile
     import torch
     from repro_torch.configs import get_config
@@ -6918,14 +7513,16 @@ def phase_tp(smi: str):
         f"ranks on the one card as one model group (data 1 x model {TP_M}), "
         f"then as data {TP_M} x model 1 (FSDP); gloo reduces CUDA tensors "
         f"through the host, not NCCL over NVLink; {smi}")
+    full = {} if extras_only else TP_FULL
     with tempfile.TemporaryDirectory(prefix="phase21_") as tmp:
-        one = {name: tp_full_run(name, None) for name in TP_FULL}
+        one = {name: tp_full_run(name, None, c) for name, c in TP_X.items()}
+        one.update((name, tp_full_run(name, None)) for name in full)
         # (g): one rank's MoE decode picks, which the ranks decode with too
         torch.save({name: {"prefill": one[name]["serve"]["prefill_picks"],
                            "decode": one[name]["serve"]["picks"]}
-                    for name in TP_FULL if get_config(name).n_experts},
+                    for name in full if get_config(name).n_experts},
                    os.path.join(tmp, "picks.pt"))
-        for name in TP_F32_ARCHS:
+        for name in () if extras_only else TP_F32_ARCHS:
             arch = tp_f32_arch(name)
             opt = TpRecording(tp_schedule())
             tr = tp_trainer(arch, TP_F32["B"], TP_F32["S"], TP_F32["steps"],
@@ -6940,18 +7537,20 @@ def phase_tp(smi: str):
             torch.cuda.empty_cache()
         t1 = time.perf_counter()
         distributed.run_ranks(tp_rank, TP_M, "gloo", device="cuda",
-                              args=(tmp,))
+                              args=(tmp, extras_only))
         ranks = {r: torch.load(os.path.join(tmp, f"rank{r}.pt"),
                                weights_only=False) for r in range(TP_M)}
         log(f"  {TP_M} ranks done in {time.perf_counter() - t1:.1f} s")
-    cells = tp_dry_cells()
+    cells = tp_dry_cells(heavy=not extras_only)
     failed = []
-    for name, c in TP_FULL.items():
-        arch = get_config(name)
+    for name, c in {**full, **TP_X}.items():
+        arch = x_arch(name, c)
         part = c["part"]
         want = one[name]["losses"]
         layers, k = arch.n_layers, c["k"]
-        log(f"  {part} {name}: full width and depth ({layers} layers, "
+        depth = f"depth cut to {layers} layers (" if c.get("layers") \
+            else f"depth ({layers} layers, "
+        log(f"  {part} {name}: full width and {depth}"
             f"{arch.dtype}), S {c['S']}, global batch {c['B']} in {k} "
             f"microbatch(es), {c['steps']} steps, shard_acts {c['sp']}, "
             f"cosine_schedule(3e-4, 2, {TRAIN_STEPS}); one-rank losses "
@@ -6961,10 +7560,10 @@ def phase_tp(smi: str):
             f"{' '.join(f'{w:.4f}' for w in o['walls'])}; peak "
             f"{o['peak'] / 2 ** 30:.3f} GiB; arguments {o['args']} B; "
             f"launches {o['launches']}")
-        # K5 launches: each attention layer, a microbatch and step, at the
+        # K5 launches: each attention layer (and an encoder-decoder arch's
+        # encoder layers and cross calls), a microbatch and step, at the
         # rank's heads, or at the whole heads where the split cuts a head
-        per = sum(arch.block_at(i) in lm.ATTENTION_KINDS
-                  for i in range(layers)) * k * c["steps"]
+        per = k5_per_microbatch(arch) * k * c["steps"]
         heads = arch.n_heads // TP_M if arch.n_heads % TP_M == 0 \
             and arch.n_kv_heads % TP_M == 0 else arch.n_heads
         for r in range(TP_M):
@@ -7018,14 +7617,16 @@ def phase_tp(smi: str):
                        for x in tp_held_to_dry(got, cell)]
             if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
                 failed.append(f"{part} rank {r}: peak ratio {ratio}")
-    failed += phase_tp_fsdp(one[TRAIN_ARCH]["losses"], ranks, cells["fsdp"])
-    try:
-        phase_tp_serve(one, ranks, cells, smi)
-    except AssertionError as e:
-        failed.append(str(e))
+    if not extras_only:
+        failed += phase_tp_fsdp(one[TRAIN_ARCH]["losses"], ranks,
+                                cells["fsdp"])
+        try:
+            phase_tp_serve(one, ranks, cells, smi)
+        except AssertionError as e:
+            failed.append(str(e))
     if failed:
         raise AssertionError(f"phase 21: {failed}")
-    for name in TP_F32_ARCHS:
+    for name in () if extras_only else TP_F32_ARCHS:
         want = one[("f32", name)]
         for sp in (False, True):
             for r in range(TP_M):
@@ -7044,13 +7645,15 @@ def phase_tp(smi: str):
     log(f"phase 21 done in {time.perf_counter() - t0:.1f} s")
     # K5's launches a step on each rank of the model axis, as counted
     per_step = {}
-    for name, c in TP_FULL.items():
+    for name, c in {**full, **TP_X}.items():
         counts = {ranks[r][name]["launches"]["k5 wgmma"] for r in ranks}
         if len(counts) != 1:
             raise AssertionError(f"phase 21 {name}: K5 launches differ "
                                  f"between the ranks: {counts}")
         if lm.has_attention(get_config(name)):
             per_step[name] = counts.pop() // c["steps"]
+    if extras_only:
+        return {"tp_launches_per_step": per_step}
     counts = {ranks[r]["fsdp"]["launches"]["k5 wgmma"] for r in ranks}
     if len(counts) != 1:
         raise AssertionError(f"phase 21 (d): K5 launches differ between the "
@@ -7322,7 +7925,17 @@ def main() -> int:
         f"count {torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     tp_dry_start()
+    try:
+        return run_phases(smi)
+    except BaseException:
+        log_timeline()              # how far the run got, and when
+        raise
 
+
+def run_phases(smi: str) -> int:
+    """Every phase in order (see the module docstring), then the kernels'
+    line, the card's line and the device line."""
+    import torch
     rows = phase_kernels()
     launches, rows["sa_inner"]["device_ms"] = phase_main_path()
     torch.cuda.empty_cache()
@@ -7359,12 +7972,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     encdec_rows = phase_encdec()
     torch.cuda.empty_cache()
+    dense_rows = phase_dense()
+    torch.cuda.empty_cache()
     train_row = phase_training()
     torch.cuda.empty_cache()
     phase_dryrun(smi)
-    tp_row = phase_tp(smi)
+    # the CLI checks (phases 14 (e), 15 (d), 16 (e), 17 (e), 18 (d), 19
+    # (d)) run beside phase 21, which times nothing it checks
+    launched, cli = launchers_start(), elastic_cli_start()
+    try:
+        tp_row = phase_tp(smi)
+    finally:
+        launchers_finish(launched)
+        elastic_cli_finish(cli)
     torch.cuda.empty_cache()
-    phase_elastic()
+    phase_elastic(cli=False)
 
     rows.update(svm_rows)
     rows.update(family_rows)
@@ -7377,7 +7999,7 @@ def main() -> int:
         rows[name]["launches"] = n
     for name in svm_rows:
         rows[name]["launches"] = svm_launches[name]
-    rows.update((row["name"], row) for row in encdec_rows)
+    rows.update((row["name"], row) for row in encdec_rows + dense_rows)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -7385,6 +8007,7 @@ def main() -> int:
     # hymba's shapes, the launches a step on a rank of phase 21's grid
     extra = tuple(train_row) + tuple(window_row) + tuple(hymba_row) \
         + tuple(tp_row)
+    log_timeline()
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows.values()]}))
     print(smi)

@@ -14,7 +14,9 @@
   routing), hymba train at 1x2 (its 5 heads by flat columns), tinyllama
   FSDP train at 2x1, xlstm and whisper (the cross cache) decode at 1x2,
   the decodes recorded in ``inference_mode`` (the dry run's run under
-  ``no_grad``).
+  ``no_grad``), whisper train at 1x2 with ``shard_acts`` (its frames
+  whole on each rank, the encoder without SP) and pixtral train at 1x2
+  with ``shard_acts`` (its 8 patch rows first, on rank 0), ranks 0 and 1.
   One four-rank gloo job runs them all: 2x2 over its four ranks, 1x2 and
   2x1 over ranks 0 and 1 (``parallel.tensor.build_grid(..., ranks)``).
 * The leaves a rank holds on meta sum to the argument bytes of the specs
@@ -59,6 +61,8 @@ CELLS = {
     "tinyllama_fsdp_2x1": ("tinyllama-1.1b", "train", (2, 1), False, 1),
     "xlstm_decode_1x2": ("xlstm-350m", "decode", (1, 2), False, 1),
     "whisper_decode_1x2": ("whisper-large-v3", "decode", (1, 2), False, 1),
+    "whisper_1x2_sp": ("whisper-large-v3", "train", (1, 2), True, 2),
+    "pixtral_1x2_sp": ("pixtral-12b", "train", (1, 2), True, 2),
 }
 # hymba-smoke with a vocabulary the model axis does not split, as
 # hymba-1.5b's 32,001 at m = 2: its ranks' steps differ
@@ -94,10 +98,21 @@ def _cell_on_rank(key, group):
         step = make_train_step(arch, opt, TrainerConfig(
             microbatches=k, remat="none", shard_acts=sp, model_axis=M),
             grid=grid)
-        toks = torch.randint(arch.vocab_size, (2, B // D, S), generator=gen,
-                             dtype=torch.int32)
+        # the batch of ``input_specs``: a vision stub's patch rows count
+        # in S; an encoder-decoder arch's frames come beside the tokens
+        n = min(arch.n_patches, S // 4) \
+            if arch.frontend == "vision_stub" else 0
+        toks = torch.randint(arch.vocab_size, (2, B // D, S - n),
+                             generator=gen, dtype=torch.int32)
+        batch = {"tokens": toks[0], "targets": toks[1]}
+        if n:
+            batch["patches"] = torch.randn(B // D, n, arch.d_model,
+                                           generator=gen)
+        if arch.is_encdec:
+            batch["frames"] = torch.randn(B // D, arch.encoder_seq,
+                                          arch.d_model, generator=gen)
         with rec:
-            step(model, state, {"tokens": toks[0], "targets": toks[1]})
+            step(model, state, batch)
     else:
         cache = lm.init_cache(arch, B, S, "cpu", axis, grid.data)
         toks = torch.randint(arch.vocab_size, (B // D, 1), generator=gen,
@@ -182,6 +197,9 @@ def test_the_cells_run_what_they_name(ranks):
         > model["tinyllama_1x2_sp"]["all-gather"]["count"]
     for key in ("xlstm_decode_1x2", "whisper_decode_1x2"):
         assert model[key]["all-gather"]["count"] > 0 and not data[key]
+    # the archs with extras gather and scatter the decoder's sequence
+    for key in ("whisper_1x2_sp", "pixtral_1x2_sp"):
+        assert model[key]["reduce-scatter"]["count"] > 0
     # the one step whose ranks differ: hymba's rank 1 computes the
     # logits of the positions rank 0's meta rows take
     assert ranks[1]["hymba_1x2"][0] > ranks[0]["hymba_1x2"][0]

@@ -14,6 +14,10 @@ by ``convert``), at test_torch_lm.py's bar: atol 1e-4 on logits.
   the ``cache["cross"]`` so built, and the caches.
 * ``train_loss`` (rel 1e-5) and its gradients (1e-4 of each leaf's max)
   against ``jax.grad``; pixtral's patch positions carry no loss.
+* Three AdamW steps through the port's ``make_train_step`` against
+  ``repro``'s (one device, 2 microbatches, the frames or patches in the
+  batch): the losses (rel 1e-5) and step 1's gradients (1e-5 of each
+  leaf's max).
 * ``init_params`` against repro's ``param_specs``; params and caches
   through ``convert`` both ways, bit for bit.
 * ``BatchedServer.generate``'s tokens equal repro's on both smoke archs
@@ -34,12 +38,18 @@ from repro.configs import get_smoke_config as j_smoke
 from repro.launch.serve import BatchedServer as JServer
 from repro.models import layers as JL
 from repro.models import lm as jlm
+from repro.optim.adamw import AdamW as JAdamW
+from repro.optim.adamw import cosine_schedule as j_cosine
+from repro.runtime.driver import TrainerConfig as JTrainerConfig
+from repro.runtime.driver import make_train_step as j_make_train_step
 from repro_torch import convert
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch import serve
 from repro_torch.launch.serve import BatchedServer
 from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.runtime.driver import TrainerConfig, make_train_step
 
 WHISPER, PIXTRAL = "whisper-large-v3", "pixtral-12b"
 # (arch, config overrides): whisper-smoke's 30 frames, then 200 (a
@@ -237,6 +247,68 @@ def test_train_loss_and_gradients_match_repro(case):
     for k, g in zip(named, grads):
         assert bool(torch.isfinite(g).all()), k
         _close(g, want_g[k], rel=1e-4)
+
+
+@dataclasses.dataclass(frozen=True)
+class _JRecording(JAdamW):
+    """repro's AdamW that hands its first update's gradients to the host
+    (``jax.debug.callback`` from inside the jitted step)."""
+
+    def update(self, grads, state, params):
+        jax.debug.callback(
+            lambda g: _KEPT.setdefault("repro", jax.tree.map(np.asarray, g)),
+            grads)
+        return super().update(grads, state, params)
+
+
+_KEPT = {}
+TRAIN_STEPS, TRAIN_B, TRAIN_K = 3, 4, 2
+
+
+@pytest.mark.parametrize("case", ["whisper", "pixtral"])
+def test_train_step_matches_repro(case):
+    """TRAIN_STEPS AdamW steps through the port's ``make_train_step`` and
+    ``repro``'s (one device, f32), a batch of TRAIN_B rows in TRAIN_K
+    microbatches with the frames or patch rows in it (the same each step,
+    the tokens drawn anew): every step's loss within rel 1e-5 and step
+    1's gradients within 1e-5 of each leaf's max."""
+    from jax.sharding import Mesh
+    ja, ta = _archs(case)
+    params, model = _pair(ja, ta)
+    extras = _extras(ta, B=TRAIN_B)
+    batches = [{"tokens": _tokens(ja.vocab_size, B=TRAIN_B, seed=20 + i),
+                "targets": _tokens(ja.vocab_size, B=TRAIN_B, seed=40 + i),
+                **extras} for i in range(TRAIN_STEPS)]
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                ("data", "model"))
+    _KEPT.clear()
+    jstep = j_make_train_step(
+        ja, _JRecording(learning_rate=j_cosine(1e-3, 1, TRAIN_STEPS)), mesh,
+        JTrainerConfig(microbatches=TRAIN_K))
+    jstate = _JRecording().init(params)
+    want = []
+    for b in batches:
+        params, jstate, loss = jstep(params, jstate,
+                                     {k: jnp.asarray(v) for k, v in b.items()})
+        want.append(float(loss))
+    kept = {}
+
+    class Recording(AdamW):
+        def update(self, grads, state, params_, **kw):
+            kept.setdefault("port", {n: g.detach().numpy().copy()
+                                     for n, g in grads.items()})
+            return super().update(grads, state, params_, **kw)
+
+    opt = Recording(learning_rate=cosine_schedule(1e-3, 1, TRAIN_STEPS))
+    model.requires_grad_(True)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(ta, opt, TrainerConfig(microbatches=TRAIN_K))
+    got = [float(step(model, state, b)) for b in batches]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    want_g = convert.lm_flat(ta, _KEPT["repro"])
+    assert want_g.keys() == kept["port"].keys()
+    for k, g in kept["port"].items():
+        _close(g, want_g[k], rel=1e-5)
 
 
 @pytest.mark.parametrize("name", [WHISPER, PIXTRAL])

@@ -14,7 +14,8 @@ FSDP-sharded, as ``repro``'s are.
   four-rank gloo job runs the port's ``Trainer`` on the same weights (the
   port's draws of seed 0, placed in each ``repro`` trainer and cut to each
   port rank's shards), with and
-  without ``shard_acts``. Each loss is within rel 1e-4 of ``repro``'s,
+  without ``shard_acts``; qwen (its QKV biases drawn, split by heads) and
+  pixtral (no patches, as ``repro``'s ``Trainer`` sees it) too. Each loss is within rel 1e-4 of ``repro``'s,
   the bar of ``test_trainer_matches_repro_f32``. The same subprocess runs
   tinyllama at ``model_axis=1`` (data 4) and granite at (data 2, model 2)
   in 2 microbatches of the global batch 4: an MoE routes ``repro``'s
@@ -23,9 +24,9 @@ FSDP-sharded, as ``repro``'s are.
   and step 1's gathered gradients within rel 1e-5), tinyllama against
   ``repro`` (rel 1e-4).
 * The port at m = 2 against m = 1 (one process): the losses and the
-  gathered gradients of step 1 within rel 1e-5; whisper-smoke (through
-  ``make_train_step``, with its frames) runs here only, since ``repro``'s
-  ``Trainer`` drops the frames.
+  gathered gradients of step 1 within rel 1e-5; whisper-smoke and
+  pixtral-smoke (through ``make_train_step``, with their frames or patch
+  rows) run here only, since ``repro``'s ``Trainer`` drops the extras.
 * A failure at m = 2: host 1 killed at step 2; the survivors [0, 2, 3]
   keep [0, 2] (data 1 x model 2, rank 2 moved to model index 1) and match
   the undisturbed losses (rel 1e-5).
@@ -89,8 +90,14 @@ CASES = {"tinyllama": ("tinyllama-1.1b", {}, True),
          "granite": ("granite-moe-1b-a400m", {}, False),
          "granite_etp": ("granite-moe-1b-a400m", {"n_experts": 3}, False),
          "hymba": ("hymba-1.5b", {}, True),
-         "xlstm": ("xlstm-350m", {}, False)}
-PORT_ONLY = {"whisper": ("whisper-large-v3", {}, True)}
+         "xlstm": ("xlstm-350m", {}, False),
+         "qwen": ("qwen1.5-4b", {}, True),
+         "pixtral": ("pixtral-12b", {}, False)}
+# through make_train_step with their extras in the batch (``repro``'s
+# Trainer passes only tokens and targets): whisper's frames, pixtral's
+# patch rows (prefix rows, on the first model rank under shard_acts)
+PORT_ONLY = {"whisper": ("whisper-large-v3", {}, True),
+             "pixtral_patches": ("pixtral-12b", {}, True)}
 # the cases whose recurrent mixers the model axis splits
 RECURRENT = ("hymba", "xlstm")
 KILL = (2, [1])
@@ -176,15 +183,20 @@ def _train(arch, tree, tmp, name, group, m=1, sp=False, k=1, gb=GB,
     return out
 
 
-def _frames(arch, seed=0):
+def _extras(arch, seed=0):
+    """{"frames": (GB, encoder_seq, D)} or {"patches": (GB, n_patches,
+    D)}, f32 numpy."""
     rng = np.random.default_rng(seed)
-    return rng.standard_normal((GB, arch.encoder_seq, arch.d_model)).astype(
-        np.float32)
+    name, rows = ("frames", arch.encoder_seq) if arch.is_encdec \
+        else ("patches", arch.n_patches)
+    return {name: rng.standard_normal((GB, rows, arch.d_model)).astype(
+        np.float32)}
 
 
 def _step_frames(arch, group, m, sp=False):
-    """whisper through ``make_train_step`` (the trainer's batch has no
-    frames): losses of STEPS steps and step 1's gathered gradients."""
+    """whisper (frames) or pixtral (patches) through ``make_train_step``
+    (the trainer's batch has no extras): losses of STEPS steps and step
+    1's gathered gradients."""
     rec = _Recording()
     rec.arch = arch
     if group is None:
@@ -198,14 +210,15 @@ def _step_frames(arch, group, m, sp=False):
     state = rec.init(dict(model.named_parameters()))
     step = make_train_step(arch, rec, _cfg("", "-", m, sp), grid=grid)
     pipe = TokenPipeline(arch.vocab_size, GB, SEQ)
-    frames = _frames(arch)
+    extras = _extras(arch)
     per = GB // grid.data.size
     rows = slice(grid.data.index * per, (grid.data.index + 1) * per)
     losses = []
     for s in range(STEPS):
         tokens, targets = pipe.shard_at(s, grid.data.index, grid.data.size)
-        losses.append(float(step(model, state, {
-            "tokens": tokens, "targets": targets, "frames": frames[rows]})))
+        losses.append(float(step(model, state, dict(
+            tokens=tokens, targets=targets,
+            **{k: v[rows] for k, v in extras.items()}))))
     for g in grid.made:
         torch.distributed.destroy_process_group(g)
     return {"losses": losses, "grads": rec.grads}
@@ -259,8 +272,9 @@ def _rank(rank, world, tmp, trees):
             _hand_to_repro(tmp, "tinyllama_d4", "d4")
     out["granite_k2"] = _train(_arch("granite"), trees["granite"], tmp,
                                "granite_k2", W, 2, k=2)
-    for sp in (True, False):
-        out[f"whisper_m2_{sp}"] = _step_frames(_arch("whisper"), W, 2, sp)
+    for key in PORT_ONLY:
+        for sp in (True, False):
+            out[f"{key}_m2_{sp}"] = _step_frames(_arch(key), W, 2, sp)
     arch = _arch("tinyllama")
     out["failure"] = _train(arch, trees["tinyllama"], tmp, "failure", W, 2,
                             True, failure_injector=FailureInjector(
@@ -359,13 +373,23 @@ def _flat(tree, path=""):
         yield path, tree
 
 
+def _biased(tree, rng):
+    """``tree`` with its QKV biases (zeros at init, in both packages)
+    drawn from ``rng``, so that their split over the model axis shows in
+    the losses."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (0.1 * rng.standard_normal(v.shape)).astype(v.dtype)
+            if k in ("bq", "bk", "bv") else _biased(v, rng)
+            for k, v in tree.items()}
+
+
 def _trees(tmp):
-    """{case: the port's parameters of seed 0 in ``repro``'s tree (numpy)},
-    written to ``trees.npz`` for the subprocess, whose trainers start from
-    them too."""
-    trees = {key: convert.lm_params_to_numpy(lm.init_params(_arch(key), 0,
-                                                            "cpu"))
-             for key in CASES}
+    """{case: the port's parameters of seed 0 in ``repro``'s tree (numpy),
+    qwen's QKV biases drawn (``_biased``)}, written to ``trees.npz`` for
+    the subprocess, whose trainers start from them too."""
+    trees = {key: _biased(convert.lm_params_to_numpy(lm.init_params(
+        _arch(key), 0, "cpu")), np.random.default_rng(1)) for key in CASES}
     np.savez(os.path.join(tmp, "trees.npz"),
              **{f"{key}|{p}": v for key, tree in trees.items()
                 for p, v in _flat(tree)})
@@ -384,7 +408,8 @@ def job(tmp_path_factory):
         one = {key: _train(_arch(key), trees[key], tmp, f"{key}_m1", None)
                for key in CASES}
         _hand_to_repro(tmp, "tinyllama_m1", "m1")
-        one["whisper"] = _step_frames(_arch("whisper"), None, 1)
+        one.update((key, _step_frames(_arch(key), None, 1))
+                   for key in PORT_ONLY)
         distributed.run_ranks(_rank, 4, "gloo", device="cpu",
                               args=(tmp, trees))
         ranks = {r: torch.load(os.path.join(tmp, f"rank{r}.pt"),

@@ -86,7 +86,8 @@ def main() -> int:
     for label, part in (("phase 9 again", None),
                         ("phase 15 (a)", chip_smoke.phase_elastic_nccl),
                         ("phase 15 (b), (c)", chip_smoke.phase_elastic_gloo),
-                        ("phase 15 (d)", chip_smoke.phase_elastic_cli)):
+                        ("phase 15 (d)", lambda: chip_smoke.elastic_cli_finish(
+                            chip_smoke.elastic_cli_start()))):
         chip_smoke.phase_serve(arch, model)
         host_state(f"after phase 9, before {label}")
         if part is not None:

@@ -9,10 +9,12 @@ report of K5 (``flash_attention``), runs phase 7 (K5 against its plain
 version at every case, the smoke configs' D = 16 among them) and calls
 ``chip_smoke.phase_training``, which prints what phase 16 prints:
 tinyllama-1.1b trained at full width and depth (losses, launches,
-reductions, ms per step, tokens/s, peak memory, the step's split), one
-f32 step on the card against the CPU and the checkpointing policies,
-microbatches 1 against 4, a checkpoint and an injected failure over four
-gloo ranks, and the training launcher. Any failed check raises.
+reductions, ms per step, tokens/s, peak memory, the step's split),
+whisper-large-v3 (full depth) and pixtral-12b (8 layers) trained at full
+width with their frames or patches, one f32 step on the card against the
+CPU and the checkpointing policies, microbatches 1 against 4, a
+checkpoint and an injected failure over four gloo ranks, and the
+launchers (phases 14 (e) and 16-19's CLIs). Any failed check raises.
 """
 import os
 import subprocess
@@ -45,6 +47,7 @@ def main() -> int:
     chip_smoke.log_ptxas("flash_attention")
     chip_smoke.phase_attention_kernel()
     print(chip_smoke.phase_training(), flush=True)
+    chip_smoke.phase_launchers()
     print(smi)
     return 0
 
