@@ -9,7 +9,8 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
 1. builds the kernels (one ``nvcc`` per source, together; ptxas's
    registers and spills of each ``gram``, ``flash_attention``, ``spmm``,
    ``svm_inner`` and ``sa_inner`` instance are printed, and a spill in a
-   ``wgmma`` body or an ``sa_inner`` instance fails), holds each kernel
+   ``wgmma`` body or an ``sa_inner`` instance fails, as does a missing
+   ``flash_attention`` wgmma instance at D = 64, 128 or 160), holds each kernel
    against its plain PyTorch version on
    the card, at the main paths' shapes and at edge shapes, and times
    ``gram`` and ``sa_inner`` with their plain versions and (``gram``)
@@ -66,11 +67,15 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    tests/test_kernels.py's ATTN_CASES and more (ragged lengths, windows,
    decode-like Sq = 1, bidirectional, bidirectional at ragged lengths
    (whisper's 1500 x 1500 and 448 x 1500), strided views, stablelm-12b's
-   D = 160), at f32 (atol 2e-3) and bf16 (atol 2e-2), checking that each
-   call took the body ``dispatch.flash_attention_route`` names (bf16 at
-   D = 64 and 128: ``wgmma``; the rest: ``simt``), checks both bodies'
-   tile sizes and shared-memory formulas against ``kernels/dispatch.py``,
-   and one gradient against the plain version's autograd;
+   D = 160 ragged with a window, at one query over 384 keys, bidirectional
+   130 x 400 and as strided views), at f32 (atol 2e-3) and bf16 (atol
+   2e-2), checking that each call took the body
+   ``dispatch.flash_attention_route`` names (bf16 at D = 64, 128 and 160:
+   ``wgmma``, D = 160 through its 64-byte tail panel; the rest: ``simt``),
+   and a bf16 D = 160 call forced onto the ``simt`` body; checks both
+   bodies' tile sizes and shared-memory formulas (the wgmma body's at
+   each of its head dimensions) against ``kernels/dispatch.py``, and one
+   gradient against the plain version's autograd;
 8. drives the LM prefill — ``LM.prefill`` of llama3-8b at full width
    (32 layers, 8.03 B parameters, bf16, random from a seed) on B = 1,
    S = 8192 — checks 32 launches of ``flash_attention``, all of its
@@ -365,10 +370,11 @@ builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` and
    its peak within [0.8, 1.25] of the cell's;
 22. (run after phase 19, before phase 16) qwen1.5-4b and stablelm-12b at
    full width and depth (bf16): phase 8's prefill at B 1, S 8192 (40 K5
-   launches, on the ``wgmma`` body at qwen's D 128 and the ``simt`` body
-   at stablelm's D 160, as ``dispatch.flash_attention_route`` names
-   them), K5 on layer 0's q/k/v against its plain version with its times,
-   SDPA's and its bound, phase 9's serving, and the served generate's
+   launches, all on the ``wgmma`` body and none on ``simt``, at qwen's D
+   128 and at stablelm's D 160, as ``dispatch.flash_attention_route``
+   names it), K5 on layer 0's q/k/v against its plain version with its
+   times (the wrapper, the body without ping-pong, the ``simt`` body at
+   bf16), SDPA's and its bound, phase 9's serving, and the served generate's
    decode logits at the last prompt position against prefill's (atol
    0.12, rtol 0.05). Phases 9, 18 and 19 take those decode logits from
    their served generate too (its prompt is the check's).
@@ -472,7 +478,9 @@ TINY, TINY_LAYERS, TINY_B, TINY_S = "tinyllama-1.1b", 2, 2, 512
 # ragged lengths: whisper-large-v3's encoder (20 heads of 64, 1500 =
 # 11 x 128 + 92 frames) and its cross-attention (448 decoder positions
 # over the 1500), 4:1 GQA at D = 128 over a partial last key tile, and
-# D = 32 (the simt body) at 200 x 200.
+# D = 32 (the simt body) at 200 x 200; then stablelm-12b's D = 160 (the
+# wgmma body's 64-byte tail panel at bf16) at 4:1 GQA: ragged with a
+# window of 100, one query over 384 keys, bidirectional 130 x 400.
 ATTN_CASES = [
     (2, 4, 2, 128, 128, 64, True, 0),
     (1, 8, 2, 256, 256, 64, True, 64),
@@ -492,6 +500,9 @@ ATTN_CASES = [
     (2, 20, 20, 448, 1500, 64, False, 0),
     (1, 4, 1, 100, 228, 128, False, 0),
     (1, 2, 2, 200, 200, 32, False, 0),
+    (1, 8, 2, 300, 300, 160, True, 100),
+    (1, 4, 1, 1, 384, 160, True, 0),
+    (1, 4, 1, 130, 400, 160, False, 0),
 ]
 
 
@@ -629,14 +640,16 @@ def svm_inner_flops(s: int, mu: int, iters: int) -> float:
 
 def log_ptxas(name: str) -> None:
     """ptxas's registers and spills for each kernel of library ``name``,
-    from the build this process ran (-Xptxas -v)."""
+    from the build this process ran (-Xptxas -v). ``flash_attention`` must
+    report a ``wgmma`` instance at each of ``dispatch``'s
+    FLASH_WGMMA_HEAD_DIMS."""
     import re
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, dispatch
     out = _build.BUILD_LOG.get(name)
     if out is None:
         log(f"  {name}: built before this process; no ptxas report")
         return
-    entry, spill = None, ""
+    entry, spill, wgmma_dims = None, "", set()
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -668,11 +681,18 @@ def log_ptxas(name: str) -> None:
                 body = ("wgmma bf16" if "wgmma" in entry else
                         "simt f32" if "kernelIf" in entry else
                         "simt bf16") + f" D={dim}"
+                if "wgmma" in entry:
+                    wgmma_dims.add(int(dim))
             log(f"  ptxas {name} {body}: {m.group(1)} registers; {spill}")
             if ("wgmma" in entry or name == "sa_inner") \
                     and ", 0 bytes spill stores" not in spill:
                 raise AssertionError(f"ptxas: {name} {body} spills: {spill}")
             entry = None
+    if name == "flash_attention" \
+            and wgmma_dims != set(dispatch.FLASH_WGMMA_HEAD_DIMS):
+        raise AssertionError(f"ptxas: flash_attention wgmma instances at D "
+                             f"{sorted(wgmma_dims)}, dispatch routes "
+                             f"{dispatch.FLASH_WGMMA_HEAD_DIMS}")
 
 
 def check_close(name, got, want, rtol, atol):
@@ -3772,7 +3792,7 @@ def phase_attention_kernel():
     import torch
     from repro_torch.kernels import _build, dispatch
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.ops import _declare
+    from repro_torch.kernels.flash_attention.ops import _declare, _launch
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     log("phase 7: flash_attention against its plain version (atol 2e-3 at "
@@ -3801,16 +3821,20 @@ def phase_attention_kernel():
     log(f"  tiles and shared memory agree with dispatch: simt "
         f"{dispatch.FLASH_BLOCK_Q} x {dispatch.FLASH_BLOCK_K}, wgmma "
         f"{dispatch.FLASH_WGMMA_BLOCK_Q} x {dispatch.FLASH_WGMMA_BLOCK_K} "
-        f"over {dispatch.FLASH_WGMMA_STAGES} stages "
-        f"({dispatch.flash_attention_smem_bytes(128, 'wgmma')} bytes at "
-        f"D = 128)")
+        f"over {dispatch.FLASH_WGMMA_STAGES} stages ("
+        + ", ".join(f"{dispatch.flash_attention_smem_bytes(D, 'wgmma')} "
+                    f"bytes at D = {D}"
+                    for D in dispatch.FLASH_WGMMA_HEAD_DIMS) + ")")
 
-    def routed(what, q, k, v, **kw):
+    def routed(what, q, k, v, force=None, **kw):
         """flash_attention(q, k, v) -> out; raises unless exactly one
-        launch of the body dispatch routes (dtype, D) to was counted."""
-        want = dispatch.flash_attention_route(q.dtype, q.shape[3])
+        launch of the body dispatch routes (dtype, D) to was counted (of
+        body ``force`` where given, through ``_launch``)."""
+        want = force or dispatch.flash_attention_route(q.dtype, q.shape[3])
         before = dict(flash_attention.route_launches)
-        out = flash_attention(q, k, v, **kw)
+        out = flash_attention(q, k, v, **kw) if force is None else _launch(
+            q, k, v, kw.get("causal", True), kw.get("window", 0),
+            q.shape[3] ** -0.5, route=force)
         taken = {r: n - before[r] for r, n in
                  flash_attention.route_launches.items() if n != before[r]}
         if taken != {want: 1}:
@@ -3833,14 +3857,22 @@ def phase_attention_kernel():
                         attention_ref(q, k, v, causal=causal,
                                       window=window).float(), 0.0, atol)
     # q, k, v as attention_train hands them over without rope: transposed
-    # views of (B, S, H, D) projections, not contiguous.
-    x = torch.randn(2, 200, 8 + 2 * 2, 128, generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    q, k, v = (t.transpose(1, 2) for t in x.split([8, 2, 2], dim=2))
-    out, route = routed("strided views", q, k, v)
-    check_close(f"flash_attention bf16 strided views (2, 8/2, 200, 128) "
-                f"[{route}]", out.float(), attention_ref(q, k, v).float(),
-                0.0, 2e-2)
+    # views of (B, S, H, D) projections, not contiguous; at D = 160 the
+    # tail panel's tensor maps read them in place too.
+    for D in (128, 160):
+        x = torch.randn(2, 200, 8 + 2 * 2, D, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        q, k, v = (t.transpose(1, 2) for t in x.split([8, 2, 2], dim=2))
+        out, route = routed("strided views", q, k, v)
+        check_close(f"flash_attention bf16 strided views (2, 8/2, 200, {D}) "
+                    f"[{route}]", out.float(), attention_ref(q, k, v).float(),
+                    0.0, 2e-2)
+    # The simt body stays for f32 and bf16 at D = 16 and 32; forced, it
+    # still serves bf16 at D = 160 (the time it is measured against).
+    q, k, v = attn_inputs(1, 32, 8, 520, 520, 160, torch.bfloat16, gen)
+    out, route = routed("forced simt", q, k, v, force="simt")
+    check_close(f"flash_attention bf16 (1, 32/8, 520, 160) forced [{route}]",
+                out.float(), attention_ref(q, k, v).float(), 0.0, 2e-2)
     # The backward is the plain version's VJP, as in repro.
     q, k, v = (t.requires_grad_() for t in
                attn_inputs(1, 2, 1, 64, 64, 32, torch.float32, gen))
@@ -5649,19 +5681,23 @@ def phase_encdec():
 # vocab 151,936) and stablelm-12b (40 layers, d 5120, 32/8 heads of 160,
 # d_ff 13,824, vocab 100,352) at full width and depth, bf16, random from a
 # seed: phase 8's prefill (B 1, S 8192) and phase 9's serving. K5 takes its
-# wgmma body at qwen's D 128 (group 1) and its simt body at stablelm's D
-# 160 (``dispatch.flash_attention_route``).
+# wgmma body at qwen's D 128 (group 1) and at stablelm's D 160 (group 4,
+# the 64-byte tail panel), as ``dispatch.flash_attention_route`` names it.
 DENSE_SERVED = ("qwen1.5-4b", "stablelm-12b")
 
 
 def dense_k5_row(q, k, v, kw, name, launches, err):
     """K5's row at ``name``'s prefill shape: the wrapper's time and its
-    device time, the plain version's (one KV head group at a time), SDPA's
-    (causal, GQA) and the bound from the call's live pairs."""
+    device time, the wgmma body's without ping-pong and the simt body's at
+    bf16 (both forced through ``_launch``), the plain version's (one KV
+    head group at a time), SDPA's (causal, GQA) and the bound from the
+    call's live pairs. The wrapper, SDPA and the body without ping-pong
+    run in turns, three rounds of five calls (medians), as phase 8's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import _launch
     from repro_torch.kernels.flash_attention.ref import attention_ref
     (B, Hq, Sq, D), (Hkv, Sk) = q.shape, k.shape[1:3]
     g = Hq // Hkv
@@ -5671,19 +5707,32 @@ def dense_k5_row(q, k, v, kw, name, launches, err):
         return torch.cat([attention_ref(q[:, i * g:(i + 1) * g],
                                         k[:, i:i + 1], v[:, i:i + 1], **kw)
                           for i in range(Hkv)], dim=1)
+    timed = {"ms": lambda: flash_attention(q, k, v, **kw),
+             "library_ms": lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, enable_gqa=True),
+             "no_pingpong_ms": lambda: _launch(q, k, v, True, 0, D ** -0.5,
+                                               pingpong=False)}
+    rounds = {n: [] for n in timed}
     with torch.no_grad():
-        ms = time_ms(lambda: flash_attention(q, k, v, **kw), 5, 1)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 5, 1)
+        for _ in range(3):
+            for n, fn in timed.items():
+                rounds[n].append(time_ms(fn, 5, 1))
+        simt_ms = time_ms(lambda: _launch(q, k, v, True, 0, D ** -0.5,
+                                          route="simt"), 2, 1)
         plain_ms = time_ms(plain, 2, 1)
         dev = device_ms(lambda: flash_attention(q, k, v, **kw))
+    ms, lib, nopp = (sorted(rounds[n])[1] for n in timed)
     flops = 4.0 * Hq * D * B * live_pairs(Sq, Sk, True, 0)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     b, why = bound_ms(nbytes, flops, BF16_FLOPS)
     log(f"  K5 ({route}) at {name}'s prefill shape {tuple(q.shape)} / "
         f"{tuple(k.shape)}: {ms:.4f} ms (device {fmt_ms(dev)}), "
         f"{flops / ms / 1e9:.1f} TFLOP/s, {b / ms:.3f} of the bound ({b:.4f}"
-        f" ms by {why}); SDPA {lib:.4f} ms; plain {plain_ms:.4f} ms")
+        f" ms by {why}); SDPA {lib:.4f} ms ({ms / lib:.3f}x); without "
+        f"ping-pong {nopp:.4f} ms; the simt body at bf16 {simt_ms:.4f} ms; "
+        f"plain {plain_ms:.4f} ms (rounds, ms: "
+        + "; ".join(f"{n} {' '.join(f'{t:.4f}' for t in ts)}"
+                    for n, ts in rounds.items()) + ")")
     return {"name": f"flash_attention ({name} prefill, {route}, "
                     f"{tuple(q.shape)} / {tuple(k.shape)})",
             "route": "cuda",
@@ -5691,7 +5740,8 @@ def dense_k5_row(q, k, v, kw, name, launches, err):
             "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b,
-            "bound_by": why, "library_ms": lib}
+            "bound_by": why, "library_ms": lib, "no_pingpong_ms": nopp,
+            "simt_ms": simt_ms}
 
 
 def phase_dense():
@@ -8003,10 +8053,12 @@ def run_phases(smi: str) -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    # K5's row: the training step, the windowed calls at mixtral's and
-    # hymba's shapes, the launches a step on a rank of phase 21's grid
-    extra = tuple(train_row) + tuple(window_row) + tuple(hymba_row) \
-        + tuple(tp_row)
+    # K5's rows: the wgmma body without ping-pong and the simt body at
+    # bf16 (phases 8, 22); the training step, the windowed calls at
+    # mixtral's and hymba's shapes, the launches a step on a rank of phase
+    # 21's grid
+    extra = ("no_pingpong_ms", "simt_ms") + tuple(train_row) \
+        + tuple(window_row) + tuple(hymba_row) + tuple(tp_row)
     log_timeline()
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows.values()]}))

@@ -14,12 +14,15 @@
 // What bounds it on the H100: operations. At the llama3-8b prefill
 // (Sq = Sk = 8192, 32 query heads over 8 KV heads, D = 128, causal) one
 // layer does 4 Hq D (live (q, k) pairs) ~ 5.5e11 FLOP against ~168 MB of
-// q/k/v/o: ~0.56 ms on the bf16 tensor cores.
+// q/k/v/o: ~0.56 ms on the bf16 tensor cores; at stablelm-12b's (D = 160)
+// ~6.9e11 FLOP, ~0.69 ms. Both products run on the tensor cores at every
+// serving head dimension; the f32 simt body is ~25x slower (~26 ms at
+// stablelm-12b's shape).
 //
 // Two bodies, routed by type and head dimension
 // (repro_torch.kernels.dispatch.flash_attention_route):
 //
-// * wgmma (bf16 at D = 64 and 128: the serving type of every config):
+// * wgmma (bf16 at D = 64, 128 and 160: the serving type of every config):
 //   one block of three warpgroups per 128-row query tile and (batch,
 //   query head). Warpgroup 0 is the producer: it gives up registers
 //   (setmaxnreg) and one thread issues TMA loads, Q once, then the K and V
@@ -38,8 +41,16 @@
 //   ex2 per score, O in f32 registers rescaled by alpha. Only the tiles
 //   that straddle the causal diagonal, the window's edge or Sk are
 //   masked (to -inf: keys past Sk, which TMA fills with zeros, would
-//   score 0); the rest skip the mask.
-// * simt (f32 at every D, and bf16 at D = 16, 32 and 160): one block of 256
+//   score 0); the rest skip the mask. The head dimension sits in panels
+//   that fit it exactly: 128-byte panels of 64 columns (128-byte swizzle),
+//   then, at D = 160, one 64-byte tail panel of 32 (64-byte swizzle; a
+//   tensor map of its own): Q K^T takes 8 k16 steps in the panels and 2 in
+//   the tail, P V an m64n128k16 over the panels and an m64n32k16 over the
+//   tail. Padding D to 192 would need 246,856 bytes of shared memory (over
+//   a block's 232,448) and spend a fifth of both products on zeros; the
+//   tail keeps D = 160 at 205,896 bytes with the D = 128 tiles, and a
+//   consumer thread at acc[80], sc[64] and pa[32] under its 240 registers.
+// * simt (f32 at every D, and bf16 at D = 16 and 32): one block of 256
 //   threads per 64-row query tile loops over 64-row key tiles loaded into
 //   shared memory as f32 (rows past Sk zero-filled); every thread computes
 //   a 4 x 4 patch of the score tile with f32 FMAs, masks it, updates its
@@ -314,7 +325,7 @@ int flash_fwd(const T* q, const T* k, const T* v, T* o, int B, int Hq,
     case 128:
       return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, st, causal,
                             window, offset, scale, stream);
-    case 160:                           // stablelm-12b
+    case 160:                           // stablelm-12b (bf16: forced only)
       return launch<T, 160>(q, k, v, o, B, Hq, Hkv, Sq, Sk, st, causal,
                             window, offset, scale, stream);
     default:
@@ -323,7 +334,7 @@ int flash_fwd(const T* q, const T* k, const T* v, T* o, int B, int Hq,
 }
 
 // ---------------------------------------------------------------------------
-// The wgmma body (bf16, D = 64 and 128)
+// The wgmma body (bf16, D = 64, 128 and 160)
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -333,8 +344,12 @@ constexpr int kBlockK = 128;            // dispatch.FLASH_WGMMA_BLOCK_K
 constexpr int kStages = 2;              // dispatch.FLASH_WGMMA_STAGES
 constexpr int kThreads = 384;           // producer + two consumers
 constexpr int kConsumerThreads = 256;
-constexpr int kPanelCols = 64;          // bf16 in one 128-byte row
+// The head dimension in panels: whole 128-byte panels of 64 bf16, then
+// (D % 64 = 32, stablelm-12b's D = 160) one 64-byte tail panel of 32.
+constexpr int kPanelCols = 64;          // dispatch.FLASH_WGMMA_PANEL_COLS
 constexpr int kRowBytes = 128;
+constexpr int kTailCols = 32;           // dispatch.FLASH_WGMMA_TAIL_COLS
+constexpr int kTailRowBytes = 64;
 constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kTurnBar = 1;             // named barriers 1, 2: the turns
@@ -383,38 +398,67 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// One k16 step of O += P V over the whole head dimension: N = 64 or 128
+// over the 128-byte panels (desc_v), then N = 32 over the tail (desc_t,
+// D = 160 only). The accumulator's columns follow the panels, so the
+// tail's 16 values a thread sit after the first 64.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t desc_v);
-
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t desc_v) {
-  sm90::wgmma_m64n128k16_rs_tb(o, a, desc_v, 1);
-}
+                                         uint64_t desc_v, uint64_t desc_t);
 
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc_v) {
+                                             uint64_t desc_v, uint64_t) {
   sm90::wgmma_m64n64k16_rs_tb(o, a, desc_v, 1);
 }
 
-// Issues S = Q K^T for this consumer's 64 rows: D / 16 steps of k16 over
-// the head dimension, both operands K-major in shared memory.
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_v, uint64_t) {
+  sm90::wgmma_m64n128k16_rs_tb(o, a, desc_v, 1);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<160>(float (&o)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_v,
+                                              uint64_t desc_t) {
+  sm90::wgmma_m64n128k16_rs_tb(*reinterpret_cast<float(*)[64]>(o), a,
+                               desc_v, 1);
+  sm90::wgmma_m64n32k16_rs_tb(*reinterpret_cast<float(*)[16]>(o + 64), a,
+                              desc_t, 1);
+}
+
+// Issues S = Q K^T for consumer cw's 64 rows: D / 16 steps of k16 over
+// the head dimension, both operands K-major in shared memory, four in
+// each 128-byte panel, then two in the 64-byte tail. Qs and Kst are
+// tiles of kBlockQ and kBlockK rows laid out panel after panel.
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBlockK / 2],
-                                         const uint8_t* Qw,
+                                         const uint8_t* Qs, int cw,
                                          const uint8_t* Kst) {
+  constexpr int kSteps = D / kPanelCols * 4;
+  const uint8_t* Qw = Qs + cw * 64 * kRowBytes;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < kSteps; ++kk) {
     const int panel = kk / 4, col = (kk % 4) * 32;   // bytes into the row
     sm90::wgmma_m64n128k16_ss(
         sc, sm90::desc_sw128(Qw + panel * kBlockQ * kRowBytes + col, 16, 1024),
         sm90::desc_sw128(Kst + panel * kBlockK * kRowBytes + col, 16, 1024),
         kk > 0);
+  }
+  if constexpr (D % kPanelCols != 0) {
+    const uint8_t* Qt = Qs + (D / kPanelCols) * kBlockQ * kRowBytes +
+                        cw * 64 * kTailRowBytes;
+    const uint8_t* Kt = Kst + (D / kPanelCols) * kBlockK * kRowBytes;
+#pragma unroll
+    for (int kk = 0; kk < kTailCols / 16; ++kk)
+      sm90::wgmma_m64n128k16_ss(
+          sc, sm90::desc_sw64(Qt + kk * 32, 16, 512),
+          sm90::desc_sw64(Kt + kk * 32, 16, 512), kSteps + kk > 0);
   }
 }
 
@@ -424,11 +468,14 @@ template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
                                          const uint32_t (&pa)[kBlockK / 16][4],
                                          const uint8_t* Vst) {
+  const uint8_t* Vt = Vst + (D / kPanelCols) * kBlockK * kRowBytes;
 #pragma unroll
   for (int kk = 0; kk < kBlockK / 16; ++kk)
     wgmma_pv<D>(acc, pa[kk],
                 sm90::desc_sw128(Vst + kk * 16 * kRowBytes,
-                                 kBlockK * kRowBytes, 1024));
+                                 kBlockK * kRowBytes, 1024),
+                sm90::desc_sw64(Vt + kk * 16 * kTailRowBytes,
+                                kBlockK * kTailRowBytes, 512));
 }
 
 // The raw scores of key tile kt, in place, become probabilities
@@ -485,16 +532,23 @@ __device__ __forceinline__ void pack_p(const float (&sc)[kBlockK / 2],
       pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
 }
 
+// tmap_qt, tmap_kt and tmap_vt load the tail panel (D % 64 = 32); at D =
+// 64 and 128 they are not read.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmap_q,
                 const __grid_constant__ CUtensorMap tmap_k,
                 const __grid_constant__ CUtensorMap tmap_v,
+                const __grid_constant__ CUtensorMap tmap_qt,
+                const __grid_constant__ CUtensorMap tmap_kt,
+                const __grid_constant__ CUtensorMap tmap_vt,
                 __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq,
                 int Sk, int causal, int window, int offset,
                 float scale_log2, int pingpong) {
-  static_assert(D % kPanelCols == 0, "whole 128-byte panels");
+  static_assert(D % kPanelCols == 0 || D % kPanelCols == kTailCols,
+                "whole 128-byte panels, then at most one 64-byte tail");
   constexpr int kPanels = D / kPanelCols;
+  constexpr bool kTail = D % kPanelCols != 0;
   constexpr uint32_t kQBytes = kBlockQ * D * 2;
   constexpr uint32_t kKVBytes = kBlockK * D * 2;   // one K or V tile
   constexpr uint32_t kQPanel = kBlockQ * kRowBytes;
@@ -541,11 +595,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmap_q,
       sm90::prefetch_tensormap(&tmap_q);
       sm90::prefetch_tensormap(&tmap_k);
       sm90::prefetch_tensormap(&tmap_v);
+      if constexpr (kTail) {
+        sm90::prefetch_tensormap(&tmap_qt);
+        sm90::prefetch_tensormap(&tmap_kt);
+        sm90::prefetch_tensormap(&tmap_vt);
+      }
       sm90::mbar_expect_tx(full_q, kQBytes);
 #pragma unroll
       for (int p = 0; p < kPanels; ++p)
         sm90::tma_load_4d(Qs + p * kQPanel, &tmap_q, full_q, p * kPanelCols,
                           q0, h, b);
+      if constexpr (kTail)
+        sm90::tma_load_4d(Qs + kPanels * kQPanel, &tmap_qt, full_q,
+                          kPanels * kPanelCols, q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         const uint32_t parity = ((i / kStages) & 1) ^ 1;
@@ -556,12 +618,18 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmap_q,
         for (int p = 0; p < kPanels; ++p)
           sm90::tma_load_4d(Ks + s * kKVBytes + p * kKVPanel, &tmap_k,
                             &full_k[s], p * kPanelCols, k0, hk, b);
+        if constexpr (kTail)
+          sm90::tma_load_4d(Ks + s * kKVBytes + kPanels * kKVPanel, &tmap_kt,
+                            &full_k[s], kPanels * kPanelCols, k0, hk, b);
         sm90::mbar_wait(&empty_v[s], parity);
         sm90::mbar_expect_tx(&full_v[s], kKVBytes);
 #pragma unroll
         for (int p = 0; p < kPanels; ++p)
           sm90::tma_load_4d(Vs + s * kKVBytes + p * kKVPanel, &tmap_v,
                             &full_v[s], p * kPanelCols, k0, hk, b);
+        if constexpr (kTail)
+          sm90::tma_load_4d(Vs + s * kKVBytes + kPanels * kKVPanel, &tmap_vt,
+                            &full_v[s], kPanels * kPanelCols, k0, hk, b);
       }
     }
   } else {
@@ -575,7 +643,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmap_q,
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int row0 = 64 * cw + 16 * warp + lane / 4;  // and row0 + 8
     const int col0 = 2 * (lane % 4);
-    const uint8_t* Qw = Qs + cw * 64 * kRowBytes;
     auto turn_begin = [&] {
       if (pingpong) sm90::named_bar_sync(kTurnBar + cw, kConsumerThreads);
     };
@@ -598,7 +665,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmap_q,
       sm90::mbar_wait(&full_k[0], 0);
       turn_begin();
       sm90::wgmma_fence();
-      issue_qk<D>(sc, Qw, Ks);
+      issue_qk<D>(sc, Qs, cw, Ks);
       sm90::wgmma_commit();
       turn_end();
       sm90::wgmma_wait<0>();
@@ -614,7 +681,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmap_q,
         turn_begin();
         sm90::wgmma_fence();
         sm90::fence_regs(acc);
-        issue_qk<D>(sc, Qw, Ks + s * kKVBytes);
+        issue_qk<D>(sc, Qs, cw, Ks + s * kKVBytes);
         sm90::wgmma_commit();
         issue_pv<D>(acc, pa, Vs + sp * kKVBytes);
         sm90::wgmma_commit();
@@ -669,17 +736,21 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmap_q,
 }
 
 // A (B, H, S, D) bf16 operand with element strides (sb, sh, ss) and a
-// contiguous D as a rank-4 tensor map (D, S, H, B) of 64-column,
-// `rows`-row boxes.
+// contiguous D as a rank-4 tensor map (D, S, H, B) of `rows`-row boxes:
+// 64 columns in the 128-byte swizzle (the panels), or 32 in the 64-byte
+// swizzle (the tail).
 inline cudaError_t map_bhsd(CUtensorMap* map, const void* base, int B,
                             int H, int S, int D, long long sb, long long sh,
-                            long long ss, int rows) {
+                            long long ss, int rows, bool tail) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kPanelCols, (cuuint32_t)rows, 1, 1};
-  return sm90::encode_bf16_sw128(map, base, 4, dims, strides, box);
+  const cuuint32_t box[4] = {(cuuint32_t)(tail ? kTailCols : kPanelCols),
+                             (cuuint32_t)rows, 1, 1};
+  return sm90::encode_bf16(map, base, 4, dims, strides, box,
+                           tail ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int D>
@@ -688,13 +759,21 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
                    int Hkv, int Sq, int Sk, const Strides& st, int causal,
                    int window, int offset, float scale, int pingpong,
                    cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
-  cudaError_t err =
-      map_bhsd(&tq, q, B, Hq, Sq, D, st.qb, st.qh, st.qs, kBlockQ);
-  if (err == cudaSuccess)
-    err = map_bhsd(&tk, k, B, Hkv, Sk, D, st.kb, st.kh, st.ks, kBlockK);
-  if (err == cudaSuccess)
-    err = map_bhsd(&tv, v, B, Hkv, Sk, D, st.vb, st.vh, st.vs, kBlockK);
+  // The panels' maps, then (D % 64 = 32) the tail's.
+  auto maps = [&](bool tail, CUtensorMap* mq, CUtensorMap* mk,
+                  CUtensorMap* mv) {
+    cudaError_t e = map_bhsd(mq, q, B, Hq, Sq, D, st.qb, st.qh, st.qs,
+                             kBlockQ, tail);
+    if (e == cudaSuccess)
+      e = map_bhsd(mk, k, B, Hkv, Sk, D, st.kb, st.kh, st.ks, kBlockK, tail);
+    if (e == cudaSuccess)
+      e = map_bhsd(mv, v, B, Hkv, Sk, D, st.vb, st.vh, st.vs, kBlockK, tail);
+    return e;
+  };
+  CUtensorMap tq, tk, tv, tqt{}, tkt{}, tvt{};
+  cudaError_t err = maps(false, &tq, &tk, &tv);
+  if (err == cudaSuccess && D % kPanelCols != 0)
+    err = maps(true, &tqt, &tkt, &tvt);
   if (err != cudaSuccess) return err;
   const size_t bytes = smem_bytes(D);
   err = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
@@ -703,7 +782,7 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (err != cudaSuccess) return err;
   const dim3 grid(B * Hq, (Sq + kBlockQ - 1) / kBlockQ);
   flash_fwd_wgmma<D><<<grid, kThreads, bytes, stream>>>(
-      tq, tk, tv, o, Hq, Hkv, Sq, Sk, causal, window, offset,
+      tq, tk, tv, tqt, tkt, tvt, o, Hq, Hkv, Sq, Sk, causal, window, offset,
       scale * kLog2e, pingpong);
   return cudaGetLastError();
 }
@@ -724,6 +803,9 @@ int flash_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         offset, scale, pingpong, stream);
     case 128:
       return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, st, causal, window,
+                         offset, scale, pingpong, stream);
+    case 160:                           // stablelm-12b
+      return launch<160>(q, k, v, o, B, Hq, Hkv, Sq, Sk, st, causal, window,
                          offset, scale, pingpong, stream);
     default:
       return cudaErrorInvalidValue;
@@ -775,7 +857,7 @@ extern "C" int flash_attention_bf16(
       static_cast<cudaStream_t>(stream));
 }
 
-// The wgmma body (bf16, D = 64 or 128). The arguments of
+// The wgmma body (bf16, D = 64, 128 or 160). The arguments of
 // flash_attention_bf16 and `pingpong` (1: the consumers take turns at
 // issuing their products); TMA also needs the (batch, head, sequence)
 // strides to be multiples of 8 and the starts 16-byte aligned.

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tensor loads, warpgroup MMA (wgmma) on bf16 and tf32 operands in
-// 128-byte swizzled shared memory, register rebalancing between
-// warpgroups (setmaxnreg), and the host-side encoding of TMA tensor maps.
+// 128-byte (and, for bf16, 64-byte) swizzled shared memory, register
+// rebalancing between warpgroups (setmaxnreg), and the host-side encoding
+// of TMA tensor maps.
 //
 // Layout contract between TMA and wgmma: a TMA box whose inner extent is
 // 64 bf16 (128 bytes), loaded with CU_TENSOR_MAP_SWIZZLE_128B into a
@@ -17,6 +18,14 @@
 //     LBO = the panel stride (the next 64 columns), SBO = 1024 (the next
 //     8 rows of the reduction axis); the k-th 16-row slice starts
 //     2048 k bytes in.
+// A row whose width is an odd number of 32 bf16 (D = 160: two 64-column
+// panels and 32 columns more) ends in a 32-column "tail" panel: a box of
+// 32 bf16 (64 bytes) loaded with CU_TENSOR_MAP_SWIZZLE_64B into a
+// 512-byte-aligned buffer lands as rows of 64 bytes whose 16-byte chunks
+// are XOR-ed with ((row / 2) % 4): 8-row atoms of 512 bytes. desc_sw64
+// describes it: K-major, LBO unused (16), SBO = 512, the k-th 16-wide
+// slice 32 k bytes into the row (k < 2); MN-major, LBO = the panel stride
+// (unused at N = 32), SBO = 512, the k-th 16-row slice 1024 k bytes in.
 // A tf32 operand uses the same atoms, K-major only, written by threads
 // (st.shared with the same XOR) rather than by TMA: a 128-byte row holds
 // 32 values of K and the k-th 8-wide slice starts 32 k bytes in.
@@ -135,6 +144,15 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
          (1ull << 62);
+}
+
+// The same for a 64-byte-swizzled operand (a tail panel).
+__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -272,6 +290,26 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 32, f32) += A (64 x 16, bf16 in registers, the accumulator
+// layout) B (16 x 32, bf16 in shared memory, MN-major, 64-byte swizzle).
+__device__ __forceinline__ void wgmma_m64n32k16_rs_tb(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
 }
@@ -449,19 +487,20 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 // A tiled bf16 tensor map of `rank` dimensions (innermost first, the
 // innermost contiguous), byte strides of the outer rank - 1, a box of
-// `box` elements, 128-byte swizzle and zero fill out of bounds.
-inline cudaError_t encode_bf16_sw128(CUtensorMap* map, const void* base,
-                                     int rank, const cuuint64_t* dims,
-                                     const cuuint64_t* byte_strides,
-                                     const cuuint32_t* box) {
+// `box` elements, `swizzle` (128-byte for a 64-column box, 64-byte for a
+// 32-column one) and zero fill out of bounds.
+inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
+                               const cuuint64_t* dims,
+                               const cuuint64_t* byte_strides,
+                               const cuuint32_t* box,
+                               CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                         static_cast<cuuint32_t>(rank),
                         const_cast<void*>(base), dims, byte_strides, box,
-                        ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

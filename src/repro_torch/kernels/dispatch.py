@@ -48,16 +48,18 @@ same kernel.
   distributed shared memory. The kernel exports its constants for the
   cross-check.
 * ``flash_attention``: two bodies, chosen by ``flash_attention_route``.
-  The ``wgmma`` body (bf16 at D = 64 and 128) runs one block of three
-  warpgroups per 128-row query tile and (batch, query head); Q and a
-  two-stage ring of 128-row K and V tiles sit in dynamic shared memory
-  as bf16 (161 KB at D = 128), loaded by TMA, whose strides and starts
-  ``tma_strides_ok`` checks. ``flash_tile_plan`` is the Python mirror of
-  the live key tiles it walks and the tiles it masks. The ``simt`` body
-  (f32, and bf16 at D = 16, 32 and 160) runs one block per 64-row query tile
-  over 64-row key tiles held as f32 (115 KB at D = 128, 139 KB at D =
-  160). ``csrc/flash_attention.cu`` exports each body's tile sizes and
-  shared-memory formula for the cross-check.
+  The ``wgmma`` body (bf16 at D = 64, 128 and 160) runs one block of
+  three warpgroups per 128-row query tile and (batch, query head); Q and
+  a two-stage ring of 128-row K and V tiles sit in dynamic shared memory
+  as bf16 (161 KB at D = 128, 201 KB at D = 160), loaded by TMA, whose
+  strides and starts ``tma_strides_ok`` checks, in the panels
+  ``flash_wgmma_panels`` lists (128-byte panels of 64 columns, then at
+  D = 160 a 64-byte tail of 32). ``flash_tile_plan`` is the Python mirror
+  of the live key tiles it walks and the tiles it masks. The ``simt``
+  body (f32, and bf16 at D = 16 and 32) runs one block per 64-row query
+  tile over 64-row key tiles held as f32 (115 KB at D = 128, 139 KB at
+  D = 160). ``csrc/flash_attention.cu`` exports each body's tile sizes
+  and shared-memory formula for the cross-check.
 """
 from __future__ import annotations
 
@@ -102,9 +104,11 @@ FLASH_HEAD_DIMS = (16, 32, 64, 128, 160)
 FLASH_WGMMA_BLOCK_Q = 128
 FLASH_WGMMA_BLOCK_K = 128
 FLASH_WGMMA_STAGES = 2
-# Head dimensions of the wgmma body (whole 128-byte rows of bf16). D = 32
-# and D = 160 stay on the simt body for now.
-FLASH_WGMMA_HEAD_DIMS = (64, 128)
+# Head dimensions of the wgmma body: whole 128-byte panels of bf16, and at
+# D = 160 one 64-byte tail panel after them. D = 32 stays on the simt body.
+FLASH_WGMMA_HEAD_DIMS = (64, 128, 160)
+FLASH_WGMMA_PANEL_COLS = 64   # bf16 in a 128-byte-swizzled panel row
+FLASH_WGMMA_TAIL_COLS = 32    # bf16 in the 64-byte-swizzled tail's row
 
 
 def sa_inner_smem_bytes(s: int, mu: int, itemsize: int = 4,
@@ -202,7 +206,7 @@ def flash_attention_route(dtype, D: int) -> str:
     """The body of ``csrc/flash_attention.cu`` that serves (dtype, D):
     ``"wgmma"`` for bf16 at D in ``FLASH_WGMMA_HEAD_DIMS``, else
     ``"simt"`` (f32 at every D: TF32 products would not meet its bars;
-    bf16 at D = 16, 32 and 160). ``dtype`` is a torch dtype or its name."""
+    bf16 at D = 16 and 32). ``dtype`` is a torch dtype or its name."""
     name = str(dtype).rsplit(".", 1)[-1]
     if name == "bfloat16" and D in FLASH_WGMMA_HEAD_DIMS:
         return "wgmma"
@@ -225,6 +229,36 @@ def flash_attention_smem_bytes(D: int, route: str = "simt") -> int:
     return 4 * ((FLASH_BLOCK_Q + FLASH_BLOCK_K) * (D + FLASH_PAD)
                 + FLASH_BLOCK_K * D
                 + FLASH_BLOCK_Q * (FLASH_BLOCK_K + FLASH_PAD))
+
+
+def flash_wgmma_panels(D: int) -> Tuple[Tuple[int, int, int], ...]:
+    """How the wgmma body lays a head dimension D (a multiple of 32) out in
+    shared memory and reads it with TMA: ``(first column, columns,
+    swizzle bytes)`` per panel, in order. Whole panels of
+    ``FLASH_WGMMA_PANEL_COLS`` (128-byte rows, 128-byte swizzle), then,
+    where D % 64 = 32, one tail of ``FLASH_WGMMA_TAIL_COLS`` (64-byte rows,
+    64-byte swizzle). Each panel is one TMA box a tile and holds D's
+    columns exactly: nothing is padded."""
+    if D < 1 or D % FLASH_WGMMA_TAIL_COLS:
+        raise ValueError(f"the wgmma body's panels need D a multiple of "
+                         f"{FLASH_WGMMA_TAIL_COLS}, not {D}")
+    whole = D // FLASH_WGMMA_PANEL_COLS
+    panels = tuple((p * FLASH_WGMMA_PANEL_COLS, FLASH_WGMMA_PANEL_COLS, 128)
+                   for p in range(whole))
+    if D % FLASH_WGMMA_PANEL_COLS:
+        panels += ((whole * FLASH_WGMMA_PANEL_COLS, FLASH_WGMMA_TAIL_COLS,
+                    64),)
+    return panels
+
+
+def flash_wgmma_pv_widths(D: int) -> Tuple[int, ...]:
+    """The N of each wgmma of one k16 step of the wgmma body's O += P V:
+    one over the 128-byte panels together (their columns, one descriptor
+    strides from panel to panel), then one over the tail."""
+    panels = flash_wgmma_panels(D)
+    whole = sum(w for _, w, sw in panels if sw == 128)
+    return ((whole,) if whole else ()) \
+        + tuple(w for _, w, sw in panels if sw == 64)
 
 
 def flash_tile_plan(Sq: int, Sk: int, causal: bool, window: int,

@@ -6,8 +6,8 @@ Forward: on a CUDA tensor the hand-written kernel launches, or the call
 raises; on a CPU tensor the plain version runs (``ref.attention_ref``, or
 ``attention_chunked`` from ``CHUNKED_THRESHOLD`` query rows on, as
 ``repro`` dispatches its non-Pallas backends). The kernel has two bodies,
-chosen by ``dispatch.flash_attention_route``: ``wgmma`` (bf16 at D = 64
-and 128, fed by TMA) and ``simt`` (f32, and bf16 at D = 16, 32 and 160). A
+chosen by ``dispatch.flash_attention_route``: ``wgmma`` (bf16 at D = 64,
+128 and 160, fed by TMA) and ``simt`` (f32, and bf16 at D = 16 and 32). A
 failed build or launch raises; neither body stands in for the other. The
 kernel takes ragged lengths as they are (no padding), so the
 causal/window band sits at the unpadded offset Sk - Sq. An operand whose

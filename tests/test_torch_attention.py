@@ -172,11 +172,15 @@ def test_flash_attention_smem_budget():
     dimension it serves. simt (f32 tiles): 115 KB at the model's D = 128,
     139 KB at stablelm-12b's D = 160. wgmma (bf16 Q and two stages of K
     and V, 1 KB of alignment slack, the barriers): 161 KB at D = 128,
-    81 KB at D = 64."""
+    81 KB at D = 64, 201 KB at stablelm-12b's D = 160 (its 64-byte tail
+    panel adds no padding; D padded to 192 would need 246,856 bytes)."""
     assert dispatch.flash_attention_smem_bytes(128) == 117_760
     assert dispatch.flash_attention_smem_bytes(160) == 142_336
     assert dispatch.flash_attention_smem_bytes(128, "wgmma") == 164_936
     assert dispatch.flash_attention_smem_bytes(64, "wgmma") == 83_016
+    assert dispatch.flash_attention_smem_bytes(160, "wgmma") == 205_896
+    assert dispatch.flash_attention_smem_bytes(192, "wgmma") == 246_856 \
+        > dispatch.SMEM_PER_BLOCK
     for D in dispatch.FLASH_HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             route = dispatch.flash_attention_route(dtype, D)

@@ -10,9 +10,14 @@ on the CPU before the card runs it.
   scale folded into log2(e), optionally P rounded to bf16 before P V)
   against repro's ``attention_ref`` on numpy inputs from a seed: every
   ATTN_CASES shape of tests/test_torch_attention.py plus ragged, window,
-  Sq < Sk and 4:1 GQA cases, at repro's bars (atol 2e-3 f32, 2e-2 with
-  bf16 P and bf16 inputs). Where Sq > Sk leaves rows with no visible
-  key, those rows are 0 and the others match the oracle.
+  Sq < Sk and 4:1 GQA cases (stablelm-12b's D = 160 among them), at
+  repro's bars (atol 2e-3 f32, 2e-2 with bf16 P and bf16 inputs). Q K^T
+  and P V are summed panel by panel as ``dispatch.flash_wgmma_panels``
+  lays D out. Where Sq > Sk leaves rows with no visible key, those rows
+  are 0 and the others match the oracle.
+* ``dispatch.flash_wgmma_panels`` and ``flash_wgmma_pv_widths`` (the
+  head dimension in 128-byte panels and a 64-byte tail) against the C
+  source's panel constants and its P V instructions.
 * ``dispatch.flash_attention_route`` and ``dispatch.tma_strides_ok``,
   the pure functions the wrapper reads; the kernel constants the C
   source states against ``dispatch``; ``_build`` hashing every header.
@@ -55,6 +60,10 @@ CASES = [
     (1, 2, 2, 70, 333, 128, True, 150),
     (1, 8, 2, 1000, 1000, 128, True, 0),
     (1, 4, 1, 128, 256, 64, False, 0),
+    # stablelm-12b's 4:1 GQA at D = 160 (the tail panel): ragged with a
+    # window across tiles, and bidirectional Sq < Sk over a partial tile
+    (1, 8, 2, 300, 300, 160, True, 100),
+    (1, 4, 1, 130, 400, 160, False, 0),
 ]
 
 
@@ -79,10 +88,16 @@ def blocked_attention(q, k, v, causal, window, block_q=BQ, block_k=BK,
     flagged tile hides a pair, the running max m of the raw scores (a row
     whose m is still -inf scales against 0), P = 2^(s c - m c) with c =
     scale log2(e), the running sum, P (rounded to bf16 if ``bf16_p``)
-    times v, and o = acc / max(l, 1e-30)."""
+    times v, and o = acc / max(l, 1e-30). Q K^T is summed over the panels
+    of ``dispatch.flash_wgmma_panels(D)`` in order, and P V's columns come
+    one wgmma width (``flash_wgmma_pv_widths``) after another, as the
+    kernel issues them."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
+    panels = [(c, w) for c, w, _ in dispatch.flash_wgmma_panels(D)]
+    starts = np.cumsum((0,) + dispatch.flash_wgmma_pv_widths(D))
+    pv_cols = [slice(a, b) for a, b in zip(starts[:-1], starts[1:])]
     qt = _pad_rows(torch.from_numpy(q), block_q)
     kt = _pad_rows(torch.from_numpy(k), block_k).repeat_interleave(g, 1)
     vt = _pad_rows(torch.from_numpy(v), block_k).repeat_interleave(g, 1)
@@ -98,7 +113,9 @@ def blocked_attention(q, k, v, causal, window, block_q=BQ, block_k=BK,
         acc = torch.zeros((B, Hq, block_q, D))
         for kt_i, flag in zip(range(lo, hi), masked):
             cols = slice(kt_i * block_k, (kt_i + 1) * block_k)
-            s = qt[:, :, rows] @ kt[:, :, cols].transpose(-1, -2)
+            s = sum(qt[:, :, rows, c:c + w]
+                    @ kt[:, :, cols, c:c + w].transpose(-1, -2)
+                    for c, w in panels)
             if flag:
                 kpos = kt_i * block_k + torch.arange(block_k)[None, :]
                 live = kpos < Sk
@@ -114,7 +131,8 @@ def blocked_attention(q, k, v, causal, window, block_q=BQ, block_k=BK,
             l = alpha * l + p.sum(-1, keepdim=True)
             if bf16_p:
                 p = p.bfloat16().float()
-            acc = alpha * acc + p @ vt[:, :, cols]
+            acc = alpha * acc + torch.cat(
+                [p @ vt[:, :, cols, n] for n in pv_cols], dim=-1)
             m = m_new
         out[:, :, rows] = acc / torch.clamp(l, min=1e-30)
     return out[:, :, :Sq].numpy()
@@ -231,7 +249,7 @@ def test_rows_without_keys_are_zero(Sq, Sk):
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
-    (torch.bfloat16, 160, "simt"),
+    (torch.bfloat16, 160, "wgmma"),
     (torch.float32, 128, "simt"), (torch.float32, 64, "simt"),
     (torch.float32, 32, "simt"), (torch.float32, 160, "simt"),
     ("bfloat16", 128, "wgmma"), ("float32", 128, "simt")])
@@ -247,7 +265,87 @@ def test_every_serving_config_routes_bf16_to_a_built_body():
         if D not in dispatch.FLASH_HEAD_DIMS:
             continue
         route = dispatch.flash_attention_route(arch.torch_dtype, D)
-        assert route == ("wgmma" if D in (64, 128) else "simt"), name
+        assert route == ("wgmma" if D in (64, 128, 160) else "simt"), name
+
+
+@pytest.mark.parametrize("D", [64, 128, 160])
+def test_wgmma_panels_tile_the_head_dim(D):
+    """The panels cover [0, D) in order with nothing padded, each a whole
+    number of k16 steps whose TMA box fits its swizzle span (128-byte
+    panels of 64 columns, a 64-byte tail of 32), and P V's wgmma widths
+    are legal N (multiples of 8, at most 256) that cover D: one over the
+    128-byte panels, one over the tail."""
+    panels = dispatch.flash_wgmma_panels(D)
+    end = 0
+    for col, width, swizzle in panels:
+        assert col == end and width % 16 == 0 and swizzle in (64, 128)
+        assert 2 * width <= swizzle
+        end = col + width
+    assert end == D
+    assert [sw for _, _, sw in panels] == sorted(
+        (sw for _, _, sw in panels), reverse=True)
+    assert sum(sw == 64 for _, _, sw in panels) == (D % 64 != 0)
+    widths = dispatch.flash_wgmma_pv_widths(D)
+    assert sum(widths) == D
+    assert all(n % 8 == 0 and 8 <= n <= 256 for n in widths)
+    assert widths[0] == sum(w for _, w, sw in panels if sw == 128)
+    # Q K^T: D / 16 k16 steps, four to a 128-byte panel, two in the tail.
+    assert sum(w // 16 for _, w, _ in panels) == D // 16
+
+
+@pytest.mark.parametrize("D", dispatch.FLASH_WGMMA_HEAD_DIMS)
+def test_wgmma_panels_match_the_c_source(D):
+    """csrc/flash_attention.cu builds the wgmma body at D (a case of its
+    switch), issues P V with the wgmma widths ``flash_wgmma_pv_widths(D)``
+    names (its ``wgmma_pv<D>`` specialisation), and maps the 64-byte tail
+    with the 64-byte swizzle and 32-column boxes."""
+    src = (CSRC / "flash_attention.cu").read_text()
+    wg = src[src.index("namespace wg {"):src.index("}  // namespace wg")]
+    assert re.search(rf"case {D}:[^\n]*\n\s*return launch<{D}>\(", wg)
+    spec = re.search(
+        rf"void wgmma_pv<{D}>\(float \(&o\)\[{D // 2}\].*?\n}}\n", wg,
+        re.S)
+    assert spec, D
+    got = tuple(int(n) for n in
+                re.findall(r"wgmma_m64n(\d+)k16_rs_tb", spec.group(0)))
+    assert got == dispatch.flash_wgmma_pv_widths(D)
+    assert re.search(r"tail \? kTailCols : kPanelCols", wg)
+    assert re.search(r"tail \? CU_TENSOR_MAP_SWIZZLE_64B\s*"
+                     r": CU_TENSOR_MAP_SWIZZLE_128B", wg)
+    sm90 = (CSRC / "sm90.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in sm90
+    assert re.search(r"desc_sw64\(.*?\(2ull << 62\)", sm90, re.S)
+
+
+@pytest.mark.parametrize("D", [0, 16, 48, 100])
+def test_wgmma_panels_refuse_what_they_cannot_lay_out(D):
+    with pytest.raises(ValueError, match="multiple of 32"):
+        dispatch.flash_wgmma_panels(D)
+
+
+@pytest.mark.parametrize("route,body", [(None, "wgmma"), ("simt", "simt")])
+def test_bf16_d160_goes_to_its_body_build(monkeypatch, route, body):
+    """A bf16 D = 160 call on a card takes the wgmma body (or, forced for
+    measurement, the simt body): the wrapper refuses neither and goes on
+    to the build (stopped here before nvcc); nothing else runs in its
+    place."""
+    from repro_torch.kernels.flash_attention import ops
+    q = torch.zeros(1, 4, 8, 160, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1, 8, 160, dtype=torch.bfloat16)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda t: torch.device("cuda", 0)))
+    seen = []
+
+    def build_stop(name, declare):
+        raise LookupError(name)
+    monkeypatch.setattr(ops._build, "load", build_stop)
+    real = ops._readable
+    monkeypatch.setattr(ops, "_readable",
+                        lambda t, r: seen.append(r) or real(t, r))
+    with pytest.raises(LookupError, match="flash_attention"):
+        ops._launch(q, kv, kv, True, 0, 160 ** -0.5, route=route)
+    assert seen == [body] * 3
+    assert flash_attention.route_launches == {"wgmma": 0, "simt": 0}
 
 
 def test_tma_stride_rule():
@@ -307,7 +405,8 @@ def test_kernel_constants_match_dispatch():
     names = {n for _, _, n in found}
     assert {"FLASH_BLOCK_Q", "FLASH_BLOCK_K", "FLASH_PAD",
             "FLASH_WGMMA_BLOCK_Q", "FLASH_WGMMA_BLOCK_K",
-            "FLASH_WGMMA_STAGES"} <= names
+            "FLASH_WGMMA_STAGES", "FLASH_WGMMA_PANEL_COLS",
+            "FLASH_WGMMA_TAIL_COLS"} <= names
     for _, value, name in found:
         assert int(value) == getattr(dispatch, name), name
 
